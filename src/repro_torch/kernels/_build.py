@@ -1,0 +1,101 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
+use into ``<repo>/build/torch_kernels/<name>-<hash>.so``, where the hash
+covers the source and the flags, so an edited source is rebuilt and an
+unchanged one is loaded from the cache. ``-Xptxas -v`` is always on; its
+report (registers, shared memory, spills) is kept beside the library in
+``<name>-<hash>.log`` and returned by :func:`build_log`.
+
+Nothing here runs at import time: the CPU-only test host has no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "build_log", "load"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME; the port's CUDA kernels "
+        "are built on the machine with the card"
+    )
+
+
+def _target(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that is not cached yet, one nvcc process
+    each, all started together; returns ``{name: library path}``. Raises
+    ``RuntimeError`` with nvcc's output if any build fails."""
+    names = list(names)
+    targets = {n: _target(n) for n in names}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for n, t in todo.items():
+            tmp = t.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {n}.cu (exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+                continue
+            todo[n].with_suffix(".log").write_text(log)
+            os.replace(tmp, todo[n])  # atomic: concurrent builds agree
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return targets
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (the ``-Xptxas -v`` report) for ``name``'s current build."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,63 @@
+"""Shared helpers for the bilateral-grid kernels: the port's own copy of the
+grid-index arithmetic the JAX kernels use (``repro/kernels/common.py``).
+
+Every helper is numpy on the host. The one-hot matrices are kept because the
+plain versions and the tests use them to state the column maps; the CUDA
+kernel computes the same cells with integer arithmetic instead of a matmul.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.bilateral_grid import BGConfig, _taps, conv3_axis, grid_shape
+
+__all__ = [
+    "BGConfig",
+    "conv3_axis",
+    "grid_shape",
+    "gc_cells",
+    "gc_col_onehot",
+    "ti_col_onehots",
+    "ti_col_fracs",
+    "gc_row_split",
+    "taps_np",
+]
+
+
+def taps_np(cfg: BGConfig) -> np.ndarray:
+    return np.asarray(_taps(cfg), dtype=np.float32)
+
+
+def gc_cells(n: int, r: int) -> np.ndarray:
+    """Grid cell of each of ``n`` rows (or columns): round-half-up(i / r),
+    in integers."""
+    return (2 * np.arange(n) + r) // (2 * r)
+
+
+def gc_col_onehot(w: int, gy: int, r: int) -> np.ndarray:
+    """Constant (w, gy) one-hot: column j -> grid cell round(j/r)."""
+    oh = np.zeros((w, gy), np.float32)
+    oh[np.arange(w), gc_cells(w, r)] = 1.0
+    return oh
+
+
+def ti_col_fracs(w: int, r: int) -> np.ndarray:
+    """TI y lerp fraction of each column: j/r - floor(j/r), float32."""
+    return (np.arange(w) / r - np.arange(w) // r).astype(np.float32)
+
+
+def ti_col_onehots(w: int, gy: int, r: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Constant TI column maps: floor-cell one-hots for dj=0,1 and y fracs."""
+    y0 = np.arange(w) // r
+    yf = ti_col_fracs(w, r)
+    oh0 = np.zeros((w, gy), np.float32)
+    oh0[np.arange(w), y0] = 1.0
+    oh1 = np.zeros((w, gy), np.float32)
+    oh1[np.arange(w), np.minimum(y0 + 1, gy - 1)] = 1.0
+    return oh0, oh1, yf
+
+
+def gc_row_split(r: int) -> int:
+    """Rows [0, c) of a stripe land on plane s; rows [c, r) on plane s+1,
+    where c = number of i in [0,r) with round(i/r) == 0."""
+    return int(np.sum(gc_cells(r, r) == 0))

@@ -1,0 +1,220 @@
+"""The fused bilateral-grid kernel module of the port.
+
+On the CPU, ``bg_fused`` runs its plain version; it is held to the JAX
+package's fused Pallas kernel (interpret mode) and to ``ref_fused`` at the
+JAX package's tolerance (atol 5e-3, tests/test_kernels.py), and to the
+per-frame bitwise contracts of tests/test_batched_bg.py. The tests marked
+``gpu`` run the CUDA kernel and skip without a card:
+
+    pytest -m gpu tests/test_torch_kernels.py
+"""
+import importlib
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
+from repro_torch.core import BGConfig, quantize_intensity, synthetic_image_np
+from repro_torch.kernels import bg_fused, bg_fused_plain
+from repro_torch.kernels.bg_fused import H100_SMEM_OPTIN, launch_geometry, smem_bytes
+from repro_torch.kernels.ref import ref_fused
+
+# the module (the package attribute of the same name is the wrapper)
+K = importlib.import_module("repro_torch.kernels.bg_fused")
+
+SHAPES = [(32, 32), (61, 83), (45, 200)]
+PARAMS = [(2, 2.0, 30.0), (7, 4.0, 50.0), (12, 8.0, 70.0), (16, 8.0, 70.0)]
+RAGGED = [((61, 83), 7), ((45, 200), 6), ((33, 47), 4)]  # h % r and w % r != 0
+FULL_HD = [(f"table1-r{wl.bg.r}", wl.bg) for wl in TABLE1_SWEEP] + [("serve", SERVE_CONFIG)]
+
+
+def noisy_np(*shape, seed=3):
+    """(h, w) or (b, h, w) synthetic scenes + numpy noise, 8-bit quantized."""
+    h, w = shape[-2:]
+    b = shape[0] if len(shape) == 3 else 1
+    clean = np.stack([synthetic_image_np(h, w, seed=seed + i) for i in range(b)])
+    noise = np.random.default_rng(seed + 100).normal(0.0, 30.0, clean.shape)
+    out = np.clip(np.floor(clean + noise + 0.5), 0.0, 255.0).astype(np.float32)
+    return out.reshape(shape)
+
+
+@pytest.fixture
+def jx():
+    """The JAX package's fused kernel and oracle. The card's host has no JAX,
+    so ``pytest -m gpu`` there must not import it with this module."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import BGConfig as JBGConfig
+    from repro.kernels import bg_fused as j_bg_fused
+    from repro.kernels.ref import ref_fused as j_ref_fused
+
+    return SimpleNamespace(
+        np=jnp.asarray, cfg=JBGConfig, bg_fused=j_bg_fused, ref_fused=j_ref_fused
+    )
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; skips the test on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+# ------------------------------------------------------------ CPU: parity
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("params", PARAMS)
+def test_plain_matches_jax_fused_kernel_and_ref(jx, shape, params):
+    img = noisy_np(*shape)
+    port = bg_fused(torch.from_numpy(img), BGConfig(*params))
+    assert port.shape == shape and port.dtype == torch.float32
+    kernel = np.asarray(jx.bg_fused(jx.np(img), jx.cfg(*params), interpret=True))
+    ref = np.asarray(jx.ref_fused(jx.np(img), jx.cfg(*params)))
+    np.testing.assert_allclose(port.numpy(), kernel, atol=5e-3)
+    np.testing.assert_allclose(port.numpy(), ref, atol=5e-3)
+    np.testing.assert_allclose(
+        port.numpy(), ref_fused(torch.from_numpy(img), BGConfig(*params)).numpy(), atol=5e-3
+    )
+
+
+def test_pow2_weight_mode(jx):
+    img = noisy_np(48, 64)
+    port = bg_fused(torch.from_numpy(img), BGConfig(8, 8.0, 70.0, weight_mode="pow2"))
+    ref = jx.ref_fused(jx.np(img), jx.cfg(8, 8.0, 70.0, weight_mode="pow2"))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=5e-3)
+
+
+@pytest.mark.parametrize("shape,r", RAGGED)
+def test_ragged_batch_matches_ref_per_frame(jx, shape, r):
+    imgs = noisy_np(3, *shape)
+    out = bg_fused(torch.from_numpy(imgs), BGConfig(r, 4.0, 60.0))
+    assert out.shape == (3,) + shape
+    for i in range(3):
+        ref = np.asarray(jx.ref_fused(jx.np(imgs[i]), jx.cfg(r, 4.0, 60.0)))
+        np.testing.assert_allclose(out[i].numpy(), ref, atol=5e-3)
+
+
+@pytest.mark.parametrize("shape,r", RAGGED)
+def test_b1_bitwise_single_frame(shape, r):
+    img = torch.from_numpy(noisy_np(*shape))
+    single = bg_fused(img, BGConfig(r, 4.0, 60.0))
+    batched = bg_fused(img[None], BGConfig(r, 4.0, 60.0))
+    assert batched.shape == (1,) + shape
+    assert torch.equal(batched[0], single)
+
+
+@pytest.mark.parametrize("batch_tile", [1, 2, 4, 7])
+def test_output_independent_of_batch_tile(batch_tile):
+    cfg = BGConfig(6, 4.0, 60.0)
+    imgs = torch.from_numpy(noisy_np(5, 40, 55))
+    base = bg_fused(imgs, cfg)
+    assert torch.equal(bg_fused(imgs, cfg, batch_tile=batch_tile), base)
+    assert torch.equal(bg_fused_plain(imgs, cfg, batch_tile=batch_tile), base)
+    for i in range(5):
+        assert torch.equal(bg_fused(imgs[i].clone(), cfg), base[i])
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    cfg = BGConfig(6, 4.0, 60.0)
+    img = torch.zeros(2, 12, 12)
+    for bad in (0, -1, 1.5, True):
+        with pytest.raises(ValueError, match="batch_tile"):
+            bg_fused(img, cfg, batch_tile=bad)
+    with pytest.raises(TypeError, match="float32"):
+        bg_fused(img.double(), cfg)
+    with pytest.raises(TypeError):
+        bg_fused(img.numpy(), cfg)
+    with pytest.raises(ValueError, match="frames"):
+        bg_fused(torch.zeros(1, 2, 12, 12), cfg)
+    with pytest.raises(ValueError, match="paper"):
+        bg_fused(img, BGConfig(6, 4.0, 60.0, normalize_mode="classic"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        bg_fused(img.to("meta"), cfg)
+
+
+# ------------------------------------------------- CPU: launch geometry
+@pytest.mark.parametrize("name,cfg", FULL_HD)
+def test_full_hd_configs_fit_shared_memory(name, cfg):
+    for b in (1, 4, 8):
+        band, bands, smem = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
+        n = -(-1080 // cfg.r)
+        assert 1 <= band <= K._MAX_BAND and bands == -(-n // band)
+        assert smem <= H100_SMEM_OPTIN
+
+
+def test_working_set_beyond_shared_memory_raises_with_bytes():
+    r2 = FIG12_SWEEPS["r"][0]
+    assert r2.r == 2
+    need = smem_bytes(1, r2.gz, 1920 // 2 + 2)
+    assert need > H100_SMEM_OPTIN
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        launch_geometry(1, 1080, 1920, r2, 132, H100_SMEM_OPTIN)
+
+
+def test_band_rules():
+    cfg = PAPER_DEFAULT.bg  # 90 stripes, gz=4, gy=162
+    assert launch_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[0] == 1
+    assert launch_geometry(8, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[0] == 2
+    # an explicit band is cut to the stripes and to shared memory
+    assert launch_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, band=500)[0] == 27
+    assert launch_geometry(1, 30, 1920, cfg, 132, H100_SMEM_OPTIN, band=500)[0] == 3
+    r4 = TABLE1_SWEEP[0].bg  # gz=9, gy=482: two stripes fit, three do not
+    assert launch_geometry(8, 1080, 1920, r4, 132, H100_SMEM_OPTIN, band=8)[0] == 2
+
+
+# ------------------------------------------------------------- on the card
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES + [(1080, 1920)])
+@pytest.mark.parametrize("params", PARAMS[1:])
+def test_kernel_matches_plain_on_card(cuda, shape, params):
+    cfg = BGConfig(*params)
+    imgs = torch.from_numpy(noisy_np(3, *shape)).to(cuda)
+    before = bg_fused.launches
+    out = bg_fused(imgs, cfg)
+    torch.cuda.synchronize()
+    assert bg_fused.launches == before + 1 and out.is_cuda
+    plain = bg_fused_plain(imgs, cfg)
+    assert float((out - plain).abs().max()) <= 5e-3
+    diff = (quantize_intensity(out, cfg) - quantize_intensity(plain, cfg)).abs()
+    assert float((diff == 0).float().mean()) >= 0.995 and float(diff.max()) <= 1.0
+    assert torch.equal(bg_fused(imgs, cfg), out)  # no atomics: launches agree
+    assert torch.equal(bg_fused(imgs[1:2].contiguous(), cfg)[0], out[1])
+    assert torch.equal(bg_fused(imgs, cfg, batch_tile=2), out)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(K, "bg_fused_plain", boom)
+    monkeypatch.setattr(K, "_plain_frames", boom)
+    out = K.bg_fused(torch.from_numpy(noisy_np(2, 45, 200)).to(cuda), SERVE_CONFIG)
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == (2, 45, 200)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_non_contiguous_and_oversized(cuda):
+    imgs = torch.zeros(2, 64, 96, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bg_fused(imgs.transpose(1, 2), SERVE_CONFIG)
+    with pytest.raises(ValueError, match="bytes"):
+        bg_fused(torch.zeros(1, 1080, 1920, device=cuda), FIG12_SWEEPS["r"][0])
+
+
+def test_build_without_nvcc_raises_and_names_it(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all(["bg_fused"])
+    assert not (tmp_path / "build").exists() or not any((tmp_path / "build").glob("*.so"))
+    # the cache name follows the source and the flags
+    name = _build._target("bg_fused").name
+    assert name.startswith("bg_fused-") and name.endswith(".so")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DX",))
+    assert _build._target("bg_fused").name != name

@@ -1,0 +1,211 @@
+"""The port's plan, data pipeline, frame engine and launcher against the JAX
+package's, on the same numpy frames (CPU; the fused backend runs its plain
+version there). Quantized outputs must agree on >= 99.5 % of pixels with at
+most 1 LSB apart (tests/test_kernels.py)."""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import BGConfig as JBGConfig
+from repro.plan import BGPlan as JBGPlan
+from repro.serving import FrameDenoiseEngine as JEngine
+from repro.serving import FrameRequest as JRequest
+from repro_torch.core import BGConfig, synthetic_image, synthetic_image_np
+from repro_torch.data.pipeline import denoise_batch
+from repro_torch.kernels import bilateral_grid_filter_pallas
+from repro_torch.plan import BGPlan
+from repro_torch.serving import FrameDenoiseEngine, FrameRequest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARGS = (6, 4.0, 60.0)
+CFG, JCFG = BGConfig(*ARGS), JBGConfig(*ARGS)
+
+
+def frames_np(b, h=45, w=64, seed=0):
+    clean = np.stack([synthetic_image_np(h, w, seed=seed + i) for i in range(b)])
+    noise = np.random.default_rng(seed + 50).normal(0.0, 30.0, clean.shape)
+    return np.clip(np.floor(clean + noise + 0.5), 0.0, 255.0).astype(np.float32)
+
+
+def quantized_contract(a, b):
+    diff = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    assert np.mean(diff == 0.0) >= 0.995, np.mean(diff == 0.0)
+    assert diff.max() <= 1.0
+
+
+# ---------------------------------------------------------------- BGPlan
+REJECTED = [
+    (dict(backend="warp_drive"), "backend"),
+    (dict(precision="fp8"), "precision"),
+    (dict(backend="streaming", precision="bf16"), "bf16"),
+    (dict(batch_tile=0), "batch_tile"),
+    (dict(batch_tile=-2), "batch_tile"),
+    (dict(batch_tile=1.5), "batch_tile"),
+    (dict(batch_tile=2.0), "batch_tile"),
+    (dict(batch_tile=True), "batch_tile"),
+    (dict(backend="fused_streamed", temporal=True), "stream_input"),
+    (dict(backend="streaming", temporal=True), "temporal"),
+]
+NOT_PORTED = [
+    dict(backend="streaming"),
+    dict(backend="staged"),
+    dict(backend="fused_streamed"),
+    dict(temporal=True),
+    dict(backend="reference", temporal=True),
+    dict(precision="bf16"),
+]
+
+
+@pytest.mark.parametrize("kwargs,match", REJECTED)
+def test_plan_rejects_what_the_jax_plan_rejects(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        JBGPlan(cfg=JCFG, **kwargs)
+    with pytest.raises(ValueError, match=match):
+        BGPlan(cfg=CFG, device="cpu", **kwargs)
+
+
+def test_plan_rejects_non_paper_kernel_backend():
+    classic = (4, 3.0, 50.0)
+    with pytest.raises(ValueError, match="paper"):
+        JBGPlan(cfg=JBGConfig(*classic, normalize_mode="classic"), backend="fused")
+    with pytest.raises(ValueError, match="paper"):
+        BGPlan(cfg=BGConfig(*classic, normalize_mode="classic"), backend="fused", device="cpu")
+    # the reference backend takes either normalization in both packages
+    BGPlan(cfg=BGConfig(*classic, normalize_mode="classic"), backend="reference", device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", NOT_PORTED)
+def test_valid_jax_plans_not_yet_ported_raise(kwargs):
+    JBGPlan(cfg=JCFG, **kwargs)  # valid there
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        BGPlan(cfg=CFG, device="cpu", **kwargs)
+
+
+def test_plan_normalizes_like_jax():
+    assert BGPlan(CFG, backend="reference", batch_tile=4, device="cpu").batch_tile is None
+    assert JBGPlan(JCFG, backend="reference", batch_tile=4).batch_tile is None
+    a = BGPlan(CFG, batch_tile=2, device="cpu")
+    b = BGPlan(CFG, batch_tile=2, device=torch.device("cpu"))
+    assert a == b and hash(a) == hash(b)
+    assert a.executable() is b.executable()  # one executable per equal plan
+    assert a.executable() is not BGPlan(CFG, batch_tile=3, device="cpu").executable()
+
+
+def test_plan_without_device_needs_a_card():
+    if torch.cuda.is_available():
+        assert BGPlan(CFG).device.type == "cuda"
+        return
+    for make in (
+        lambda: BGPlan(CFG),
+        lambda: BGPlan(CFG, device="cuda"),
+        lambda: BGPlan.from_json(BGPlan(CFG, device="cpu").to_json()),
+        lambda: FrameDenoiseEngine(CFG),
+        lambda: synthetic_image(8, 8),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_from_json_of_a_jax_payload_gives_the_same_output():
+    jplan = JBGPlan(cfg=JCFG, backend="fused", batch_tile=2, interpret=True)
+    payload = json.loads(json.dumps(jplan.to_json()))
+    plan = BGPlan.from_json(payload, device="cpu")
+    assert (plan.cfg, plan.backend, plan.batch_tile, plan.device.type) == (CFG, "fused", 2, "cpu")
+    frames = frames_np(3)
+    out = plan(frames)
+    assert out.shape == frames.shape and out.dtype == torch.float32
+    quantized_contract(out.numpy(), np.asarray(jplan(frames)))
+    # and back: the JAX package reads the port's payload as the same recipe
+    back = JBGPlan.from_json(json.loads(json.dumps(plan.to_json())))
+    assert back == JBGPlan(cfg=JCFG, backend="fused", batch_tile=2)
+
+
+def test_from_json_rejects_what_is_not_ported():
+    payload = JBGPlan(cfg=JCFG, backend="fused").to_json()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        BGPlan.from_json(dict(payload, mesh_size=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="temporal"):
+        BGPlan.from_json(dict(payload, temporal=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        BGPlan.from_json(dict(payload, precision="bf16"), device="cpu")
+    with pytest.raises(ValueError, match="version"):
+        BGPlan.from_json(dict(payload, version=2), device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_backends_match_jax(backend):
+    frames = frames_np(2, 40, 55, seed=4)
+    out = BGPlan(CFG, backend=backend, device="cpu")(frames)
+    ref = JBGPlan(JCFG, backend=backend, interpret=True)(frames)
+    quantized_contract(out.numpy(), np.asarray(ref))
+    raw = BGPlan(CFG, backend=backend, quantize_output=False, device="cpu")(frames[0])
+    assert raw.shape == frames[0].shape and not torch.equal(raw, torch.floor(raw))
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_color_frames_fold_channels_into_batch(backend):
+    base = frames_np(3, 40, 55)
+    color = np.stack([base, base[:, ::-1], base[:, :, ::-1]], axis=-1)
+    plan = BGPlan(CFG, backend=backend, device="cpu")
+    out = denoise_batch(color, plan=plan)
+    assert out.shape == color.shape
+    per_channel = torch.stack([denoise_batch(color[..., c].copy(), plan=plan) for c in range(3)], -1)
+    assert torch.equal(out, per_channel)
+    assert torch.equal(bilateral_grid_filter_pallas(color, plan=plan), out)
+    jout = JBGPlan(JCFG, backend=backend, interpret=True)(color)
+    quantized_contract(out.numpy(), np.asarray(jout))
+
+
+# ---------------------------------------------------------------- engine
+def test_frame_engine_matches_jax_engine_with_ragged_flush():
+    frames = frames_np(7, 40, 55, seed=9)
+    eng = FrameDenoiseEngine(CFG, max_batch=3, device="cpu")
+    jeng = JEngine(JCFG, max_batch=3)
+    for i in range(7):
+        eng.submit(FrameRequest(uid=i, frame=frames[i]))
+        jeng.submit(JRequest(uid=i, frame=frames[i]))
+    sizes = []
+    done = []
+    while eng.pending():
+        batch = eng.step()
+        sizes.append(len(batch))
+        done.extend(batch)
+    assert sizes == [3, 3, 1] and eng.step() == []
+    jdone = jeng.flush()
+    assert [r.uid for r in done] == [r.uid for r in jdone] == list(range(7))
+    for r, jr in zip(done, jdone):
+        assert r.result.device.type == "cpu" and r.result.shape == (40, 55)
+        quantized_contract(r.result.numpy(), np.asarray(jr.result))
+
+
+def test_frame_engine_rejections_match_jax():
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="max_batch"):
+            JEngine(JCFG, max_batch=bad)
+        with pytest.raises(ValueError, match="max_batch"):
+            FrameDenoiseEngine(CFG, max_batch=bad, device="cpu")
+    with pytest.raises(ValueError, match="quantized"):
+        FrameDenoiseEngine(plan=BGPlan(CFG, quantize_output=False, device="cpu"))
+    with pytest.raises(TypeError):
+        FrameDenoiseEngine()
+    with pytest.raises(ValueError, match="device"):
+        FrameDenoiseEngine(plan=BGPlan(CFG, device="cpu"), device="cpu")
+    eng = FrameDenoiseEngine(plan=BGPlan(CFG, device="cpu"), max_batch=2)
+    assert eng.flush() == [] and eng.device.type == "cpu" and eng.cfg == CFG
+
+
+def test_serve_launcher_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--frames", "4",
+         "--frame-hw", "48x64", "--device", "cpu", "--micro-batch", "3"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "[serve] 4 frames 48x64 on cpu" in proc.stdout
+    assert "2 dispatches" in proc.stdout
