@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the frame-serving path from this checkout's
-sources, holds each against its plain PyTorch version at full-HD shapes,
+Builds every CUDA kernel of the frame- and video-serving paths from this
+checkout's sources (the per-frame kernel B1 and the temporal kernel B2, one
+source), holds each against its plain PyTorch version at full-HD shapes,
 serves full-HD frames through ``repro_torch.serving.FrameDenoiseEngine`` and
-shows with the launch counters that the kernels carried that run, then
-times the kernels and the plain versions with CUDA events. Prints one JSON
-object per phase; the last line is ``{"ok": true, "device": {...}}``. Any
-failed check raises and the script exits non-zero. It needs a CUDA card and
-fails without one; it imports nothing of JAX.
+full-HD video streams through ``AsyncFrameEngine`` + ``MultiStreamPacker``,
+shows with the launch counters that the kernels carried those runs, then
+times the kernels and the plain versions with CUDA events and serves both
+paths through the launcher. Prints one JSON object per phase; the line
+before the last is the card's ``nvidia-smi`` name and power limit, the last
+``{"ok": true, "device": {...}}``. Any failed check raises and the script
+exits non-zero. It needs a CUDA card and fails without one; it imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,6 +32,10 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 TOL_ABS = 5e-3  # fused vs ref_fused in the JAX package's tests/test_kernels.py
 TOL_EXACT = 0.995  # quantized outputs: share of exactly equal pixels
 TOL_LSB = 1.0  # quantized outputs: largest difference
+# temporal image and carry vs the staged oracle, the JAX package's
+# tests/test_temporal_fused.py:118-123
+TOL_CARRY_ABS, TOL_CARRY_REL = 2e-2, 1e-3
+ALPHAS = (0.0, 0.4, 0.6, 0.8)
 
 
 def emit(obj) -> None:
@@ -72,6 +80,204 @@ def bg_fused_bound(b: int, h: int, w: int, cfg, grid_shape):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def bg_fused_temporal_bound(b: int, h: int, w: int, cfg, grid_shape):
+    """(bound_ms, bound_by, bytes, flops) of the temporal kernel on b
+    frames: the per-frame bound plus the carry read once and written once
+    (2 x 4 B per cell and channel) and alpha, and 6 FLOP per grid cell for
+    the blend of both channels."""
+    _, _, nbytes, flops = bg_fused_bound(b, h, w, cfg, grid_shape)
+    gx, gy, gz = grid_shape(h, w, cfg)
+    nbytes += b * (2 * gx * gy * gz * 2 * 4 + 4)
+    flops += b * 6 * gx * gy * gz
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def tpu_kernel_bounds(cfg, grid_shape) -> dict:
+    """Bytes bound (ms) per 1080x1920 frame of every TPU kernel of the repo,
+    each input read once and each output written once, at 3.35 TB/s: B1
+    and B3 image in and out; B2 that plus the carry in and out; B4 image in,
+    (gx, 2, gz, gy) grid out; B5 grid in and out; B6 image and scalar grid
+    in, image out. All are far from the fp32 operation bound."""
+    gx, gy, gz = grid_shape(H, W, cfg)
+    img, grid = H * W * 4, gx * gy * gz * 2 * 4
+    nbytes = {"B1": 2 * img, "B2": 2 * img + 2 * grid, "B3": 2 * img,
+              "B4": img + grid, "B5": 2 * grid, "B6": 2 * img + grid // 2}
+    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def carry_close(torch, a, b) -> bool:
+    return bool(torch.allclose(a, b, atol=TOL_CARRY_ABS, rtol=TOL_CARRY_REL))
+
+
+def temporal_vs_plain(torch, x8, cfgs, bg_fused, bg_fused_plain, quantize_intensity, grid_shape):
+    """B2 against its plain version on 4 full-HD frames per config, two
+    chained steps (the second on the carry the first returned), with the
+    bitwise contracts. Returns the largest image and carry errors."""
+    dev = x8.device
+    alpha = torch.tensor(ALPHAS, device=dev)
+    max_img = max_carry = 0.0
+    for label, cfg in cfgs:
+        gx, gy, gz = grid_shape(H, W, cfg)
+        carry = torch.zeros((4, gx, gy, gz, 2), device=dev)
+        p_carry = carry
+        row = {"phase": "temporal_vs_plain", "config": label, "shape": [4, H, W], "alpha": list(ALPHAS)}
+        for step, x in enumerate((x8[:4].contiguous(), x8[4:].contiguous())):
+            out, new = bg_fused(x, cfg, carry=carry, alpha=alpha)
+            p_out, p_new = bg_fused_plain(x, cfg, carry=p_carry, alpha=alpha)
+            sync(torch, dev)
+            img_err = float((out - p_out).abs().max())
+            carry_err = float((new - p_new).abs().max())
+            exact, lsb = quantized_agreement(quantize_intensity(out, cfg), quantize_intensity(p_out, cfg))
+            b1 = bg_fused(x, cfg)
+            zero_a = bg_fused(x, cfg, carry=carry, alpha=torch.zeros_like(alpha))[0]
+            o1, c1 = bg_fused(x[2:3].contiguous(), cfg, carry=carry[2:3].contiguous(), alpha=alpha[2:3].contiguous())
+            again = bg_fused(x, cfg, carry=carry, alpha=alpha)
+            drain = float(new[:, gx - 1].abs().max())
+            row[f"step{step}"] = {
+                "max_abs_err": img_err, "carry_max_abs_err": carry_err,
+                "quantized_exact": exact, "quantized_max_diff": lsb,
+                "alpha0_row_bitwise_b1": bool(torch.equal(out[0], b1[0])),
+                "alpha0_launch_bitwise_b1": bool(torch.equal(zero_a, b1)),
+                "b1_bitwise_row": bool(torch.equal(o1[0], out[2]) and torch.equal(c1[0], new[2])),
+                "repeat_bitwise": bool(torch.equal(again[0], out) and torch.equal(again[1], new)),
+                "drain_plane_max": drain,
+                "drain_plane_close": carry_close(torch, new[:, gx - 1], p_new[:, gx - 1]),
+            }
+            r = row[f"step{step}"]
+            check(out.shape == x.shape and new.shape == carry.shape, f"{label}: shapes")
+            check(bool(torch.isfinite(out).all() and torch.isfinite(new).all()), f"{label}: finite")
+            check(img_err <= TOL_ABS, f"{label} step {step}: image err {img_err} > {TOL_ABS}")
+            check(carry_close(torch, new, p_new), f"{label} step {step}: carry err {carry_err}")
+            check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"{label} step {step}: quantized {exact}, {lsb}")
+            check(r["alpha0_row_bitwise_b1"] and r["alpha0_launch_bitwise_b1"], f"{label}: alpha 0 vs B1")
+            check(r["b1_bitwise_row"] and r["repeat_bitwise"], f"{label}: bitwise contracts")
+            check(drain > 0.0 and r["drain_plane_close"], f"{label}: drain plane gx-1")
+            max_img, max_carry = max(max_img, img_err), max(max_carry, carry_err)
+            carry, p_carry = new, p_new
+        emit(row)
+    return max_img, max_carry
+
+
+def video_slice(torch, cfg, smi, dev):
+    """4 full-HD streams x 8 frames through AsyncFrameEngine +
+    MultiStreamPacker on ``dev``, counted and checked against the same
+    packs through the staged oracle on ``dev``."""
+    import numpy as np
+
+    from repro_torch.core import psnr, quantize_intensity
+    from repro_torch.data import synthetic_video_np
+    from repro_torch.kernels import bg_fused
+    from repro_torch.plan import BGPlan
+    from repro_torch.serving import AsyncFrameEngine
+    from repro_torch.video import MultiStreamPacker
+
+    n_streams, n_frames = 4, 8
+    rng = np.random.default_rng(7)
+    clean, noisy = [], []
+    for s in range(n_streams):
+        vid = synthetic_video_np(s, n_frames, H, W, motion=0.0 if s == 3 else 1.5)
+        clean.append(vid)
+        noisy.append(np.clip(np.floor(vid + rng.normal(0.0, 30.0, vid.shape) + 0.5), 0, 255).astype(np.float32))
+    plan = BGPlan(cfg, device=dev)
+
+    def fresh(p=plan, streams=range(n_streams), alphas=ALPHAS):
+        packer = MultiStreamPacker(plan=p)
+        for s in streams:
+            packer.open(s, alpha=alphas[s])
+        return packer
+
+    packer = fresh()
+    packs = []  # the stream ids of each pack, in dispatch order
+    real = packer.pack_guarded
+
+    def recording(frames, **kw):
+        packs.append((sorted(frames), any(packer.sessions[s].alpha > 0.0 for s in frames)))
+        return real(frames, **kw)
+
+    packer.pack_guarded = recording
+    done = {s: [] for s in range(n_streams)}
+    eng = AsyncFrameEngine(max_batch=n_streams, batch_window_ms=5.0, packer=packer)
+    bg_fused.launches = bg_fused.temporal_launches = 0
+    futs = {}
+
+    def submit(s, t):
+        futs[(s, t)] = eng.submit(noisy[s][t], stream_id=s)
+        futs[(s, t)].add_done_callback(lambda _f: done[s].append(t))
+
+    # stream 0 (alpha 0) alone first: an all-cold pack, the per-frame kernel
+    submit(0, 0)
+    futs[(0, 0)].result()
+    for t in range(n_frames):
+        for s in range(n_streams):
+            if (s, t) != (0, 0):
+                submit(s, t)
+    eng.flush()
+    sync(torch, dev)
+    b1_launches, b2_launches = bg_fused.launches, bg_fused.temporal_launches
+    st = eng.stats()
+    eng.close()
+    outs = {k: f.result() for k, f in futs.items()}
+    cold = sum(1 for _, warm in packs if not warm)
+    check(all(f.done() and f.exception() is None for f in futs.values()), "every future resolved")
+    check(all(done[s] == sorted(done[s]) and len(done[s]) == n_frames for s in done), f"per-stream order {done}")
+    check(st.dispatches == len(packs), f"{st.dispatches} dispatches for {len(packs)} packs")
+    check(b2_launches == len(packs) - cold and b1_launches == cold,
+          f"launches B1 {b1_launches} B2 {b2_launches} for {len(packs)} packs, {cold} cold")
+    check(st.shed == st.failed == st.carry_resets == 0 and packer.carry_resets == 0,
+          f"shed {st.shed} failed {st.failed} quarantined {st.carry_resets}")
+    check(all(o.device == dev and tuple(o.shape) == (H, W) and bool(torch.isfinite(o).all())
+              for o in outs.values()), "results are finite (h, w) tensors on the card")
+
+    # the same packs through the staged oracle on the card
+    ref = fresh(BGPlan(cfg, backend="reference", device=dev))
+    nxt = {s: 0 for s in range(n_streams)}
+    worst_exact, worst_lsb = 1.0, 0.0
+    for sids, _ in packs:
+        res = ref.pack({s: noisy[s][nxt[s]] for s in sids})
+        for s in sids:
+            exact, lsb = quantized_agreement(outs[(s, nxt[s])], res[s])
+            worst_exact, worst_lsb = min(worst_exact, exact), max(worst_lsb, lsb)
+            nxt[s] += 1
+    check(worst_exact >= TOL_EXACT and worst_lsb <= TOL_LSB, f"vs staged oracle: {worst_exact}, {worst_lsb}")
+    carries_ok = all(
+        carry_close(torch, packer.sessions[s].carry, ref.sessions[s].carry) for s in range(1, n_streams)
+    )
+    carry_err = max(float((packer.sessions[s].carry - ref.sessions[s].carry).abs().max())
+                    for s in range(1, n_streams))
+    check(carries_ok, f"carries vs staged oracle: max err {carry_err}")
+
+    # streams 0 (alpha 0) and 1 (alpha 0.4) alone through a fresh packer
+    for s in (0, 1):
+        solo = fresh(streams=(s,))
+        for t in range(n_frames):
+            check(torch.equal(solo.pack({s: noisy[s][t]})[s], outs[(s, t)]), f"stream {s} frame {t} leaks")
+
+    # temporal accumulation on the static stream: alpha 0.8 against 0
+    per_frame = fresh(streams=(3,), alphas=(0.0, 0.0, 0.0, 0.0))
+    for t in range(n_frames):
+        flat = per_frame.pack({3: noisy[3][t]})[3]
+    target = torch.as_tensor(clean[3][-1], device=dev)
+    psnr_warm = float(psnr(target, outs[(3, n_frames - 1)]))
+    psnr_cold = float(psnr(target, flat))
+    check(psnr_warm > psnr_cold, f"static stream PSNR {psnr_warm} <= {psnr_cold} at alpha 0")
+    row = {"phase": "video_slice", "config": "PAPER_DEFAULT", "streams": n_streams, "frames": n_frames,
+           "alphas": list(ALPHAS), "packs": len(packs), "cold_packs": cold, "dispatches": st.dispatches,
+           "bg_fused_launches": b1_launches, "bg_fused_temporal_launches": b2_launches,
+           "mean_batch": st.mean_batch, "vs_oracle_exact": worst_exact, "vs_oracle_max_diff": worst_lsb,
+           "carry_max_abs_err_vs_oracle": carry_err, "psnr_static_alpha08": psnr_warm,
+           "psnr_static_alpha0": psnr_cold, "shed": st.shed, "failed": st.failed,
+           "quarantined": st.carry_resets, "card": smi}
+    emit(row)
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -81,7 +287,7 @@ def main() -> None:
     from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
     from repro_torch.core import add_gaussian_noise, grid_shape, mssim, psnr, quantize_intensity, synthetic_batch
     from repro_torch.kernels import _build, bg_fused, bg_fused_plain
-    from repro_torch.launch.serve import serve_frames
+    from repro_torch.launch.serve import serve_frames, serve_video
     from repro_torch.plan import BGPlan
     from repro_torch.serving import FrameDenoiseEngine, FrameRequest
 
@@ -132,6 +338,9 @@ def main() -> None:
         check(row["repeat_bitwise"] and row["b1_bitwise_single"] and row["batch_row_bitwise_single"],
               f"{label}: bitwise contracts")
         max_err = max(max_err, err)
+    t_img_err, t_carry_err = temporal_vs_plain(
+        torch, x8, cfgs, bg_fused, bg_fused_plain, quantize_intensity, grid_shape
+    )
     too_big = FIG12_SWEEPS["r"][0]  # r=2 at full HD: the working set exceeds shared memory
     try:
         bg_fused(x4[:1].contiguous(), too_big)
@@ -174,6 +383,9 @@ def main() -> None:
     check(q["psnr_denoised"] > q["psnr_noisy"] and q["mssim_denoised"] > q["mssim_noisy"],
           "denoising improves PSNR and MSSIM")
 
+    # ---- phase 3b: the video slice, through the async engine and packer
+    video = video_slice(torch, cfg, smi, dev)
+
     # ---- phase 4: times at b=8, PAPER_DEFAULT, CUDA events
     k8 = bg_fused(x8, cfg)
     p8 = bg_fused_plain(x8, cfg)
@@ -184,17 +396,55 @@ def main() -> None:
     plain_ms = cuda_ms(torch, lambda: bg_fused_plain(x8, cfg), reps=5, warmup=1)
     b = x8.shape[0]
     bound_ms, bound_by, nbytes, flops = bg_fused_bound(b, H, W, cfg, grid_shape)
+    # B2 at b=4 and b=8 on a carry from the frames themselves, alpha mixed
+    gx, gy, gz = grid_shape(H, W, cfg)
+    temporal_times = {}
+    for tb in (4, 8):
+        xs = x8[:tb].contiguous()
+        alpha = torch.tensor((ALPHAS * 2)[:tb], device=dev)
+        carry = bg_fused(xs, cfg, carry=torch.zeros((tb, gx, gy, gz, 2), device=dev),
+                         alpha=torch.zeros_like(alpha))[1]
+        k_out, k_carry = bg_fused(xs, cfg, carry=carry, alpha=alpha)
+        p_out, p_carry = bg_fused_plain(xs, cfg, carry=carry, alpha=alpha)
+        err = float((k_out - p_out).abs().max())
+        check(err <= TOL_ABS and carry_close(torch, k_carry, p_carry), f"B2 b={tb}: err {err}")
+        t_img_err = max(t_img_err, err)
+        t_ms = cuda_ms(torch, lambda: bg_fused(xs, cfg, carry=carry, alpha=alpha), reps=50)
+        t_plain_ms = cuda_ms(torch, lambda: bg_fused_plain(xs, cfg, carry=carry, alpha=alpha), reps=5, warmup=1)
+        temporal_times[tb] = (t_ms, t_plain_ms) + bg_fused_temporal_bound(tb, H, W, cfg, grid_shape)
+        emit({"phase": "temporal_times", "config": "PAPER_DEFAULT", "batch": tb, "ms": t_ms,
+              "ms_per_frame": t_ms / tb, "plain_ms": t_plain_ms, "plain_ms_per_frame": t_plain_ms / tb,
+              "bound_ms": temporal_times[tb][2], "bound_ms_per_frame": temporal_times[tb][2] / tb,
+              "bound_by": temporal_times[tb][3], "card": smi})
+    t_ms, t_plain_ms, t_bound_ms, t_bound_by, t_bytes, t_flops = temporal_times[8]
+    emit({"phase": "bounds", "config": "PAPER_DEFAULT", "frame_hw": [H, W],
+          "bytes_bound_ms_per_frame": tpu_kernel_bounds(cfg, grid_shape)})
     emit({"kernels": [{
         "name": "bg_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bg_fused.cu",
         "replaces": "src/repro/kernels/bg_fused.py:645",
         "launches": launches, "dispatches": dispatches,
         "launches_per_dispatch": launches / dispatches,
+        "video_slice_launches": video["bg_fused_launches"], "video_slice_cold_packs": video["cold_packs"],
         "max_abs_err": max_err, "tolerance": TOL_ABS,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "ms_per_frame": ms / b, "plain_ms_per_frame": plain_ms / b, "bound_ms_per_frame": bound_ms / b,
         "bytes": nbytes, "flops": flops, "timed_shape": [b, H, W], "config": "PAPER_DEFAULT",
+        "card": smi,
+    }, {
+        "name": "bg_fused_temporal", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bg_fused.cu",
+        "replaces": "src/repro/kernels/bg_fused.py:569",
+        "launches": video["bg_fused_temporal_launches"], "dispatches": video["dispatches"],
+        "launches_per_dispatch": video["bg_fused_temporal_launches"] / video["dispatches"],
+        "max_abs_err": t_img_err, "tolerance": TOL_ABS,
+        "carry_max_abs_err": t_carry_err, "carry_tolerance": [TOL_CARRY_ABS, TOL_CARRY_REL],
+        "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound_ms, "bound_by": t_bound_by,
+        "library_ms": None,
+        "ms_per_frame": t_ms / 8, "plain_ms_per_frame": t_plain_ms / 8, "bound_ms_per_frame": t_bound_ms / 8,
+        "ms_per_frame_b4": temporal_times[4][0] / 4,
+        "bytes": t_bytes, "flops": t_flops, "timed_shape": [8, H, W], "config": "PAPER_DEFAULT",
         "card": smi,
     }]})
     # stripes per block: the wrapper's rule against the alternatives
@@ -212,6 +462,9 @@ def main() -> None:
               "ms_per_frame_by_stripes_per_block": ms_by_band, "card": smi})
     stats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda")
     emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **stats})
+    vstats = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda")
+    check(vstats["failed"] == vstats["shed"] == 0, f"serve_video: {vstats}")
+    emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -1,11 +1,15 @@
 """Fused GC -> GF -> TI bilateral-grid filter: the CUDA kernel's wrapper and
-its plain PyTorch version.
+its plain PyTorch version, per frame and temporal.
 
-The kernel (``csrc/bg_fused.cu``) replaces the JAX package's per-frame fused
-Pallas kernel (``repro/kernels/bg_fused.py::_kernel``, launch at ``:645``).
-It computes, per frame, the paper's grid creation, Gaussian grid filter with
-per-cell normalization and trilinear slice, unquantized, with the grid held
-in shared memory and never written to HBM. See the source for the design.
+The kernel (``csrc/bg_fused.cu``) replaces the JAX package's fused Pallas
+kernel (``repro/kernels/bg_fused.py::_kernel``) in both of its launches: per
+frame (``:645``, B1) and temporal (``:569``, B2). It computes, per frame, the
+paper's grid creation, Gaussian grid filter with per-cell normalization and
+trilinear slice, unquantized, with the grid held in shared memory and never
+written to HBM. The temporal launch (``carry=`` and ``alpha=``) blends each
+blurred homogeneous plane with the frame's carry, ``B' = (1-a) B + a C``,
+before TI reads it, and returns ``B'`` as the new carry. See the source for
+the design.
 
 Dispatch follows the tensor's device and nothing else:
 
@@ -15,10 +19,11 @@ Dispatch follows the tensor's device and nothing else:
 There is no fallback from the kernel to the plain version. The plain version
 is the reference the tests and ``chip_smoke.py`` hold the kernel to.
 
-Per-frame results depend on nothing but the frame: not on the batch it
-shares, not on ``batch_tile``, not on how the kernel cuts the frame into
-bands (a band recomputes its halo planes with the same code as its
-neighbours), and not on the launch (no float atomics).
+Per-frame results depend on nothing but the frame (and its carry row and
+alpha): not on the batch it shares, not on ``batch_tile``, not on how the
+kernel cuts the frame into bands (a band recomputes its halo planes with the
+same code as its neighbours), and not on the launch (no float atomics). An
+``alpha == 0`` row of a temporal call equals the per-frame call bit for bit.
 """
 from __future__ import annotations
 
@@ -52,8 +57,12 @@ _MAX_BAND = 2
 
 # ----------------------------------------------------------------- plain
 def bg_fused_plain(
-    image: torch.Tensor, cfg: BGConfig, batch_tile: Optional[int] = None
-) -> torch.Tensor:
+    image: torch.Tensor,
+    cfg: BGConfig,
+    batch_tile: Optional[int] = None,
+    carry: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
+):
     """Plain PyTorch version of the fused kernel, on any device.
 
     Batched whole-image GC -> GF -> normalize -> TI in fp32 tensor ops, with
@@ -61,17 +70,26 @@ def bg_fused_plain(
     row and column cells, blur along x, then z, then y, and the kernel's
     TI lerp order. It uses no matmul and no convolution, so TF32 settings do
     not reach it. ``batch_tile`` bounds the frames per pass (memory only; the
-    result does not depend on it).
+    result does not depend on it). With ``carry`` and ``alpha`` it is the
+    temporal version and returns ``(out, new_carry)`` (see :func:`bg_fused`).
     """
     _check_batch_tile(batch_tile)
-    x = _frames(image)
+    x, carry, alpha = _operands(image, cfg, carry, alpha)
     b = x.shape[0]
     bt = b if batch_tile is None else min(batch_tile, b)
-    out = torch.cat([_plain_frames(x[i:i + bt], cfg) for i in range(0, b, bt)])
-    return out[0] if image.dim() == 2 else out
+    if carry is None:
+        out = torch.cat([_plain_frames(x[i:i + bt], cfg) for i in range(0, b, bt)])
+        return out[0] if image.dim() == 2 else out
+    parts = [
+        _plain_frames(x[i:i + bt], cfg, carry[i:i + bt], alpha[i:i + bt])
+        for i in range(0, b, bt)
+    ]
+    out = torch.cat([p[0] for p in parts])
+    new_carry = torch.cat([p[1] for p in parts])
+    return (out[0], new_carry[0]) if image.dim() == 2 else (out, new_carry)
 
 
-def _plain_frames(x: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
+def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None):
     b, h, w = x.shape
     r = cfg.r
     gx, gy, gz = grid_shape(h, w, cfg)
@@ -93,10 +111,16 @@ def _plain_frames(x: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
     grid[1].index_put_((flat,), (x * inside).reshape(-1), accumulate=True)
     grid = grid.reshape(2, b, gx, gz, gy).permute(1, 2, 0, 3, 4)  # (b, gx, 2, gz, gy)
 
-    # ---- GF: x, z, y with zero borders, then eq. (4) per cell
+    # ---- GF: x, z, y with zero borders
     blurred = grid
     for axis in (1, 3, 4):
         blurred = _conv3(blurred, taps, axis)
+    if carry is not None:
+        # ---- temporal EMA of the blurred homogeneous grid, the kernel's
+        # rounding: each product and the sum rounded on its own
+        a = alpha.reshape(b, 1, 1, 1, 1)
+        blurred = (1.0 - a) * blurred + a * carry.permute(0, 1, 4, 3, 2)
+    # ---- eq. (4) per cell
     count, summ = blurred[:, :, 0], blurred[:, :, 1]
     norm = torch.where(
         count > 1e-12, summ / torch.clamp(count, min=1e-12), torch.zeros_like(summ)
@@ -128,7 +152,10 @@ def _plain_frames(x: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
         a1 = at(k + 1, zc, y0) * (1.0 - wy) + at(k + 1, zc, y1) * wy
         return (a0 * (1.0 - wx) + a1 * wx) * ok
 
-    return (1.0 - zf) * ti_bin(z0) + zf * ti_bin(z0 + 1)
+    out = (1.0 - zf) * ti_bin(z0) + zf * ti_bin(z0 + 1)
+    if carry is None:
+        return out
+    return out, blurred.permute(0, 1, 4, 3, 2).contiguous()  # (b, gx, gy, gz, 2)
 
 
 def _conv3(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
@@ -140,10 +167,13 @@ def _conv3(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- kernel
-def smem_bytes(band: int, gz: int, gy: int) -> int:
+def smem_bytes(band: int, gz: int, gy: int, temporal: bool = False) -> int:
     """Dynamic shared memory of one block that owns ``band`` stripes: raw
-    planes (count, sum) k0-1 .. k1+1 and normalized planes k0 .. k1."""
-    return 4 * gz * gy * (2 * (band + 3) + (band + 1))
+    planes (count, sum) k0-1 .. k1+1 and normalized planes k0 .. k1, and for
+    a temporal launch one more of each (the last band's drain plane when
+    ``h % r == 0``)."""
+    t = int(temporal)
+    return 4 * gz * gy * (2 * (band + 3 + t) + (band + 1 + t))
 
 
 def launch_geometry(
@@ -154,6 +184,7 @@ def launch_geometry(
     num_sms: int,
     smem_limit: int,
     band: Optional[int] = None,
+    temporal: bool = False,
 ) -> Tuple[int, int, int]:
     """``(band, bands_per_frame, smem_bytes)`` of a launch over ``b`` frames.
 
@@ -165,21 +196,21 @@ def launch_geometry(
     """
     _, gy, gz = grid_shape(h, w, cfg)
     n = -(-h // cfg.r)
-    need = smem_bytes(1, gz, gy)
+    need = smem_bytes(1, gz, gy, temporal)
     if need > smem_limit:
         raise ValueError(
             f"bg_fused: one stripe of a {h}x{w} frame at r={cfg.r} (gy={gy}, "
-            f"gz={gz}) needs {need} bytes of shared memory per block, above "
-            f"the card's {smem_limit}; this shape needs y tiling, which the "
-            f"kernel does not have yet"
+            f"gz={gz}{', temporal' if temporal else ''}) needs {need} bytes of "
+            f"shared memory per block, above the card's {smem_limit}; this "
+            f"shape needs y tiling, which the kernel does not have yet"
         )
     fit = 1
-    while fit < n and smem_bytes(fit + 1, gz, gy) <= smem_limit:
+    while fit < n and smem_bytes(fit + 1, gz, gy, temporal) <= smem_limit:
         fit += 1
     if band is None:
         band = min(_MAX_BAND, (b * n) // (_BLOCKS_PER_SM * num_sms))
     band = max(1, min(band, fit, n))
-    return band, -(-n // band), smem_bytes(band, gz, gy)
+    return band, -(-n // band), smem_bytes(band, gz, gy, temporal)
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,8 +219,10 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load(KERNEL)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bg_fused_launch.argtypes = [p, p, p, p] + [i] * 8 + [f] * 4 + [i, i, p]
+    lib.bg_fused_launch.argtypes = [p] * 4 + [i] * 9 + [f] * 4 + [i, i, p]
     lib.bg_fused_launch.restype = i
+    lib.bg_fused_temporal_launch.argtypes = [p] * 7 + [i] * 9 + [f] * 4 + [i, i, p]
+    lib.bg_fused_temporal_launch.restype = i
     lib.bg_fused_smem_optin.argtypes = [i]
     lib.bg_fused_smem_optin.restype = i
     lib.bg_fused_error_string.argtypes = [i]
@@ -216,36 +249,71 @@ def _ti_fracs(w: int, r: int, device: torch.device):
     )
 
 
-def _launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, band=None) -> None:
-    """One kernel launch over the contiguous (b, h, w) CUDA frames ``x``."""
+def _launch(
+    x: torch.Tensor,
+    out: torch.Tensor,
+    cfg: BGConfig,
+    band=None,
+    carry: Optional[torch.Tensor] = None,
+    carry_out: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
+) -> None:
+    """One kernel launch over the contiguous (b, h, w) CUDA frames ``x``:
+    B1, or B2 when ``carry`` is given (with ``carry_out`` and ``alpha``)."""
     b, h, w = x.shape
     dev = x.device
+    temporal = carry is not None
     num_sms, smem_limit = _device_limits(dev.index)
-    band, _, smem = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band)
-    _, gy, gz = grid_shape(h, w, cfg)
+    band, _, smem = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal)
+    gx, gy, gz = grid_shape(h, w, cfg)
     yf, xf = _ti_fracs(w, cfg.r, dev)
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
-    err = _lib().bg_fused_launch(
-        x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-        b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), band,
+    geometry = (
+        b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), band,
         float(np.float32(1.0 / cfg.range_scale)), t0, t1, t2,
         smem, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
+    lib = _lib()
+    if temporal:
+        err = lib.bg_fused_temporal_launch(
+            x.data_ptr(), out.data_ptr(), carry.data_ptr(), carry_out.data_ptr(),
+            alpha.data_ptr(), yf.data_ptr(), xf.data_ptr(), *geometry,
+        )
+    else:
+        err = lib.bg_fused_launch(
+            x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), *geometry
+        )
     if err != 0:
-        msg = _lib().bg_fused_error_string(err).decode()
+        msg = lib.bg_fused_error_string(err).decode()
         raise RuntimeError(f"bg_fused launch failed: CUDA error {err} ({msg})")
-    bg_fused.launches += 1
+    if temporal:
+        bg_fused.temporal_launches += 1
+    else:
+        bg_fused.launches += 1
 
 
 def bg_fused(
-    image: torch.Tensor, cfg: BGConfig, batch_tile: Optional[int] = None
-) -> torch.Tensor:
+    image: torch.Tensor,
+    cfg: BGConfig,
+    batch_tile: Optional[int] = None,
+    carry: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
+):
     """Fused BG filter, (h, w) -> (h, w) or (b, h, w) -> (b, h, w), float32,
     unquantized, paper normalization.
 
+    ``carry`` + ``alpha`` select the temporal path (the JAX package's
+    ``bg_fused_impl(carry=, alpha=)``): ``carry`` is the ``(b, gx, gy, gz,
+    2)`` float32 blurred-grid EMA state, one row per frame, ``alpha`` the
+    ``(b,)`` float32 blend weights; the call then returns ``(out,
+    new_carry)``, with ``new_carry`` a fresh tensor. An ``(h, w)`` frame
+    takes a ``(gx, gy, gz, 2)`` carry and a one-element alpha and squeezes
+    both results.
+
     CPU tensors run :func:`bg_fused_plain`; CUDA tensors run the kernel, one
     launch per ``batch_tile`` frames (``None``: all frames in one launch), on
-    the current stream. ``bg_fused.launches`` counts kernel launches.
+    the current stream. ``bg_fused.launches`` counts per-frame launches and
+    ``bg_fused.temporal_launches`` temporal ones.
     """
     _check_batch_tile(batch_tile)
     if cfg.normalize_mode != "paper":
@@ -253,9 +321,9 @@ def bg_fused(
             f"bg_fused implements the paper normalization mode, got "
             f"{cfg.normalize_mode!r}"
         )
-    x = _frames(image)
+    x, carry_b, alpha_b = _operands(image, cfg, carry, alpha)
     if x.device.type == "cpu":
-        return bg_fused_plain(image, cfg, batch_tile)
+        return bg_fused_plain(image, cfg, batch_tile, carry, alpha)
     if x.device.type != "cuda":
         raise ValueError(f"bg_fused runs on CUDA or CPU tensors, got {x.device}")
     if not x.is_contiguous():
@@ -265,12 +333,52 @@ def bg_fused(
         raise ValueError(f"bg_fused: {b} frames of {h}x{w} exceed one launch")
     out = torch.empty_like(x)
     bt = b if batch_tile is None else batch_tile
+    if carry_b is None:
+        for i in range(0, b, bt):
+            _launch(x[i:i + bt], out[i:i + bt], cfg)
+        return out[0] if image.dim() == 2 else out
+    for t, name in ((carry_b, "carry"), (alpha_b, "alpha")):
+        if t.device != x.device:
+            raise ValueError(f"bg_fused: {name} is on {t.device}, the frames on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"bg_fused needs a contiguous {name}")
+    new_carry = torch.empty_like(carry_b)  # never aliased to the carry read
     for i in range(0, b, bt):
-        _launch(x[i:i + bt], out[i:i + bt], cfg)
-    return out[0] if image.dim() == 2 else out
+        s = slice(i, i + bt)
+        _launch(x[s], out[s], cfg, carry=carry_b[s], carry_out=new_carry[s], alpha=alpha_b[s])
+    return (out[0], new_carry[0]) if image.dim() == 2 else (out, new_carry)
 
 
 bg_fused.launches = 0
+bg_fused.temporal_launches = 0
+
+
+def _operands(image, cfg: BGConfig, carry, alpha):
+    """``(frames, carry, alpha)`` with a leading frame axis, checked as the
+    JAX package's ``bg_fused_impl`` checks them; carry and alpha are
+    ``None`` for a per-frame call."""
+    x = _frames(image)
+    if (carry is None) != (alpha is None):
+        raise ValueError("temporal path needs both carry= and alpha= (or neither)")
+    if carry is None:
+        return x, None, None
+    for t, name in ((carry, "carry"), (alpha, "alpha")):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"bg_fused takes a torch.Tensor {name}, got {type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"bg_fused takes a float32 {name}, got {t.dtype}")
+    if image.dim() == 2:
+        carry, alpha = carry[None], alpha.reshape(1)
+    b, h, w = x.shape
+    gx, gy, gz = grid_shape(h, w, cfg)
+    if tuple(carry.shape) != (b, gx, gy, gz, 2):
+        raise ValueError(
+            f"carry shape {tuple(carry.shape)} != {(b, gx, gy, gz, 2)} for "
+            f"{(b, h, w)} frames"
+        )
+    if tuple(alpha.shape) != (b,):
+        raise ValueError(f"alpha shape {tuple(alpha.shape)} != ({b},)")
+    return x, carry, alpha
 
 
 def _frames(image: torch.Tensor) -> torch.Tensor:

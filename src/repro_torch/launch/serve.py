@@ -1,17 +1,23 @@
-"""Frame-serving launcher: stream synthetic noisy frames through the
-micro-batching frame engine on one device.
+"""Frame- and video-serving launcher: stream synthetic noisy frames through
+the micro-batching frame engine, or synthetic video streams through the
+async engine and the multi-stream packer, on one device.
 
     python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
         --micro-batch 8 --config paper-default
     python -m repro_torch.launch.serve --frames 4 --frame-hw 48x64 --device cpu
+    python -m repro_torch.launch.serve --video 4 --video-frames 24 \\
+        --frame-hw 1080x1920 --alpha 0.6 --config paper-default
+    python -m repro_torch.launch.serve --video 2 --video-frames 3 \\
+        --frame-hw 36x48 --device cpu
 
-The JAX launcher's ``--video``, ``--workers`` and LM modes are not ported yet.
+The JAX launcher's ``--workers`` and LM modes are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 CONFIGS = ("serve", "paper-default")
@@ -78,9 +84,106 @@ def serve_frames(
     }
 
 
+def serve_video(
+    streams: int,
+    frames_per_stream: int,
+    height: int,
+    width: int,
+    alpha: float,
+    fps: float = 0.0,
+    deadline_ms: float | None = None,
+    batch_window_ms: float = 5.0,
+    config: str = "serve",
+    device=None,
+) -> dict:
+    """Serve ``streams`` synthetic noisy video streams of
+    ``frames_per_stream`` frames each through ``AsyncFrameEngine`` +
+    ``MultiStreamPacker`` (the JAX launcher's ``serve_video``), every stream
+    at ``alpha``, at ``fps`` frames per second per stream (0: as fast as
+    they are taken), each request with a ``deadline_ms`` budget (None: no
+    deadline). The traffic is made on the host first, as clients would
+    send it; one pack through a throwaway engine warms the kernels up.
+
+    Returns frames/s, fps per stream, p50/p99 latency (submit to
+    completion), dispatches, mean batch, deadline misses, shed and failed
+    requests, and the per-frame (B1) and temporal (B2) kernel launches of
+    the timed run."""
+    from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
+    from repro_torch.data import synthetic_video_np
+    from repro_torch.kernels import bg_fused
+    from repro_torch.plan import BGPlan
+    from repro_torch.serving import AsyncFrameEngine
+    from repro_torch.video import MultiStreamPacker
+
+    if config not in CONFIGS:
+        raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
+    cfg = PAPER_DEFAULT.bg if config == "paper-default" else SERVE_CONFIG
+    rng = np.random.default_rng(0)
+    traffic = []
+    for s in range(streams):
+        vid = synthetic_video_np(s, frames_per_stream, height, width, motion=1.5)
+        noisy = vid + rng.normal(0.0, 30.0, vid.shape)
+        traffic.append(np.clip(np.floor(noisy + 0.5), 0.0, 255.0).astype(np.float32))
+    plan = BGPlan(cfg, backend="fused", temporal=False, device=device)
+
+    def engine():
+        packer = MultiStreamPacker(plan=plan)
+        for s in range(streams):
+            packer.open(s, alpha=alpha)
+        return AsyncFrameEngine(max_batch=streams, batch_window_ms=batch_window_ms, packer=packer)
+
+    # warm-up through a throwaway engine: the kernel build and first
+    # launches stay out of the timed run's telemetry and stream state
+    with engine() as warm:
+        for f in [warm.submit(traffic[s][0], stream_id=s) for s in range(streams)]:
+            f.result()
+
+    period = 1.0 / fps if fps else 0.0
+    b1, b2 = bg_fused.launches, bg_fused.temporal_launches
+    with engine() as eng:
+        t0 = time.monotonic()
+        for t in range(frames_per_stream):
+            if period:
+                pause = t0 + t * period - time.monotonic()
+                if pause > 0:
+                    time.sleep(pause)
+            for s in range(streams):
+                eng.submit(traffic[s][t], stream_id=s, deadline_ms=deadline_ms)
+        eng.flush()  # failures are counted in the engine's stats
+        dt = time.monotonic() - t0
+        st = eng.stats()
+    total = streams * frames_per_stream
+    return {
+        "streams": streams,
+        "frames": total,
+        "seconds": dt,
+        "frames_per_s": total / dt,
+        "fps_per_stream": total / dt / streams,
+        "latency_ms_p50": st.latency_ms_p50,
+        "latency_ms_p99": st.latency_ms_p99,
+        "dispatches": st.dispatches,
+        "mean_batch": st.mean_batch,
+        "deadline_misses": st.deadline_misses,
+        "shed": st.shed,
+        "failed": st.failed,
+        "bg_fused_launches": bg_fused.launches - b1,
+        "bg_fused_temporal_launches": bg_fused.temporal_launches - b2,
+        "device": str(plan.device),
+        "plan": plan.describe(),
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, required=True, help="frames to serve")
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--frames", type=int, help="frames to serve")
+    mode.add_argument("--video", type=int, help="video streams to serve")
+    ap.add_argument("--video-frames", type=int, default=16, help="frames per stream")
+    ap.add_argument("--alpha", type=float, default=0.6, help="temporal EMA weight per stream")
+    ap.add_argument("--fps", type=float, default=0.0, help="frames/s per stream (0: max)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="latency budget per video frame (0: none)")
+    ap.add_argument("--batch-window-ms", type=float, default=5.0, help="video batch window")
     ap.add_argument("--frame-hw", default="96x128", help="frame size HxW")
     ap.add_argument("--micro-batch", type=int, default=8, help="frames per dispatch")
     ap.add_argument("--config", choices=CONFIGS, default="serve",
@@ -89,6 +192,22 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     h, w = (int(x) for x in args.frame_hw.split("x"))
+    if args.video is not None:
+        st = serve_video(
+            args.video, args.video_frames, h, w, args.alpha, args.fps,
+            args.deadline_ms or None, args.batch_window_ms, args.config, args.device,
+        )
+        print(
+            f"[serve] video: {st['frames']} frames ({st['streams']} streams) {h}x{w} "
+            f"on {st['device']} in {st['seconds']:.3f}s ({st['frames_per_s']:.1f} "
+            f"frames/s, {st['fps_per_stream']:.1f} fps/stream) "
+            f"p50={st['latency_ms_p50']:.1f}ms p99={st['latency_ms_p99']:.1f}ms "
+            f"dispatches={st['dispatches']} mean_batch={st['mean_batch']:.1f} "
+            f"deadline_misses={st['deadline_misses']} shed={st['shed']} "
+            f"failed={st['failed']} launches b1={st['bg_fused_launches']} "
+            f"b2={st['bg_fused_temporal_launches']} plan[{st['plan']}]"
+        )
+        return
     stats = serve_frames(args.frames, h, w, args.micro_batch, args.config, args.device)
     print(
         f"[serve] {stats['frames']} frames {h}x{w} on {stats['device']} "

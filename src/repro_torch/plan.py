@@ -8,14 +8,21 @@ equal plans share one executable.
   backend        route
   -------------  -----------------------------------------------------------
   "reference"    whole-image GC -> GF -> TI per frame (``repro_torch.core``);
-                 the numerical oracle
+                 the numerical oracle. Temporal: the staged oracle
+                 (``blurred_grid_batch`` -> EMA blend -> normalize -> slice)
   "fused"        the fused CUDA kernel (``kernels/bg_fused.py``), grid kept
-                 in shared memory; its plain version on the CPU
+                 in shared memory; its plain version on the CPU. Temporal:
+                 the same kernel with the in-kernel grid EMA
+
+A temporal plan (``temporal=True``) is called as ``plan(frames, carry=,
+alpha=)`` and returns ``(out, new_carry)``; the video packer derives the
+temporal and per-frame variants of one base plan per pack
+(:meth:`BGPlan.as_temporal`).
 
 The JAX package's other routes ("streaming", "staged", "fused_streamed"),
-temporal plans, ``precision="bf16"`` and mesh sharding are valid plans there
-and raise ``NotImplementedError`` here until they are ported. A plan the
-JAX package rejects is rejected here with the same ``ValueError``.
+``precision="bf16"`` and mesh sharding are valid plans there and raise
+``NotImplementedError`` here until they are ported. A plan the JAX package
+rejects is rejected here with the same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
 raises when there is none; ``device="cpu"`` runs the plain versions.
@@ -26,6 +33,7 @@ import dataclasses
 import functools
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -54,7 +62,8 @@ class BGPlan:
     Fields:
       cfg:             the grid/window configuration (frozen ``BGConfig``).
       backend:         ``"reference"`` or ``"fused"`` (module docstring).
-      temporal:        video grid-EMA form; not yet ported.
+      temporal:        the video grid-EMA form: called with ``carry=`` and
+                       ``alpha=``, returns ``(out, new_carry)``.
       batch_tile:      frames per kernel launch on the ``"fused"`` backend
                        (``None``: the whole dispatch in one launch); frames
                        per pass of the plain version on the CPU. Results do
@@ -121,13 +130,47 @@ class BGPlan:
         # valid in the JAX package, not ported yet
         if self.backend not in PORTED_BACKENDS:
             raise NotImplementedError(f"backend {self.backend!r} is not yet ported")
-        if self.temporal:
-            raise NotImplementedError("temporal plans are not yet ported")
         if self.precision != "fp32":
             raise NotImplementedError(
                 f"precision={self.precision!r} is not yet ported"
             )
         object.__setattr__(self, "device", resolve_device(self.device))
+
+    # ------------------------------------------------------------ utilities
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """The dtype frames, scratch and the temporal carry are held in
+        (fp32: bf16 storage is not ported yet)."""
+        return torch.float32
+
+    @property
+    def np_storage_dtype(self) -> np.dtype:
+        """Numpy view of :attr:`storage_dtype` (the snapshot side)."""
+        return np.dtype(np.float32)
+
+    def tile_for(self, n_frames: int) -> int:
+        """Frames per kernel launch for an ``n_frames`` pack: the whole pack
+        when ``batch_tile`` is ``None``, else ``batch_tile`` cut to the pack.
+        The video packer asks the plan for it per pack."""
+        n = max(1, int(n_frames))
+        return n if self.batch_tile is None else min(self.batch_tile, n)
+
+    def with_tile(self, batch_tile: int) -> "BGPlan":
+        """This plan with ``batch_tile`` pinned (cached: per-pack hot path)."""
+        if batch_tile == self.batch_tile:
+            return self
+        return _variant(self, "batch_tile", batch_tile)
+
+    def with_options(self, **changes) -> "BGPlan":
+        """``dataclasses.replace`` with plan validation re-run."""
+        return dataclasses.replace(self, **changes)
+
+    def as_temporal(self, temporal: bool = True) -> "BGPlan":
+        """The temporal / per-frame variant of this plan (cached: the video
+        packer derives one per pack)."""
+        if self.temporal == temporal:
+            return self
+        return _variant(self, "temporal", temporal)
 
     # -------------------------------------------------------- serialization
     def to_json(self) -> dict:
@@ -170,21 +213,57 @@ class BGPlan:
     def describe(self) -> str:
         """One-line dispatch summary for logs."""
         return (
-            f"backend={self.backend} bt={self.batch_tile} "
-            f"prec={self.precision} device={self.device}"
+            f"backend={self.backend} temporal={self.temporal} "
+            f"bt={self.batch_tile} prec={self.precision} device={self.device}"
         )
 
     # ------------------------------------------------------------- dispatch
     def executable(self):
-        """The plan's callable ``fn(frames) -> out`` (one per equal plan)."""
+        """The plan's callable (one per equal plan): ``fn(frames) -> out``,
+        or for a temporal plan ``fn(frames, carry, alpha) -> (out,
+        new_carry)``."""
         return _plan_executable(self)
 
-    def __call__(self, frames):
+    def __call__(self, frames, carry=None, alpha=None):
         """Denoise a (h, w) frame, a (b, h, w) batch or a (b, h, w, c) color
         batch (channels are folded into the batch: each gets its own grid).
         Frames (numpy or tensor) are moved to the plan's device as float32;
-        the result stays there."""
+        the result stays there.
+
+        A temporal plan takes (h, w) or (n, h, w) frames with ``carry`` (the
+        ``(n, gx, gy, gz, 2)`` carries) and ``alpha`` and returns ``(out,
+        new_carry)``. A host alpha (scalar, list or numpy) is broadcast to
+        ``(n,)`` and range-checked here, once; a tensor alpha is trusted, as
+        checking a device tensor would wait for the card."""
         frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+        if self.temporal:
+            if carry is None or alpha is None:
+                raise ValueError("temporal plan dispatch needs both carry= and alpha=")
+            carry = torch.as_tensor(carry, dtype=torch.float32, device=self.device)
+            squeeze = frames.dim() == 2
+            if squeeze:
+                frames, carry = frames[None], carry[None]
+            if frames.dim() != 3:
+                raise ValueError(
+                    f"temporal plans take (h, w) or (n, h, w) frames, got "
+                    f"{tuple(frames.shape)}"
+                )
+            n = frames.shape[0]
+            if isinstance(alpha, torch.Tensor):
+                alpha = alpha.to(device=self.device, dtype=torch.float32)
+                if alpha.dim() == 0:
+                    alpha = alpha.expand(n)
+            else:
+                alpha_np = np.broadcast_to(np.asarray(alpha, np.float32), (n,))
+                if (alpha_np < 0.0).any() or (alpha_np >= 1.0).any():
+                    raise ValueError(f"temporal alpha must be in [0, 1), got {alpha}")
+                alpha = torch.as_tensor(alpha_np.copy(), device=self.device)
+            out, new_carry = self.executable()(
+                frames.contiguous(), carry.contiguous(), alpha.contiguous()
+            )
+            return (out[0], new_carry[0]) if squeeze else (out, new_carry)
+        if carry is not None or alpha is not None:
+            raise ValueError("carry/alpha require a temporal plan (BGPlan(temporal=True))")
         if frames.dim() == 4:
             b, h, w, c = frames.shape
             folded = frames.movedim(-1, 1).reshape(b * c, h, w).contiguous()
@@ -199,10 +278,44 @@ class BGPlan:
 
 
 @functools.lru_cache(maxsize=256)
+def _variant(plan: BGPlan, field: str, value) -> BGPlan:
+    """``plan`` with one field changed, validated once per distinct value."""
+    return dataclasses.replace(plan, **{field: value})
+
+
+@functools.lru_cache(maxsize=256)
 def _plan_executable(plan: BGPlan):
     """ONE callable per plan: the compute route plus output quantization."""
     cfg = plan.cfg
     quant = plan.quantize_output
+
+    def _maybe_quantize(out):
+        return quantize_intensity(out, cfg) if quant else out
+
+    if plan.temporal and plan.backend == "reference":
+        # the staged oracle: the grid is visible between GF and TI
+        from repro_torch.core.bilateral_grid import grid_normalize, grid_slice
+        from repro_torch.video.temporal import blurred_grid_batch
+
+        def fn(frames, carry, alpha):
+            a = alpha.reshape(-1, 1, 1, 1, 1)
+            new_carry = (1.0 - a) * blurred_grid_batch(frames, cfg) + a * carry
+            grid_f = grid_normalize(new_carry)
+            out = torch.stack([grid_slice(g, f, cfg) for g, f in zip(grid_f, frames)])
+            return _maybe_quantize(out), new_carry
+
+        return fn
+
+    if plan.temporal:
+        from repro_torch.kernels.bg_fused import bg_fused
+
+        def fn(frames, carry, alpha):
+            out, new_carry = bg_fused(
+                frames, cfg, batch_tile=plan.batch_tile, carry=carry, alpha=alpha
+            )
+            return _maybe_quantize(out), new_carry
+
+        return fn
 
     if plan.backend == "reference":
 
@@ -219,7 +332,6 @@ def _plan_executable(plan: BGPlan):
     from repro_torch.kernels.bg_fused import bg_fused
 
     def fn(frames):
-        out = bg_fused(frames, cfg, batch_tile=plan.batch_tile)
-        return quantize_intensity(out, cfg) if quant else out
+        return _maybe_quantize(bg_fused(frames, cfg, batch_tile=plan.batch_tile))
 
     return fn

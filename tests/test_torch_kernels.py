@@ -163,7 +163,93 @@ def test_band_rules():
     assert launch_geometry(8, 1080, 1920, r4, 132, H100_SMEM_OPTIN, band=8)[0] == 2
 
 
+@pytest.mark.parametrize("name,cfg", FULL_HD)
+def test_full_hd_temporal_working_set_fits(name, cfg):
+    """The temporal launch sizes every block for the last band's working
+    set: one more raw and one more blended plane than B1."""
+    _, gy, gz = K.grid_shape(1080, 1920, cfg)
+    for band in (1, 2):
+        extra = smem_bytes(band, gz, gy, temporal=True) - smem_bytes(band, gz, gy)
+        assert extra == 3 * 4 * gz * gy
+    for b in (1, 4, 8):
+        band, _, smem = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, temporal=True)
+        assert smem == smem_bytes(band, gz, gy, temporal=True) <= H100_SMEM_OPTIN
+    # PAPER_DEFAULT and the serve grid at band 2 (ISSUE figures)
+    assert smem_bytes(2, 4, 162, temporal=True) == 41472
+    assert smem_bytes(2, 4, 322, temporal=True) == 82432
+
+
 # ------------------------------------------------------------- on the card
+TEMPORAL_CARD = [((36, 48), SERVE_CONFIG), ((45, 55), SERVE_CONFIG), ((33, 47), BGConfig(4, 4.0, 60.0)),
+                 ((1080, 1920), PAPER_DEFAULT.bg)]
+
+
+def temporal_inputs(n, h, w, cfg, device, seed=5):
+    frames = torch.from_numpy(noisy_np(n, h, w, seed=seed)).to(device)
+    rng = np.random.default_rng(seed)
+    carry = torch.from_numpy(
+        rng.uniform(0.0, 4.0, (n, *K.grid_shape(h, w, cfg), 2)).astype(np.float32)
+    ).to(device)
+    alpha = torch.tensor([0.0, 0.4, 0.6, 0.8][:n], device=device)
+    return frames, carry, alpha
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", TEMPORAL_CARD)
+def test_temporal_kernel_matches_plain_on_card(cuda, shape, cfg):
+    frames, carry, alpha = temporal_inputs(4, *shape, cfg, cuda)
+    b1, b2 = bg_fused.launches, bg_fused.temporal_launches
+    out, new_carry = bg_fused(frames, cfg, carry=carry, alpha=alpha)
+    torch.cuda.synchronize()
+    assert bg_fused.temporal_launches == b2 + 1 and bg_fused.launches == b1
+    assert new_carry.data_ptr() != carry.data_ptr()
+    p_out, p_carry = bg_fused_plain(frames, cfg, carry=carry, alpha=alpha)
+    assert float((out - p_out).abs().max()) <= 5e-3
+    torch.testing.assert_close(new_carry, p_carry, atol=2e-2, rtol=1e-3)
+    gx = new_carry.shape[1]
+    if shape[0] % cfg.r == 0:  # the drain plane: TI never reads it, the EMA must
+        assert float(p_carry[:, gx - 1].abs().max()) > 0.0
+    # chained: the second step on the carry the first returned
+    out2, carry2 = bg_fused(frames.flip(0).contiguous(), cfg, carry=new_carry, alpha=alpha)
+    p_out2, p_carry2 = bg_fused_plain(frames.flip(0).contiguous(), cfg, carry=p_carry, alpha=alpha)
+    assert float((out2 - p_out2).abs().max()) <= 5e-3
+    torch.testing.assert_close(carry2, p_carry2, atol=2e-2, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", TEMPORAL_CARD)
+def test_temporal_alpha0_rows_bitwise_b1_on_card(cuda, shape, cfg):
+    frames, carry, alpha = temporal_inputs(4, *shape, cfg, cuda)
+    ref = bg_fused(frames, cfg)
+    out, new = bg_fused(frames, cfg, carry=carry, alpha=alpha)
+    assert torch.equal(out[0], ref[0])  # alpha[0] == 0
+    out0, _ = bg_fused(frames, cfg, carry=carry, alpha=torch.zeros_like(alpha))
+    assert torch.equal(out0, ref)
+    # b=1 equals its row of the batch, image and carry; two launches agree
+    o1, c1 = bg_fused(frames[2:3].contiguous(), cfg, carry=carry[2:3].contiguous(), alpha=alpha[2:3].contiguous())
+    assert torch.equal(o1[0], out[2]) and torch.equal(c1[0], new[2])
+    again = bg_fused(frames, cfg, carry=carry, alpha=alpha)
+    assert torch.equal(again[0], out) and torch.equal(again[1], new)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", TEMPORAL_CARD)
+def test_temporal_carry_planes_have_one_owner(cuda, shape, cfg):
+    """Every carry plane is written (none left at its NaN fill) and its bits
+    do not depend on how many stripes a block owns."""
+    frames, carry, alpha = temporal_inputs(3, *shape, cfg, cuda)
+    ref_out, ref_carry = None, None
+    for band in (1, 2, 3, 500):
+        out = torch.empty_like(frames)
+        new = torch.full_like(carry, float("nan"))
+        K._launch(frames, out, cfg, band, carry=carry, carry_out=new, alpha=alpha[:3].contiguous())
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(new).all()) and bool(torch.isfinite(out).all())
+        if ref_out is None:
+            ref_out, ref_carry = out, new
+        assert torch.equal(out, ref_out) and torch.equal(new, ref_carry)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", SHAPES + [(1080, 1920)])
 @pytest.mark.parametrize("params", PARAMS[1:])

@@ -55,8 +55,8 @@ NOT_PORTED = [
     dict(backend="streaming"),
     dict(backend="staged"),
     dict(backend="fused_streamed"),
-    dict(temporal=True),
-    dict(backend="reference", temporal=True),
+    dict(temporal=True, precision="bf16"),
+    dict(backend="reference", temporal=True, precision="bf16"),
     dict(precision="bf16"),
 ]
 
@@ -129,8 +129,8 @@ def test_from_json_rejects_what_is_not_ported():
     payload = JBGPlan(cfg=JCFG, backend="fused").to_json()
     with pytest.raises(NotImplementedError, match="mesh"):
         BGPlan.from_json(dict(payload, mesh_size=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="temporal"):
-        BGPlan.from_json(dict(payload, temporal=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="fused_streamed"):
+        BGPlan.from_json(dict(payload, backend="fused_streamed"), device="cpu")
     with pytest.raises(NotImplementedError, match="bf16"):
         BGPlan.from_json(dict(payload, precision="bf16"), device="cpu")
     with pytest.raises(ValueError, match="version"):
