@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the frame- and video-serving paths from this
-checkout's sources (the per-frame kernel B1 and the temporal kernel B2, one
-source), holds each against its plain PyTorch version at full-HD shapes,
-serves full-HD frames through ``repro_torch.serving.FrameDenoiseEngine`` and
-full-HD video streams through ``AsyncFrameEngine`` + ``MultiStreamPacker``,
-shows with the launch counters that the kernels carried those runs, then
-times the kernels and the plain versions with CUDA events and serves both
-paths through the launcher. Prints one JSON object per phase; the line
+Builds every CUDA kernel of the port from this checkout's sources (the
+per-frame kernel B1 and the temporal kernel B2, one source; the streamed
+kernel B3; the staged kernels B4, B5 and B6), holds each against its plain
+PyTorch version at full-HD shapes (B3 against B1 bit for bit), serves
+full-HD frames through ``repro_torch.serving.FrameDenoiseEngine`` on the
+fused and the streamed backend, runs the staged backend through
+``denoise_batch``, serves full-HD video streams through ``AsyncFrameEngine``
++ ``MultiStreamPacker``, shows with the launch counters that the kernels
+carried those runs, then times the kernels, their plain versions and the
+PyTorch calls that compute the same functions with CUDA events, and serves
+the paths through the launcher. Prints one JSON object per phase; the line
 before the last is the card's ``nvidia-smi`` name and power limit, the last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero. It needs a CUDA card and fails without one; it imports
@@ -35,7 +38,15 @@ TOL_LSB = 1.0  # quantized outputs: largest difference
 # temporal image and carry vs the staged oracle, the JAX package's
 # tests/test_temporal_fused.py:118-123
 TOL_CARRY_ABS, TOL_CARRY_REL = 2e-2, 1e-3
+# staged kernels vs their plain versions, the JAX package's
+# tests/test_kernels.py:43,53,64: GC, GF (rtol and atol), TI
+TOL_GC, TOL_GF, TOL_TI = 1e-4, (1e-4, 1e-2), 1e-3
 ALPHAS = (0.0, 0.4, 0.6, 0.8)
+SOURCES = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur", "bg_slice")
+# every launch counter of the port: (wrapper, attribute)
+COUNTERS = (("bg_fused", "launches"), ("bg_fused", "temporal_launches"),
+            ("bg_fused", "streamed_launches"), ("bg_create", "launches"),
+            ("bg_blur", "launches"), ("bg_slice", "launches"))
 
 
 def emit(obj) -> None:
@@ -67,17 +78,23 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def bg_fused_bound(b: int, h: int, w: int, cfg, grid_shape):
-    """(bound_ms, bound_by, bytes, flops) of the fused filter on b frames:
-    each input read once and each output written once, against the
-    operations of separable GC / GF / TI (32 FLOP per pixel: 5 in GC, 27 in
-    TI; 33 per grid cell in GF and normalization)."""
+    """(bound_ms, bound_by, bytes, flops) of the fused filter on b frames
+    (B1 and B3): each input read once and each output written once, against
+    the operations of separable GC / GF / TI (32 FLOP per pixel: 5 in GC, 27
+    in TI; 33 per grid cell in GF and normalization)."""
     gx, gy, gz = grid_shape(h, w, cfg)
     nbytes = b * h * w * 4 * 2 + (w + cfg.r) * 4
     flops = b * (32 * h * w + 33 * gx * gy * gz)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    return (*bound(nbytes, flops), nbytes, flops)
 
 
 def bg_fused_temporal_bound(b: int, h: int, w: int, cfg, grid_shape):
@@ -89,9 +106,22 @@ def bg_fused_temporal_bound(b: int, h: int, w: int, cfg, grid_shape):
     gx, gy, gz = grid_shape(h, w, cfg)
     nbytes += b * (2 * gx * gy * gz * 2 * 4 + 4)
     flops += b * 6 * gx * gy * gz
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    return (*bound(nbytes, flops), nbytes, flops)
+
+
+def staged_bounds(b: int, h: int, w: int, cfg, grid_shape) -> dict:
+    """{kernel: (bound_ms, bound_by, bytes, flops)} of the staged kernels on
+    b frames, each input read once and each output written once: B4 reads
+    the frames and writes the (count, sum) grid (5 FLOP per pixel); B5 reads
+    and writes that grid (15 FLOP per value: 3 taps along 3 axes); B6 reads
+    the frames and the scalar grid and writes the frames (27 FLOP per
+    pixel)."""
+    gx, gy, gz = grid_shape(h, w, cfg)
+    img, cells = h * w * 4, gx * gy * gz
+    work = {"B4": (b * (img + cells * 8), b * 5 * h * w),
+            "B5": (b * 2 * cells * 8, b * 15 * cells * 2),
+            "B6": (b * (2 * img + cells * 4) + (w + cfg.r) * 4, b * 27 * h * w)}
+    return {k: (*bound(nb, fl), nb, fl) for k, (nb, fl) in work.items()}
 
 
 def tpu_kernel_bounds(cfg, grid_shape) -> dict:
@@ -204,7 +234,7 @@ def video_slice(torch, cfg, smi, dev):
     packer.pack_guarded = recording
     done = {s: [] for s in range(n_streams)}
     eng = AsyncFrameEngine(max_batch=n_streams, batch_window_ms=5.0, packer=packer)
-    bg_fused.launches = bg_fused.temporal_launches = 0
+    zero_counts()
     futs = {}
 
     def submit(s, t):
@@ -221,6 +251,7 @@ def video_slice(torch, cfg, smi, dev):
     eng.flush()
     sync(torch, dev)
     b1_launches, b2_launches = bg_fused.launches, bg_fused.temporal_launches
+    counts = kernel_counts()
     st = eng.stats()
     eng.close()
     outs = {k: f.result() for k, f in futs.items()}
@@ -228,8 +259,8 @@ def video_slice(torch, cfg, smi, dev):
     check(all(f.done() and f.exception() is None for f in futs.values()), "every future resolved")
     check(all(done[s] == sorted(done[s]) and len(done[s]) == n_frames for s in done), f"per-stream order {done}")
     check(st.dispatches == len(packs), f"{st.dispatches} dispatches for {len(packs)} packs")
-    check(b2_launches == len(packs) - cold and b1_launches == cold,
-          f"launches B1 {b1_launches} B2 {b2_launches} for {len(packs)} packs, {cold} cold")
+    check_counts(counts, {"bg_fused.launches": cold, "bg_fused.temporal_launches": len(packs) - cold},
+                 f"video slice, {len(packs)} packs, {cold} cold")
     check(st.shed == st.failed == st.carry_resets == 0 and packer.carry_resets == 0,
           f"shed {st.shed} failed {st.failed} quarantined {st.carry_resets}")
     check(all(o.device == dev and tuple(o.shape) == (H, W) and bool(torch.isfinite(o).all())
@@ -278,6 +309,212 @@ def video_slice(torch, cfg, smi, dev):
     return row
 
 
+def kernel_counts() -> dict:
+    import repro_torch.kernels as k
+
+    return {f"{fn}.{attr}": getattr(getattr(k, fn), attr) for fn, attr in COUNTERS}
+
+
+def zero_counts() -> None:
+    import repro_torch.kernels as k
+
+    for fn, attr in COUNTERS:
+        setattr(getattr(k, fn), attr, 0)
+
+
+def check_counts(got: dict, want: dict, what: str) -> None:
+    """Every counter is 0 but those in ``want``, which equal their value."""
+    expected = {k: want.get(k, 0) for k in got}
+    check(got == expected, f"{what}: launches {got}, expected {expected}")
+
+
+def streamed_vs_fused(torch, x4, label, cfg, b1_out, plain):
+    """B3 against B1 on 4 full-HD frames: bit for bit on the frames, at a
+    ragged width (1918 columns: rows of 7,672 B, not a multiple of 16), at
+    b=1 against the single frame, and across two launches. Returns the
+    largest |B3 - plain|."""
+    from repro_torch.kernels import bg_fused
+
+    s = bg_fused(x4, cfg, stream_input=True)
+    s_again = bg_fused(x4, cfg, stream_input=True)
+    xr = x4[:, :, : W - 2].contiguous()
+    ragged_b1, ragged_b3 = bg_fused(xr, cfg), bg_fused(xr, cfg, stream_input=True)
+    single = bg_fused(x4[2].contiguous(), cfg, stream_input=True)
+    one = bg_fused(x4[2:3].contiguous(), cfg, stream_input=True)
+    sync(torch, x4.device)
+    err = float((s - plain).abs().max())
+    row = {"phase": "streamed_vs_fused", "config": label, "shape": list(x4.shape),
+           "bitwise_b1": bool(torch.equal(s, b1_out)),
+           "ragged_shape": list(xr.shape), "ragged_bitwise_b1": bool(torch.equal(ragged_b3, ragged_b1)),
+           "b1_bitwise_single": bool(torch.equal(one[0], single) and torch.equal(single, s[2])),
+           "repeat_bitwise": bool(torch.equal(s, s_again)), "max_abs_err_vs_plain": err}
+    emit(row)
+    check(s.shape == x4.shape and bool(torch.isfinite(s).all()), f"{label}: B3 shape/finite")
+    check(row["bitwise_b1"] and row["ragged_bitwise_b1"], f"{label}: B3 differs from B1")
+    check(row["b1_bitwise_single"] and row["repeat_bitwise"], f"{label}: B3 bitwise contracts")
+    check(err <= TOL_ABS, f"{label}: max |B3 - plain| {err} > {TOL_ABS}")
+    return err
+
+
+def staged_vs_plain(torch, x4, label, cfg):
+    """B4, B5 and B6 against their plain versions on 4 full-HD frames at the
+    JAX package's tolerances, and the staged backend's quantized output
+    against the fused backend's. Returns the largest GC, GF and TI errors."""
+    from repro_torch.core import grid_normalize
+    from repro_torch.kernels import (bg_blur, bg_blur_plain, bg_create, bg_create_plain,
+                                     bg_slice, bg_slice_plain)
+    from repro_torch.plan import BGPlan
+
+    dev = x4.device
+    grid = bg_create(x4, cfg)
+    blurred = bg_blur(grid, cfg)
+    gf = grid_normalize(blurred)
+    out = bg_slice(gf, x4, cfg)
+    gc_err = float((grid - bg_create_plain(x4, cfg)).abs().max())
+    blurred_plain = bg_blur_plain(grid, cfg)
+    gf_err = float((blurred - blurred_plain).abs().max())
+    gf_ok = bool(torch.allclose(blurred, blurred_plain, rtol=TOL_GF[0], atol=TOL_GF[1]))
+    ti_err = float((out - bg_slice_plain(gf, x4, cfg)).abs().max())
+    counted = float(grid[..., 0].sum())
+    staged_q = BGPlan(cfg, backend="staged", device=dev)(x4)
+    fused_q = BGPlan(cfg, backend="fused", device=dev)(x4)
+    sync(torch, dev)
+    exact, lsb = quantized_agreement(staged_q, fused_q)
+    emit({"phase": "staged_vs_plain", "config": label, "shape": list(x4.shape),
+          "grid_shape": list(grid.shape), "gc_max_abs_err": gc_err, "gc_counts": counted,
+          "gf_max_abs_err": gf_err, "gf_within_tolerance": gf_ok, "ti_max_abs_err": ti_err,
+          "tolerances": {"gc": TOL_GC, "gf": list(TOL_GF), "ti": TOL_TI},
+          "staged_vs_fused_exact": exact, "staged_vs_fused_max_diff": lsb})
+    check(bool(torch.isfinite(out).all()) and out.shape == x4.shape, f"{label}: staged shape/finite")
+    check(gc_err <= TOL_GC and counted == x4.numel(), f"{label}: GC err {gc_err}, counts {counted}")
+    check(gf_ok, f"{label}: GF err {gf_err}")
+    check(ti_err <= TOL_TI, f"{label}: TI err {ti_err}")
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"{label}: staged vs fused {exact}, {lsb}")
+    return gc_err, gf_err, ti_err
+
+
+def streamed_slice(torch, cfg, frames, ref, dev):
+    """The JAX engine's ``stream_input=True`` form: 19 full-HD requests at
+    max_batch 8 through ``FrameDenoiseEngine(cfg, stream_input=True)``,
+    counted, and held to the reference backend's output ``ref``."""
+    from repro_torch.serving import FrameDenoiseEngine, FrameRequest
+
+    eng = FrameDenoiseEngine(cfg, max_batch=8, stream_input=True, device=dev)
+    zero_counts()
+    for i, f in enumerate(frames):
+        eng.submit(FrameRequest(uid=i, frame=f))
+    done, dispatches = [], 0
+    while eng.pending():
+        done.extend(eng.step())
+        dispatches += 1
+    sync(torch, dev)
+    counts = kernel_counts()
+    check(eng.plan.backend == "fused_streamed", f"engine plan {eng.plan.describe()}")
+    check([r.uid for r in done] == list(range(len(frames))), "every request answered in order")
+    check(dispatches == 3, f"{dispatches} dispatches")
+    check_counts(counts, {"bg_fused.streamed_launches": 3}, "streamed slice")
+    out = torch.stack([r.result for r in done])
+    check(out.device == dev and bool(torch.isfinite(out).all()) and tuple(out.shape[1:]) == (H, W),
+          "streamed output")
+    exact, lsb = quantized_agreement(out, ref)
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"streamed vs reference backend: {exact}, {lsb}")
+    row = {"phase": "streamed_slice", "requests": len(frames), "max_batch": 8, "dispatches": dispatches,
+           "launches": counts, "vs_reference_exact": exact, "vs_reference_max_diff": lsb}
+    emit(row)
+    return row
+
+
+def staged_slice(torch, cfg, frames, fused_out, dev):
+    """``BGPlan(backend="staged")`` through ``denoise_batch`` on 8 full-HD
+    frames: one launch each of B4, B5 and B6, output held to the fused
+    backend's ``fused_out``."""
+    from repro_torch.data.pipeline import denoise_batch
+    from repro_torch.plan import BGPlan
+
+    plan = BGPlan(cfg, backend="staged", device=dev)
+    zero_counts()
+    out = denoise_batch(frames, plan=plan)
+    sync(torch, dev)
+    counts = kernel_counts()
+    check_counts(counts, {"bg_create.launches": 1, "bg_blur.launches": 1, "bg_slice.launches": 1},
+                 "staged slice")
+    check(out.device == dev and tuple(out.shape) == (len(frames), H, W) and bool(torch.isfinite(out).all()),
+          "staged output")
+    exact, lsb = quantized_agreement(out, fused_out)
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"staged vs fused backend: {exact}, {lsb}")
+    row = {"phase": "staged_slice", "frames": len(frames), "dispatches": 1, "launches": counts,
+           "vs_fused_exact": exact, "vs_fused_max_diff": lsb}
+    emit(row)
+    return row
+
+
+def index_add_create(torch, frames, cfg):
+    """The library yardstick of B4: one ``index_add_`` of each pixel's
+    (1, px), zero outside the z range, into its cell of a zeroed (cells, 2)
+    grid; the cell of every pixel is computed from the frames outside the
+    timed call. Returns (call, its (b, gx, gy, gz, 2) output)."""
+    import numpy as np
+
+    from repro_torch.kernels.common import gc_cells, grid_shape
+
+    b, h, w = frames.shape
+    gx, gy, gz = grid_shape(h, w, cfg)
+    dev = frames.device
+    zbin = torch.floor(frames * float(np.float32(1.0 / cfg.range_scale)) + 0.5).long()
+    inside = ((zbin >= 0) & (zbin < gz)).to(torch.float32)
+    frame = torch.arange(b, device=dev)[:, None, None]
+    xc = torch.as_tensor(gc_cells(h, cfg.r), device=dev)[None, :, None]
+    yc = torch.as_tensor(gc_cells(w, cfg.r), device=dev)[None, None, :]
+    cell = (((frame * gx + xc) * gy + yc) * gz + zbin.clamp(0, gz - 1)).reshape(-1)
+    vals = torch.stack([inside, frames * inside], -1).reshape(-1, 2)
+    n = b * gx * gy * gz
+
+    def call():
+        return torch.zeros((n, 2), device=dev).index_add_(0, cell, vals)
+
+    return call, call().reshape(b, gx, gy, gz, 2)
+
+
+def conv3d_blur(torch, grid, cfg):
+    """The library yardstick of B5: one grouped ``conv3d`` with the 3x3x3
+    outer-product taps over the two channels of a (b, 2, gx, gy, gz) grid.
+    Returns (call, its output in the (b, gx, gy, gz, 2) layout)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.common import taps_np
+
+    t = torch.as_tensor(taps_np(cfg), device=grid.device)
+    weight = (t[:, None, None] * t[None, :, None] * t[None, None, :]).expand(2, 1, 3, 3, 3).contiguous()
+    gp = grid.permute(0, 4, 1, 2, 3).contiguous()
+
+    def call():
+        return F.conv3d(gp, weight, padding=1, groups=2)
+
+    return call, call().permute(0, 2, 3, 4, 1)
+
+
+def grid_sample_slice(torch, gf, frames, cfg):
+    """The library yardstick of B6: one 3-D trilinear ``grid_sample`` of the
+    (b, 1, gx, gy, gz) scalar grid at each pixel's (i/r, j/r, px/rs), zero
+    outside, corners aligned. Returns (call, its (b, h, w) output)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    b, h, w = frames.shape
+    gx, gy, gz = gf.shape[1:]
+    dev = frames.device
+    fz = frames * float(np.float32(1.0 / cfg.range_scale))
+    fy = (torch.arange(w, device=dev, dtype=torch.float32) / cfg.r).expand(b, h, w)
+    fx = (torch.arange(h, device=dev, dtype=torch.float32) / cfg.r)[:, None].expand(b, h, w)
+    coords = torch.stack([fz / (gz - 1) * 2 - 1, fy / (gy - 1) * 2 - 1, fx / (gx - 1) * 2 - 1], -1)[:, None]
+    inp = gf[:, None]
+
+    def call():
+        return F.grid_sample(inp, coords, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    return call, call()[:, 0, 0]
+
+
 def main() -> None:
     import torch
 
@@ -285,8 +522,10 @@ def main() -> None:
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
-    from repro_torch.core import add_gaussian_noise, grid_shape, mssim, psnr, quantize_intensity, synthetic_batch
-    from repro_torch.kernels import _build, bg_fused, bg_fused_plain
+    from repro_torch.core import (add_gaussian_noise, grid_normalize, grid_shape, mssim, psnr,
+                                  quantize_intensity, synthetic_batch)
+    from repro_torch.kernels import (_build, bg_blur, bg_blur_plain, bg_create, bg_create_plain,
+                                     bg_fused, bg_fused_plain, bg_slice, bg_slice_plain)
     from repro_torch.launch.serve import serve_frames, serve_video
     from repro_torch.plan import BGPlan
     from repro_torch.serving import FrameDenoiseEngine, FrameRequest
@@ -303,9 +542,10 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _build.build_all(["bg_fused"])
+    _build.build_all(SOURCES)  # one nvcc per source, all started together
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log("bg_fused").splitlines() if "ptxas info" in ln]
+    ptxas = {src: [ln.strip() for ln in _build.build_log(src).splitlines() if "ptxas info" in ln]
+             for src in SOURCES}
     emit({"phase": "device", "nvidia_smi": smi, "device_name": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas})
@@ -315,7 +555,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     x8 = add_gaussian_noise(clean, 30.0, generator=gen).contiguous()
     x4 = x8[:4].contiguous()
-    max_err = 0.0
+    max_err = b3_err = 0.0
+    staged_err = [0.0, 0.0, 0.0]  # GC, GF, TI
     cfgs = [("TABLE1 r=%d" % wl.bg.r, wl.bg) for wl in TABLE1_SWEEP] + [("serve r=6", SERVE_CONFIG)]
     for label, cfg in cfgs:
         k = bg_fused(x4, cfg)
@@ -338,17 +579,21 @@ def main() -> None:
         check(row["repeat_bitwise"] and row["b1_bitwise_single"] and row["batch_row_bitwise_single"],
               f"{label}: bitwise contracts")
         max_err = max(max_err, err)
+        b3_err = max(b3_err, streamed_vs_fused(torch, x4, label, cfg, k, plain))
+        staged_err = [max(a, e) for a, e in zip(staged_err, staged_vs_plain(torch, x4, label, cfg))]
     t_img_err, t_carry_err = temporal_vs_plain(
         torch, x8, cfgs, bg_fused, bg_fused_plain, quantize_intensity, grid_shape
     )
     too_big = FIG12_SWEEPS["r"][0]  # r=2 at full HD: the working set exceeds shared memory
-    try:
-        bg_fused(x4[:1].contiguous(), too_big)
-    except ValueError as e:
-        check("bytes" in str(e), "r=2 error names the bytes")
-        emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "raised": str(e)})
-    else:
-        raise RuntimeError("chip_smoke check failed: r=2 at full HD did not raise")
+    for stream_input in (False, True):
+        try:
+            bg_fused(x4[:1].contiguous(), too_big, stream_input=stream_input)
+        except ValueError as e:
+            check("bytes" in str(e), "r=2 error names the bytes")
+            emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "stream_input": stream_input,
+                  "raised": str(e)})
+        else:
+            raise RuntimeError(f"chip_smoke check failed: r=2 at full HD did not raise ({stream_input})")
 
     # ---- phase 3: the slice, through the engine a user calls
     n_req, max_batch = 19, 8
@@ -357,7 +602,7 @@ def main() -> None:
     noisy_h = add_gaussian_noise(clean_h, 30.0, generator=torch.Generator().manual_seed(2))
     frames = noisy_h.numpy()
     eng = FrameDenoiseEngine(plan=BGPlan(cfg, backend="fused", device="cuda"), max_batch=max_batch)
-    bg_fused.launches = 0
+    zero_counts()
     for i in range(n_req):
         eng.submit(FrameRequest(uid=i, frame=frames[i]))
     done, dispatches = [], 0
@@ -366,6 +611,7 @@ def main() -> None:
         dispatches += 1
     torch.cuda.synchronize()
     launches = bg_fused.launches
+    check_counts(kernel_counts(), {"bg_fused.launches": 3}, "frame slice")
     check(len(done) == n_req and [r.uid for r in done] == list(range(n_req)), "every request answered in order")
     check(all(r.result.is_cuda and tuple(r.result.shape) == (H, W) for r in done), "results are CUDA (h, w) tensors")
     check(dispatches == 3 and launches == dispatches, f"{launches} launches for {dispatches} dispatches")
@@ -383,7 +629,13 @@ def main() -> None:
     check(q["psnr_denoised"] > q["psnr_noisy"] and q["mssim_denoised"] > q["mssim_noisy"],
           "denoising improves PSNR and MSSIM")
 
-    # ---- phase 3b: the video slice, through the async engine and packer
+    # ---- phase 3b: the streamed slice (the JAX engine's stream_input=True)
+    streamed = streamed_slice(torch, cfg, frames, ref, dev)
+
+    # ---- phase 3c: the staged backend through denoise_batch, 8 frames
+    staged = staged_slice(torch, cfg, frames[:8], out[:8], dev)
+
+    # ---- phase 3d: the video slice, through the async engine and packer
     video = video_slice(torch, cfg, smi, dev)
 
     # ---- phase 4: times at b=8, PAPER_DEFAULT, CUDA events
@@ -417,6 +669,62 @@ def main() -> None:
               "bound_ms": temporal_times[tb][2], "bound_ms_per_frame": temporal_times[tb][2] / tb,
               "bound_by": temporal_times[tb][3], "card": smi})
     t_ms, t_plain_ms, t_bound_ms, t_bound_by, t_bytes, t_flops = temporal_times[8]
+
+    # B3 at b=8: its plain version is B1's (the same function)
+    s8 = bg_fused(x8, cfg, stream_input=True)
+    check(torch.equal(s8, k8), "b=8: B3 differs from B1")
+    s_ms = cuda_ms(torch, lambda: bg_fused(x8, cfg, stream_input=True), reps=50)
+    # B4, B5, B6 at b=8 (the staged slice's shape) against their plain
+    # versions at the JAX tolerances, as at b=4
+    g8 = bg_create(x8, cfg)
+    bl8 = bg_blur(g8, cfg)
+    gf8 = grid_normalize(bl8)
+    sl8 = bg_slice(gf8, x8, cfg)
+    bl8_plain = bg_blur_plain(g8, cfg)
+    errs8 = (float((g8 - bg_create_plain(x8, cfg)).abs().max()), float((bl8 - bl8_plain).abs().max()),
+             float((sl8 - bg_slice_plain(gf8, x8, cfg)).abs().max()))
+    gf8_ok = bool(torch.allclose(bl8, bl8_plain, rtol=TOL_GF[0], atol=TOL_GF[1]))
+    emit({"phase": "staged_vs_plain", "config": "PAPER_DEFAULT", "shape": list(x8.shape),
+          "gc_max_abs_err": errs8[0], "gc_counts": float(g8[..., 0].sum()), "gf_max_abs_err": errs8[1],
+          "gf_within_tolerance": gf8_ok, "ti_max_abs_err": errs8[2]})
+    check(errs8[0] <= TOL_GC and float(g8[..., 0].sum()) == x8.numel(), f"b=8: GC err {errs8[0]}")
+    check(gf8_ok, f"b=8: GF err {errs8[1]}")
+    check(errs8[2] <= TOL_TI, f"b=8: TI err {errs8[2]}")
+    staged_err = [max(a, e) for a, e in zip(staged_err, errs8)]
+    # the library yardsticks: each is timed whatever its difference from the
+    # kernel, which is recorded and flagged against the kernel's tolerance
+    library = {}
+    for kid, (call, lib_out), kout, within in (
+        ("B4", index_add_create(torch, x8, cfg), g8, lambda d: d <= TOL_GC),
+        ("B5", conv3d_blur(torch, g8, cfg), bl8,
+         lambda d: bool(torch.allclose(lib_out, bl8, rtol=TOL_GF[0], atol=TOL_GF[1]))),
+        ("B6", grid_sample_slice(torch, gf8, x8, cfg), sl8, lambda d: d <= TOL_TI),
+    ):
+        diff = float((lib_out - kout).abs().max())
+        library[kid] = (cuda_ms(torch, call, reps=20), diff, within(diff))
+    descr = {"B4": "index_add_ of each pixel's (1, px) into a zeroed (cells, 2) grid, the cells computed "
+                   "from the frames outside the timed call",
+             "B5": "grouped conv3d, 3x3x3 outer-product taps, on the grid permuted to (b, 2, gx, gy, gz) "
+                   "outside the timed call",
+             "B6": "3-D trilinear grid_sample, zero padding, corners aligned, coordinates built outside "
+                   "the timed call"}
+    sb = staged_bounds(b, H, W, cfg, grid_shape)
+    staged_times = {
+        "B4": (cuda_ms(torch, lambda: bg_create(x8, cfg), reps=50),
+               cuda_ms(torch, lambda: bg_create_plain(x8, cfg), reps=3, warmup=1)),
+        "B5": (cuda_ms(torch, lambda: bg_blur(g8, cfg), reps=50),
+               cuda_ms(torch, lambda: bg_blur_plain(g8, cfg), reps=3, warmup=1)),
+        "B6": (cuda_ms(torch, lambda: bg_slice(gf8, x8, cfg), reps=50),
+               cuda_ms(torch, lambda: bg_slice_plain(gf8, x8, cfg), reps=3, warmup=1)),
+    }
+    staged_times = {k: v + library[k] + (descr[k],) for k, v in staged_times.items()}
+    emit({"phase": "staged_times", "config": "PAPER_DEFAULT", "batch": b, "card": smi,
+          "b3_ms_per_frame": s_ms / b, "b1_ms_per_frame": ms / b,
+          **{k: {"ms_per_frame": v[0] / b, "plain_ms_per_frame": v[1] / b,
+                 "library_ms_per_frame": v[2] / b, "library_max_abs_diff": v[3],
+                 "library_within_tolerance": v[4], "library": v[5],
+                 "bound_ms_per_frame": sb[k][0] / b, "bound_by": sb[k][1]}
+             for k, v in staged_times.items()}})
     emit({"phase": "bounds", "config": "PAPER_DEFAULT", "frame_hw": [H, W],
           "bytes_bound_ms_per_frame": tpu_kernel_bounds(cfg, grid_shape)})
     emit({"kernels": [{
@@ -446,7 +754,37 @@ def main() -> None:
         "ms_per_frame_b4": temporal_times[4][0] / 4,
         "bytes": t_bytes, "flops": t_flops, "timed_shape": [8, H, W], "config": "PAPER_DEFAULT",
         "card": smi,
-    }]})
+    }, {
+        "name": "bg_fused_streamed", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bg_fused_streamed.cu",
+        "replaces": "src/repro/kernels/bg_fused.py:620",
+        "launches": streamed["launches"]["bg_fused.streamed_launches"], "dispatches": streamed["dispatches"],
+        "launches_per_dispatch": streamed["launches"]["bg_fused.streamed_launches"] / streamed["dispatches"],
+        "max_abs_err": b3_err, "tolerance": TOL_ABS, "bitwise_b1": True,
+        "ms": s_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "ms_per_frame": s_ms / b, "plain_ms_per_frame": plain_ms / b, "bound_ms_per_frame": bound_ms / b,
+        "bytes": nbytes, "flops": flops, "timed_shape": [b, H, W], "config": "PAPER_DEFAULT",
+        "card": smi,
+    }] + [{
+        "name": kname, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+        "replaces": replaces,
+        "launches": staged["launches"][f"{kname}.launches"], "dispatches": staged["dispatches"],
+        "launches_per_dispatch": staged["launches"][f"{kname}.launches"] / staged["dispatches"],
+        "max_abs_err": err, "tolerance": tol,
+        "ms": staged_times[kid][0], "plain_ms": staged_times[kid][1],
+        "bound_ms": sb[kid][0], "bound_by": sb[kid][1],
+        "library_ms": staged_times[kid][2], "library_max_abs_diff": staged_times[kid][3],
+        "library_within_tolerance": staged_times[kid][4], "library": staged_times[kid][5],
+        "ms_per_frame": staged_times[kid][0] / b, "plain_ms_per_frame": staged_times[kid][1] / b,
+        "bound_ms_per_frame": sb[kid][0] / b, "bytes": sb[kid][2], "flops": sb[kid][3],
+        "timed_shape": [b, H, W], "config": "PAPER_DEFAULT", "card": smi,
+    } for kid, kname, replaces, err, tol in (
+        ("B4", "bg_create", "src/repro/kernels/bg_create.py:68", staged_err[0], TOL_GC),
+        ("B5", "bg_blur", "src/repro/kernels/bg_blur.py:57", staged_err[1], list(TOL_GF)),
+        ("B6", "bg_slice", "src/repro/kernels/bg_slice.py:90", staged_err[2], TOL_TI),
+    )]})
     # stripes per block: the wrapper's rule against the alternatives
     kmod = importlib.import_module("repro_torch.kernels.bg_fused")
     out8 = torch.empty_like(x8)
@@ -460,8 +798,22 @@ def main() -> None:
                                     kmod._device_limits(0)[1])[0]
         emit({"phase": "band_sweep", "config": label, "batch": b, "default_stripes": rule,
               "ms_per_frame_by_stripes_per_block": ms_by_band, "card": smi})
+    # B3: stripes per block and rows per copy slot against the rules
+    rule = kmod.stream_geometry(b, H, W, cfg, props.multi_processor_count, kmod._device_limits(0)[1])
+    ms_by = {f"band {band} chunk {chunk}": cuda_ms(torch, lambda: kmod._stream_launch(x8, out8, cfg, band, chunk),
+                                                   reps=20) / b
+             for band in (1, 2, 3, 6, 12) for chunk in (cfg.r, cfg.r // 2, cfg.r // 3)}
+    emit({"phase": "stream_sweep", "config": "PAPER_DEFAULT", "batch": b, "default_band": rule[0],
+          "default_chunk": rule[2], "ms_per_frame": ms_by, "card": smi})
     stats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda")
+    check(stats["bg_fused_launches"] == stats["dispatches"] and stats["bg_fused_streamed_launches"] == 0,
+          f"serve_frames: {stats}")
     emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **stats})
+    sstats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda",
+                          stream_input=True)
+    check(sstats["bg_fused_streamed_launches"] == sstats["dispatches"] and sstats["bg_fused_launches"] == 0,
+          f"serve_frames(stream_input=True): {sstats}")
+    emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **sstats})
     vstats = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda")
     check(vstats["failed"] == vstats["shed"] == 0, f"serve_video: {vstats}")
     emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})

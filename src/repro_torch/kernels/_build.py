@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``<repo>/build/torch_kernels/<name>-<hash>.so``, where the hash
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded from the cache. ``-Xptxas -v`` is always on; its
+covers the source, every ``csrc/*.cuh`` header it includes (directly or
+through another header) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded from the cache. ``-Xptxas -v`` is always on; its
 report (registers, shared memory, spills) is kept beside the library in
 ``<name>-<hash>.log`` and returned by :func:`build_log`.
 
@@ -14,13 +15,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "build_log", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "build_log", "check", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -49,10 +51,27 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``<name>.cu`` and the ``csrc`` files it includes, transitively, in a
+    fixed order."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        todo.extend(m.decode() for m in _INCLUDE.findall((_CSRC / f).read_bytes()))
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for f in _sources(name):
+        h.update(f.encode() + b"\0" + (_CSRC / f).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:
@@ -92,10 +111,21 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    Every source exports ``<name>_error_string(int)``, bound here."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all([name])[name]))
+            fn = getattr(lib, f"{name}_error_string")
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise ``RuntimeError`` unless ``err`` (the ``cudaGetLastError()`` a
+    launch function of ``csrc/<name>.cu`` returned) is 0."""
+    if err != 0:
+        msg = getattr(_libs[name], f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

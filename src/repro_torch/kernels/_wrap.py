@@ -1,0 +1,57 @@
+"""What every kernel wrapper of the port checks and passes around its ctypes
+launch: the operands' type, rank, device and layout, the stream, and the TI
+lerp fractions on the device. Nothing here launches or builds anything."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .common import ti_col_fracs
+
+__all__ = ["frames", "on_card", "contiguous", "stream", "ti_fracs"]
+
+
+def frames(image, kernel: str) -> torch.Tensor:
+    """``image`` as float32 ``(b, h, w)`` frames (an ``(h, w)`` frame gains a
+    leading axis), or ``TypeError`` / ``ValueError`` naming ``kernel``."""
+    if not isinstance(image, torch.Tensor):
+        raise TypeError(f"{kernel} takes a torch.Tensor, got {type(image).__name__}")
+    if image.dtype != torch.float32:
+        raise TypeError(f"{kernel} takes float32 frames, got {image.dtype}")
+    if image.dim() == 2:
+        image = image[None]
+    if image.dim() != 3 or min(image.shape) < 1:
+        raise ValueError(f"{kernel} takes (h, w) or (b, h, w) frames, got {tuple(image.shape)}")
+    return image
+
+
+def on_card(t: torch.Tensor, kernel: str) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
+    plain version runs); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {t.device}")
+    return True
+
+
+def contiguous(t: torch.Tensor, what: str, kernel: str) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel} needs contiguous {what}")
+
+
+def stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev``, as the pointer ctypes passes."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=64)
+def ti_fracs(w: int, r: int, device: torch.device):
+    """(yf, xf) TI lerp fractions as the JAX kernels compute them, on device."""
+    xf = (np.arange(r) / r).astype(np.float32)
+    return (
+        torch.as_tensor(ti_col_fracs(w, r), device=device),
+        torch.as_tensor(xf, device=device),
+    )

@@ -1,5 +1,5 @@
-"""Fused GC -> GF -> TI bilateral-grid filter: the CUDA kernel's wrapper and
-its plain PyTorch version, per frame and temporal.
+"""Fused GC -> GF -> TI bilateral-grid filter: the CUDA kernels' wrapper and
+their plain PyTorch version, per frame, temporal and streamed.
 
 The kernel (``csrc/bg_fused.cu``) replaces the JAX package's fused Pallas
 kernel (``repro/kernels/bg_fused.py::_kernel``) in both of its launches: per
@@ -8,8 +8,11 @@ paper's grid creation, Gaussian grid filter with per-cell normalization and
 trilinear slice, unquantized, with the grid held in shared memory and never
 written to HBM. The temporal launch (``carry=`` and ``alpha=``) blends each
 blurred homogeneous plane with the frame's carry, ``B' = (1-a) B + a C``,
-before TI reads it, and returns ``B'`` as the new carry. See the source for
-the design.
+before TI reads it, and returns ``B'`` as the new carry. ``stream_input=True``
+runs the streamed kernel (``csrc/bg_fused_streamed.cu``, B3), which replaces
+``_stream_kernel`` (``:620``): the same filter with the image staged through
+a two-slot asynchronous copy ring in shared memory, equal to B1 bit for bit.
+See the sources for the designs.
 
 Dispatch follows the tensor's device and nothing else:
 
@@ -22,8 +25,9 @@ is the reference the tests and ``chip_smoke.py`` hold the kernel to.
 Per-frame results depend on nothing but the frame (and its carry row and
 alpha): not on the batch it shares, not on ``batch_tile``, not on how the
 kernel cuts the frame into bands (a band recomputes its halo planes with the
-same code as its neighbours), and not on the launch (no float atomics). An
-``alpha == 0`` row of a temporal call equals the per-frame call bit for bit.
+same code as its neighbours), not on ``stream_input``, and not on the launch
+(no float atomics). An ``alpha == 0`` row of a temporal call equals the
+per-frame call bit for bit.
 """
 from __future__ import annotations
 
@@ -34,16 +38,25 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .common import BGConfig, gc_cells, gc_row_split, grid_shape, taps_np, ti_col_fracs
+from repro_torch.core.bilateral_grid import grid_normalize
+
+from . import _build, _wrap
+from .bg_blur import bg_blur_plain
+from .bg_create import bg_create_plain
+from .bg_slice import bg_slice_plain
+from .common import BGConfig, gc_row_split, grid_shape, taps_np
 
 __all__ = [
     "bg_fused",
     "bg_fused_plain",
     "launch_geometry",
     "smem_bytes",
+    "stream_geometry",
+    "stream_smem_bytes",
 ]
 
 KERNEL = "bg_fused"
+STREAM_KERNEL = "bg_fused_streamed"
 # cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100; the wrapper asks the
 # card it launches on, the tests use this value for the geometry rules
 H100_SMEM_OPTIN = 232448
@@ -53,6 +66,9 @@ H100_SMEM_OPTIN = 232448
 # planes (chip_smoke.py prints the sweep of stripes per block).
 _BLOCKS_PER_SM = 2
 _MAX_BAND = 2
+# The streamed kernel's blocks hold one 512-thread block per SM; its band
+# rule gives each SM about one block (chip_smoke.py prints the sweep).
+_STREAM_BLOCKS_PER_SM = 1
 
 
 # ----------------------------------------------------------------- plain
@@ -63,15 +79,18 @@ def bg_fused_plain(
     carry: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
 ):
-    """Plain PyTorch version of the fused kernel, on any device.
+    """Plain PyTorch version of the fused kernels, on any device.
 
-    Batched whole-image GC -> GF -> normalize -> TI in fp32 tensor ops, with
-    the kernel's arithmetic: z bin ``floor(px * fp32(1/rs) + 0.5)``, integer
-    row and column cells, blur along x, then z, then y, and the kernel's
-    TI lerp order. It uses no matmul and no convolution, so TF32 settings do
-    not reach it. ``batch_tile`` bounds the frames per pass (memory only; the
+    Batched whole-image GC -> GF -> normalize -> TI in fp32 tensor ops: the
+    staged plain versions (:func:`bg_create_plain`, :func:`bg_blur_plain`,
+    ``grid_normalize``, :func:`bg_slice_plain`), which carry the kernels'
+    arithmetic: z bin ``floor(px * fp32(1/rs) + 0.5)``, integer row and
+    column cells, blur along x, then z, then y, and the kernels' TI lerp
+    order. It uses no matmul and no convolution, so TF32 settings do not
+    reach it. ``batch_tile`` bounds the frames per pass (memory only; the
     result does not depend on it). With ``carry`` and ``alpha`` it is the
     temporal version and returns ``(out, new_carry)`` (see :func:`bg_fused`).
+    It is the plain version of the streamed kernel too, which equals B1.
     """
     _check_batch_tile(batch_tile)
     x, carry, alpha = _operands(image, cfg, carry, alpha)
@@ -90,80 +109,14 @@ def bg_fused_plain(
 
 
 def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None):
-    b, h, w = x.shape
-    r = cfg.r
-    gx, gy, gz = grid_shape(h, w, cfg)
-    dev = x.device
-    taps = tuple(float(t) for t in taps_np(cfg))
-    inv_rs = float(np.float32(1.0 / cfg.range_scale))
-    frame = torch.arange(b, device=dev)[:, None, None]
-
-    # ---- GC: scatter (1, px) into (b, gx, 2, gz, gy); index_put_ with
-    # accumulate sums each cell in a fixed order
-    zbin = torch.floor(x * inv_rs + 0.5).long()
-    inside = ((zbin >= 0) & (zbin < gz)).to(torch.float32)
-    xc = torch.as_tensor(gc_cells(h, r), device=dev)[None, :, None]
-    yc = torch.as_tensor(gc_cells(w, r), device=dev)[None, None, :]
-    cell = ((frame * gx + xc) * gz + zbin.clamp(0, gz - 1)) * gy + yc
-    grid = torch.zeros((2, b * gx * gz * gy), dtype=torch.float32, device=dev)
-    flat = cell.reshape(-1)
-    grid[0].index_put_((flat,), inside.reshape(-1), accumulate=True)
-    grid[1].index_put_((flat,), (x * inside).reshape(-1), accumulate=True)
-    grid = grid.reshape(2, b, gx, gz, gy).permute(1, 2, 0, 3, 4)  # (b, gx, 2, gz, gy)
-
-    # ---- GF: x, z, y with zero borders
-    blurred = grid
-    for axis in (1, 3, 4):
-        blurred = _conv3(blurred, taps, axis)
+    blurred = bg_blur_plain(bg_create_plain(x, cfg), cfg)  # (b, gx, gy, gz, 2)
     if carry is not None:
         # ---- temporal EMA of the blurred homogeneous grid, the kernel's
         # rounding: each product and the sum rounded on its own
-        a = alpha.reshape(b, 1, 1, 1, 1)
-        blurred = (1.0 - a) * blurred + a * carry.permute(0, 1, 4, 3, 2)
-    # ---- eq. (4) per cell
-    count, summ = blurred[:, :, 0], blurred[:, :, 1]
-    norm = torch.where(
-        count > 1e-12, summ / torch.clamp(count, min=1e-12), torch.zeros_like(summ)
-    )  # (b, gx, gz, gy)
-
-    # ---- TI: stripe k = i // r against planes k, k+1; kernel lerp order
-    fz = x * inv_rs
-    zfl = torch.floor(fz)
-    zf = fz - zfl
-    z0 = zfl.long()
-    rows = torch.arange(h, device=dev)
-    k = (rows // r)[None, :, None]
-    wx = torch.as_tensor((np.arange(r) / r).astype(np.float32), device=dev)[rows % r][
-        None, :, None
-    ]
-    wy = torch.as_tensor(ti_col_fracs(w, r), device=dev)[None, None, :]
-    cols = torch.arange(w, device=dev)
-    y0 = (cols // r)[None, None, :]
-    y1 = torch.clamp(y0 + 1, max=gy - 1)
-    flat_norm = norm.reshape(-1)
-
-    def at(plane, z, y):
-        return flat_norm[((frame * gx + plane) * gz + z) * gy + y]
-
-    def ti_bin(z):
-        ok = ((z >= 0) & (z < gz)).to(torch.float32)
-        zc = z.clamp(0, gz - 1)
-        a0 = at(k, zc, y0) * (1.0 - wy) + at(k, zc, y1) * wy
-        a1 = at(k + 1, zc, y0) * (1.0 - wy) + at(k + 1, zc, y1) * wy
-        return (a0 * (1.0 - wx) + a1 * wx) * ok
-
-    out = (1.0 - zf) * ti_bin(z0) + zf * ti_bin(z0 + 1)
-    if carry is None:
-        return out
-    return out, blurred.permute(0, 1, 4, 3, 2).contiguous()  # (b, gx, gy, gz, 2)
-
-
-def _conv3(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
-    """t0*lo + t1*x + t2*hi along ``axis`` with zero borders."""
-    zero = torch.zeros_like(x.narrow(axis, 0, 1))
-    lo = torch.cat([zero, x.narrow(axis, 0, x.shape[axis] - 1)], dim=axis)
-    hi = torch.cat([x.narrow(axis, 1, x.shape[axis] - 1), zero], dim=axis)
-    return taps[0] * lo + taps[1] * x + taps[2] * hi
+        a = alpha.reshape(-1, 1, 1, 1, 1)
+        blurred = (1.0 - a) * blurred + a * carry
+    out = bg_slice_plain(grid_normalize(blurred), x, cfg)
+    return out if carry is None else (out, blurred)
 
 
 # ---------------------------------------------------------------- kernel
@@ -213,10 +166,59 @@ def launch_geometry(
     return band, -(-n // band), smem_bytes(band, gz, gy, temporal)
 
 
+def stream_smem_bytes(chunk: int, w: int, gz: int, gy: int) -> int:
+    """Dynamic shared memory of one streamed block: a ring of four raw
+    planes (count, sum) and two normalized planes, then, from the next
+    16-byte boundary, two slots of ``chunk`` rows of ``w`` floats (plus up
+    to three floats of alignment)."""
+    planes = -(-10 * gz * gy // 4) * 4
+    return 4 * (planes + 2 * _slot_floats(chunk, w))
+
+
+def _slot_floats(chunk: int, w: int) -> int:
+    return -(-(chunk * w + 3) // 4) * 4
+
+
+def stream_geometry(
+    b: int,
+    h: int,
+    w: int,
+    cfg: BGConfig,
+    num_sms: int,
+    smem_limit: int,
+    band: Optional[int] = None,
+    chunk: Optional[int] = None,
+) -> Tuple[int, int, int, int]:
+    """``(band, bands_per_frame, chunk, smem_bytes)`` of a streamed launch
+    over ``b`` frames.
+
+    ``chunk`` (rows per copy slot) defaults to the most rows, at most ``r``,
+    whose two slots fit ``smem_limit`` beside the planes; ``band`` (stripes
+    a block walks) to about ``_STREAM_BLOCKS_PER_SM`` blocks per SM. A frame
+    whose planes and two one-row slots do not fit raises ``ValueError``
+    naming the bytes.
+    """
+    _, gy, gz = grid_shape(h, w, cfg)
+    n = -(-h // cfg.r)
+    need = stream_smem_bytes(1, w, gz, gy)
+    if need > smem_limit:
+        raise ValueError(
+            f"bg_fused(stream_input=True): a {h}x{w} frame at r={cfg.r} (gy={gy}, "
+            f"gz={gz}) needs {need} bytes of shared memory per block for its "
+            f"planes and two one-row slots, above the card's {smem_limit}"
+        )
+    fit = 1
+    while fit < cfg.r and stream_smem_bytes(fit + 1, w, gz, gy) <= smem_limit:
+        fit += 1
+    chunk = fit if chunk is None else max(1, min(chunk, fit))
+    if band is None:
+        band = -(-(b * n) // (_STREAM_BLOCKS_PER_SM * num_sms))
+    band = max(1, min(band, n))
+    return band, -(-n // band), chunk, stream_smem_bytes(chunk, w, gz, gy)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from . import _build
-
     lib = _build.load(KERNEL)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bg_fused_launch.argtypes = [p] * 4 + [i] * 9 + [f] * 4 + [i, i, p]
@@ -225,8 +227,15 @@ def _lib() -> ctypes.CDLL:
     lib.bg_fused_temporal_launch.restype = i
     lib.bg_fused_smem_optin.argtypes = [i]
     lib.bg_fused_smem_optin.restype = i
-    lib.bg_fused_error_string.argtypes = [i]
-    lib.bg_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_lib() -> ctypes.CDLL:
+    lib = _build.load(STREAM_KERNEL)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bg_fused_streamed_launch.argtypes = [p] * 4 + [i] * 10 + [f] * 4 + [i, i, p]
+    lib.bg_fused_streamed_launch.restype = i
     return lib
 
 
@@ -237,16 +246,6 @@ def _device_limits(index: int) -> Tuple[int, int]:
     if smem <= 0:
         raise RuntimeError(f"bg_fused: cannot query shared memory of cuda:{index}")
     return torch.cuda.get_device_properties(index).multi_processor_count, smem
-
-
-@functools.lru_cache(maxsize=64)
-def _ti_fracs(w: int, r: int, device: torch.device):
-    """(yf, xf) lerp fractions as the JAX kernel computes them, on device."""
-    xf = (np.arange(r) / r).astype(np.float32)
-    return (
-        torch.as_tensor(ti_col_fracs(w, r), device=device),
-        torch.as_tensor(xf, device=device),
-    )
 
 
 def _launch(
@@ -266,12 +265,12 @@ def _launch(
     num_sms, smem_limit = _device_limits(dev.index)
     band, _, smem = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal)
     gx, gy, gz = grid_shape(h, w, cfg)
-    yf, xf = _ti_fracs(w, cfg.r, dev)
+    yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     geometry = (
         b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), band,
         float(np.float32(1.0 / cfg.range_scale)), t0, t1, t2,
-        smem, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        smem, dev.index, _wrap.stream(dev),
     )
     lib = _lib()
     if temporal:
@@ -283,13 +282,32 @@ def _launch(
         err = lib.bg_fused_launch(
             x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), *geometry
         )
-    if err != 0:
-        msg = lib.bg_fused_error_string(err).decode()
-        raise RuntimeError(f"bg_fused launch failed: CUDA error {err} ({msg})")
+    _build.check(KERNEL, err)
     if temporal:
         bg_fused.temporal_launches += 1
     else:
         bg_fused.launches += 1
+
+
+def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, band=None, chunk=None) -> None:
+    """One streamed kernel launch (B3) over the contiguous (b, h, w) CUDA
+    frames ``x``; ``band`` and ``chunk`` override :func:`stream_geometry`'s
+    rules (for sweeps)."""
+    b, h, w = x.shape
+    dev = x.device
+    num_sms, smem_limit = _device_limits(dev.index)
+    band, _, chunk, smem = stream_geometry(b, h, w, cfg, num_sms, smem_limit, band, chunk)
+    _, gy, gz = grid_shape(h, w, cfg)
+    yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
+    t0, t1, t2 = (float(t) for t in taps_np(cfg))
+    err = _stream_lib().bg_fused_streamed_launch(
+        x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(),
+        b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), band, chunk,
+        _slot_floats(chunk, w), float(np.float32(1.0 / cfg.range_scale)),
+        t0, t1, t2, smem, dev.index, _wrap.stream(dev),
+    )
+    _build.check(STREAM_KERNEL, err)
+    bg_fused.streamed_launches += 1
 
 
 def bg_fused(
@@ -298,6 +316,7 @@ def bg_fused(
     batch_tile: Optional[int] = None,
     carry: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
+    stream_input: bool = False,
 ):
     """Fused BG filter, (h, w) -> (h, w) or (b, h, w) -> (b, h, w), float32,
     unquantized, paper normalization.
@@ -310,10 +329,15 @@ def bg_fused(
     takes a ``(gx, gy, gz, 2)`` carry and a one-element alpha and squeezes
     both results.
 
+    ``stream_input=True`` (``bg_fused_impl(stream_input=)``) runs the
+    streamed kernel B3, equal to the default kernel bit for bit; it does not
+    take a carry.
+
     CPU tensors run :func:`bg_fused_plain`; CUDA tensors run the kernel, one
     launch per ``batch_tile`` frames (``None``: all frames in one launch), on
-    the current stream. ``bg_fused.launches`` counts per-frame launches and
-    ``bg_fused.temporal_launches`` temporal ones.
+    the current stream. ``bg_fused.launches`` counts per-frame launches,
+    ``bg_fused.temporal_launches`` temporal ones and
+    ``bg_fused.streamed_launches`` streamed ones.
     """
     _check_batch_tile(batch_tile)
     if cfg.normalize_mode != "paper":
@@ -321,27 +345,26 @@ def bg_fused(
             f"bg_fused implements the paper normalization mode, got "
             f"{cfg.normalize_mode!r}"
         )
+    if stream_input and carry is not None:
+        raise ValueError("stream_input does not compose with a temporal carry")
     x, carry_b, alpha_b = _operands(image, cfg, carry, alpha)
-    if x.device.type == "cpu":
+    if not _wrap.on_card(x, KERNEL):
         return bg_fused_plain(image, cfg, batch_tile, carry, alpha)
-    if x.device.type != "cuda":
-        raise ValueError(f"bg_fused runs on CUDA or CPU tensors, got {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("bg_fused needs contiguous frames")
+    _wrap.contiguous(x, "frames", KERNEL)
     b, h, w = x.shape
     if b > 65535 or h * w >= 2**31:
         raise ValueError(f"bg_fused: {b} frames of {h}x{w} exceed one launch")
     out = torch.empty_like(x)
     bt = b if batch_tile is None else batch_tile
     if carry_b is None:
+        launch = _stream_launch if stream_input else _launch
         for i in range(0, b, bt):
-            _launch(x[i:i + bt], out[i:i + bt], cfg)
+            launch(x[i:i + bt], out[i:i + bt], cfg)
         return out[0] if image.dim() == 2 else out
     for t, name in ((carry_b, "carry"), (alpha_b, "alpha")):
         if t.device != x.device:
             raise ValueError(f"bg_fused: {name} is on {t.device}, the frames on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"bg_fused needs a contiguous {name}")
+        _wrap.contiguous(t, name, KERNEL)
     new_carry = torch.empty_like(carry_b)  # never aliased to the carry read
     for i in range(0, b, bt):
         s = slice(i, i + bt)
@@ -351,13 +374,14 @@ def bg_fused(
 
 bg_fused.launches = 0
 bg_fused.temporal_launches = 0
+bg_fused.streamed_launches = 0
 
 
 def _operands(image, cfg: BGConfig, carry, alpha):
     """``(frames, carry, alpha)`` with a leading frame axis, checked as the
     JAX package's ``bg_fused_impl`` checks them; carry and alpha are
     ``None`` for a per-frame call."""
-    x = _frames(image)
+    x = _wrap.frames(image, KERNEL)
     if (carry is None) != (alpha is None):
         raise ValueError("temporal path needs both carry= and alpha= (or neither)")
     if carry is None:
@@ -379,18 +403,6 @@ def _operands(image, cfg: BGConfig, carry, alpha):
     if tuple(alpha.shape) != (b,):
         raise ValueError(f"alpha shape {tuple(alpha.shape)} != ({b},)")
     return x, carry, alpha
-
-
-def _frames(image: torch.Tensor) -> torch.Tensor:
-    if not isinstance(image, torch.Tensor):
-        raise TypeError(f"bg_fused takes a torch.Tensor, got {type(image).__name__}")
-    if image.dtype != torch.float32:
-        raise TypeError(f"bg_fused takes float32 frames, got {image.dtype}")
-    if image.dim() == 2:
-        image = image[None]
-    if image.dim() != 3 or min(image.shape) < 1:
-        raise ValueError(f"bg_fused takes (h, w) or (b, h, w) frames, got {tuple(image.shape)}")
-    return image
 
 
 def _check_batch_tile(batch_tile) -> None:

@@ -1,0 +1,143 @@
+// Device arithmetic shared by the bilateral-grid kernels: the GC z bin and
+// cell sums, the GF taps, the eq. (4) normalization and the TI lerp.
+//
+// B1/B2 (bg_fused.cu), B3 (bg_fused_streamed.cu), B4 (bg_create.cu), B5
+// (bg_blur.cu) and B6 (bg_slice.cu) all call these functions, so a grid cell,
+// a blurred value or a sliced pixel is the same expression in every kernel:
+// the streamed kernel equals the fused one bit for bit because both compile
+// the same instructions here, whatever they read their operands from.
+//
+// Arithmetic that decides bins matches the reference exactly:
+//   z bin        floor(px * fp32(1/rs) + 0.5), without FMA contraction
+//   row/col cell round-half-up(i / r) in integers (common.py gc_row_split)
+//   TI corners   y0 = j / r, y1 = min(y0 + 1, gy - 1); yf, xf from the host
+//   normalize    count > 1e-12 ? sum / max(count, 1e-12) : 0
+//   blend        (1-a)*B + a*C, each product and the sum rounded on its own
+// GF applies the x taps, then z, then y, each t0*lo + t1*mid + t2*hi with
+// zeros outside the grid (the reference order).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace bg {
+
+__device__ __forceinline__ int gc_bin(float px, float inv_rs) {
+  return static_cast<int>(floorf(__fadd_rn(__fmul_rn(px, inv_rs), 0.5f)));
+}
+
+// GC of one grid cell: adds the pixels of `n_rows` rows (`stride` floats
+// apart, columns [j_lo, j_hi)) into the gz bins cnt[z * bin_stride] and
+// sum[z * bin_stride], rows ascending and columns ascending within a row.
+// kGlobal reads through the read-only cache; otherwise `rows` is shared.
+template <bool kGlobal>
+__device__ __forceinline__ void gc_cell(const float* rows, int stride, int n_rows,
+                                        int j_lo, int j_hi, float inv_rs, int gz,
+                                        float* cnt, float* sum, int bin_stride) {
+  for (int i = 0; i < n_rows; ++i) {
+    const float* row = rows + static_cast<size_t>(i) * stride;
+    for (int j = j_lo; j < j_hi; ++j) {
+      const float px = kGlobal ? __ldg(row + j) : row[j];
+      const int z = gc_bin(px, inv_rs);
+      if (z >= 0 && z < gz) {
+        cnt[z * bin_stride] += 1.f;
+        sum[z * bin_stride] += px;
+      }
+    }
+  }
+}
+
+// x taps over the three raw planes of one channel at flat (z, y) index idx
+__device__ __forceinline__ float xmix(const float* rm, const float* rc,
+                                      const float* rp, int idx, float t0,
+                                      float t1, float t2) {
+  return t0 * rm[idx] + t1 * rc[idx] + t2 * rp[idx];
+}
+
+// z, then y taps at (z, y) over x-mixed values xm(z', y'), zeros outside
+template <class XMix>
+__device__ __forceinline__ float blur_zy(const XMix& xm, int z, int y, int gz,
+                                         int gy, float t0, float t1, float t2) {
+  float zc[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int yy = y + d - 1;
+    float v = 0.f;
+    if (yy >= 0 && yy < gy) {
+      const float lo = z > 0 ? xm(z - 1, yy) : 0.f;
+      const float mid = xm(z, yy);
+      const float hi = z + 1 < gz ? xm(z + 1, yy) : 0.f;
+      v = t0 * lo + t1 * mid + t2 * hi;
+    }
+    zc[d] = v;
+  }
+  return t0 * zc[0] + t1 * zc[1] + t2 * zc[2];
+}
+
+// x-mixed values of three raw planes held as [z][y] in shared memory
+struct PlaneMix {
+  const float *rm, *rc, *rp;
+  int gy;
+  float t0, t1, t2;
+  __device__ __forceinline__ float operator()(int z, int y) const {
+    return xmix(rm, rc, rp, z * gy + y, t0, t1, t2);
+  }
+};
+
+// Blurred value of one channel at (z, y) from raw planes x-1, x, x+1
+__device__ __forceinline__ float blur_cell(const float* rm, const float* rc,
+                                           const float* rp, int z, int y,
+                                           int gz, int gy, float t0, float t1,
+                                           float t2) {
+  return blur_zy(PlaneMix{rm, rc, rp, gy, t0, t1, t2}, z, y, gz, gy, t0, t1, t2);
+}
+
+// (1-a)*b + a*c with no contraction, as the plain version rounds it
+__device__ __forceinline__ float blend(float b, float c, float a, float one_minus_a) {
+  return __fadd_rn(__fmul_rn(one_minus_a, b), __fmul_rn(a, c));
+}
+
+// eq. (4): blurred sum over blurred count, 0 where the count is empty
+__device__ __forceinline__ float normalize(float c, float s) {
+  return c > 1e-12f ? s / fmaxf(c, 1e-12f) : 0.f;
+}
+
+// y, then x lerp of the four corners (plane, column) of one z bin
+__device__ __forceinline__ float lerp_xy(float v00, float v01, float v10,
+                                         float v11, float wx, float wy) {
+  const float a0 = v00 * (1.f - wy) + v01 * wy;
+  const float a1 = v10 * (1.f - wy) + v11 * wy;
+  return a0 * (1.f - wx) + a1 * wx;
+}
+
+// TI of one pixel of intensity px: planes(p, z, y) reads normalized plane p
+// (0: the stripe's floor plane, 1: the next) at bin z, column cell y.
+template <class Planes>
+__device__ __forceinline__ float ti_pixel(const Planes& planes, float px,
+                                          float inv_rs, int y0, int y1, int gz,
+                                          float wx, float wy) {
+  const float fz = __fmul_rn(px, inv_rs);
+  const float zfl = floorf(fz);
+  const int z0 = static_cast<int>(zfl);
+  const float zf = __fsub_rn(fz, zfl);
+  float q[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    const int z = z0 + d;
+    q[d] = (z < 0 || z >= gz)
+               ? 0.f
+               : lerp_xy(planes(0, z, y0), planes(0, z, y1), planes(1, z, y0),
+                         planes(1, z, y1), wx, wy);
+  }
+  return (1.f - zf) * q[0] + zf * q[1];
+}
+
+// two normalized planes held as [z][y] in shared memory
+struct SmemPlanes {
+  const float *n0, *n1;
+  int gy;
+  __device__ __forceinline__ float operator()(int p, int z, int y) const {
+    return (p ? n1 : n0)[z * gy + y];
+  }
+};
+
+}  // namespace bg

@@ -46,69 +46,18 @@
 // and is gone. The validity mask is implicit: a thread visits only rows
 // < h of its own frame.
 //
-// Arithmetic that decides bins matches the reference exactly:
-//   z bin        floor(px * fp32(1/rs) + 0.5), without FMA contraction
-//   row/col cell round-half-up(i / r) in integers (common.py gc_row_split)
-//   TI corners   y0 = j / r, y1 = min(y0 + 1, gy - 1); yf, xf from the host
-//   normalize    count > 1e-12 ? sum / max(count, 1e-12) : 0
-//   blend        (1-a)*B + a*C, each product and the sum rounded on its own
-// with zero borders in x, y and z. B1 and B2 are one template, so GC, GF,
-// normalization and TI are the same instructions in both; at a == 0 the
-// blend is 1*B + 0*C == B exactly (C finite), so an alpha-0 row of B2 is B1
-// bit for bit.
+// The arithmetic (bins, taps, normalization, lerp order) lives in
+// bg_common.cuh, shared with the streamed kernel B3 and the staged kernels
+// B4-B6. B1 and B2 are one template, so GC, GF, normalization and TI are the
+// same instructions in both; at a == 0 the blend is 1*B + 0*C == B exactly
+// (C finite), so an alpha-0 row of B2 is B1 bit for bit.
 #include <cuda_runtime.h>
+
+#include "bg_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int gc_bin(float px, float inv_rs) {
-  return static_cast<int>(floorf(__fadd_rn(__fmul_rn(px, inv_rs), 0.5f)));
-}
-
-// x taps over the three raw planes of one channel at flat (z, y) index idx
-__device__ __forceinline__ float xmix(const float* rm, const float* rc,
-                                      const float* rp, int idx, float t0,
-                                      float t1, float t2) {
-  return t0 * rm[idx] + t1 * rc[idx] + t2 * rp[idx];
-}
-
-// Blurred value of one channel at (z, y): x, then z, then y, each
-// t0*lo + t1*mid + t2*hi with zeros outside the grid (the reference order).
-__device__ __forceinline__ float blur_cell(const float* rm, const float* rc,
-                                           const float* rp, int z, int y,
-                                           int gz, int gy, float t0, float t1,
-                                           float t2) {
-  float zc[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const int yy = y + d - 1;
-    float v = 0.f;
-    if (yy >= 0 && yy < gy) {
-      const float lo = z > 0 ? xmix(rm, rc, rp, (z - 1) * gy + yy, t0, t1, t2) : 0.f;
-      const float mid = xmix(rm, rc, rp, z * gy + yy, t0, t1, t2);
-      const float hi = z + 1 < gz ? xmix(rm, rc, rp, (z + 1) * gy + yy, t0, t1, t2) : 0.f;
-      v = t0 * lo + t1 * mid + t2 * hi;
-    }
-    zc[d] = v;
-  }
-  return t0 * zc[0] + t1 * zc[1] + t2 * zc[2];
-}
-
-// (1-a)*b + a*c with no contraction, as the plain version rounds it
-__device__ __forceinline__ float blend(float b, float c, float a, float one_minus_a) {
-  return __fadd_rn(__fmul_rn(one_minus_a, b), __fmul_rn(a, c));
-}
-
-// x/y lerp of normalized planes n0 (stripe's floor plane) and n1 at bin z
-__device__ __forceinline__ float ti_bin(const float* n0, const float* n1, int z,
-                                        int y0, int y1, int gz, int gy,
-                                        float wx, float wy) {
-  if (z < 0 || z >= gz) return 0.f;
-  const float a0 = n0[z * gy + y0] * (1.f - wy) + n0[z * gy + y1] * wy;
-  const float a1 = n1[z * gy + y0] * (1.f - wy) + n1[z * gy + y1] * wy;
-  return a0 * (1.f - wx) + a1 * wx;
-}
 
 // grid: (ceil(n_stripes / band), frames). Shared memory, with T = kTemporal:
 //   raw  [band + 3 + T][2][gz][gy]   count, sum of raw planes k0-1 .. p_hi+1
@@ -153,17 +102,8 @@ bg_fused_kernel(const float* __restrict__ img, float* __restrict__ out,
     const int i_hi = min(p * r + split, h);
     const int j_lo = max((y - 1) * r + split, 0);
     const int j_hi = min(y * r + split, w);
-    for (int i = i_lo; i < i_hi; ++i) {
-      const float* row = im + static_cast<size_t>(i) * w;
-      for (int j = j_lo; j < j_hi; ++j) {
-        const float px = __ldg(row + j);
-        const int z = gc_bin(px, inv_rs);
-        if (z >= 0 && z < gz) {
-          cnt[z * gy] += 1.f;
-          sum[z * gy] += px;
-        }
-      }
-    }
+    bg::gc_cell<true>(im + static_cast<size_t>(i_lo) * w, w, i_hi - i_lo, j_lo,
+                      j_hi, inv_rs, gz, cnt, sum, gy);
   }
   __syncthreads();
 
@@ -187,18 +127,18 @@ bg_fused_kernel(const float* __restrict__ img, float* __restrict__ out,
     const float* rm = raw + ql * 2 * plane;
     const float* rc = rm + 2 * plane;
     const float* rp = rc + 2 * plane;
-    float c = blur_cell(rm, rc, rp, z, y, gz, gy, t0, t1, t2);
-    float s = blur_cell(rm + plane, rc + plane, rp + plane, z, y, gz, gy,
-                        t0, t1, t2);
+    float c = bg::blur_cell(rm, rc, rp, z, y, gz, gy, t0, t1, t2);
+    float s = bg::blur_cell(rm + plane, rc + plane, rp + plane, z, y, gz, gy,
+                            t0, t1, t2);
     if constexpr (kTemporal) {
       const int p = k0 + ql;
       const size_t ci = ((static_cast<size_t>(p) * gy + y) * gz + z) * 2;
       const float2 prev = __ldg(reinterpret_cast<const float2*>(c_in + ci));
-      c = blend(c, prev.x, a, one_minus_a);
-      s = blend(s, prev.y, a, one_minus_a);
+      c = bg::blend(c, prev.x, a, one_minus_a);
+      s = bg::blend(s, prev.y, a, one_minus_a);
       if (p <= write_hi) *reinterpret_cast<float2*>(c_out + ci) = make_float2(c, s);
     }
-    norm[t] = c > 1e-12f ? s / fmaxf(c, 1e-12f) : 0.f;
+    norm[t] = bg::normalize(c, s);
   }
   __syncthreads();
 
@@ -212,20 +152,11 @@ bg_fused_kernel(const float* __restrict__ img, float* __restrict__ out,
     const int kl = ii / r;
     const int m = ii - kl * r;
     const size_t off = static_cast<size_t>(row_lo + ii) * w + j;
-    const float px = __ldg(im + off);
-    const float fz = __fmul_rn(px, inv_rs);
-    const float zfl = floorf(fz);
-    const int z0 = static_cast<int>(zfl);
-    const float zf = __fsub_rn(fz, zfl);
     const int y0 = j / r;
-    const int y1 = min(y0 + 1, gy - 1);
-    const float wy = __ldg(yf + j);
-    const float wx = __ldg(xf + m);
     const float* n0 = norm + kl * plane;
-    const float* n1 = n0 + plane;
-    const float q0 = ti_bin(n0, n1, z0, y0, y1, gz, gy, wx, wy);
-    const float q1 = ti_bin(n0, n1, z0 + 1, y0, y1, gz, gy, wx, wy);
-    o[off] = (1.f - zf) * q0 + zf * q1;
+    o[off] = bg::ti_pixel(bg::SmemPlanes{n0, n0 + plane, gy}, __ldg(im + off),
+                          inv_rs, y0, min(y0 + 1, gy - 1), gz, __ldg(xf + m),
+                          __ldg(yf + j));
   }
 }
 

@@ -5,6 +5,8 @@ async engine and the multi-stream packer, on one device.
     python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
         --micro-batch 8 --config paper-default
     python -m repro_torch.launch.serve --frames 4 --frame-hw 48x64 --device cpu
+    python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
+        --config paper-default --stream-input
     python -m repro_torch.launch.serve --video 4 --video-frames 24 \\
         --frame-hw 1080x1920 --alpha 0.6 --config paper-default
     python -m repro_torch.launch.serve --video 2 --video-frames 3 \\
@@ -30,21 +32,28 @@ def serve_frames(
     micro_batch: int = 8,
     config: str = "serve",
     device=None,
+    stream_input: bool = False,
 ) -> dict:
     """Serve ``frames`` synthetic noisy frames (made on the host, as clients
-    would send them) and return ``{"frames", "seconds", "frames_per_s",
-    "dispatches", "device"}``. The timed loop starts after one warm-up
-    micro-batch and ends when the last result is on hand
-    (``torch.cuda.synchronize`` on a card)."""
+    would send them) through the ``"fused"`` plan, or the
+    ``"fused_streamed"`` one with ``stream_input`` (the JAX launcher's
+    ``--stream-input``), and return ``{"frames", "seconds", "frames_per_s",
+    "dispatches", "backend", "bg_fused_launches",
+    "bg_fused_streamed_launches", "device", "plan"}``, the launches counted
+    over the timed run. The timed loop starts after one warm-up micro-batch
+    and ends when the last result is on hand (``torch.cuda.synchronize`` on
+    a card)."""
     from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
     from repro_torch.core import add_gaussian_noise, synthetic_batch
+    from repro_torch.kernels import bg_fused
     from repro_torch.plan import BGPlan
     from repro_torch.serving import FrameDenoiseEngine, FrameRequest
 
     if config not in CONFIGS:
         raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
     cfg = PAPER_DEFAULT.bg if config == "paper-default" else SERVE_CONFIG
-    plan = BGPlan(cfg=cfg, backend="fused", device=device)
+    backend = "fused_streamed" if stream_input else "fused"
+    plan = BGPlan(cfg=cfg, backend=backend, device=device)
     eng = FrameDenoiseEngine(plan=plan, max_batch=micro_batch)
     clean = synthetic_batch(frames, height, width, seed=0, device="cpu")
     noisy = add_gaussian_noise(
@@ -60,6 +69,7 @@ def serve_frames(
     eng.flush()
     sync()
 
+    b1, b3 = bg_fused.launches, bg_fused.streamed_launches
     t0 = time.perf_counter()
     done, dispatches = [], 0
     for i in range(frames):
@@ -79,6 +89,9 @@ def serve_frames(
         "seconds": dt,
         "frames_per_s": frames / dt,
         "dispatches": dispatches,
+        "backend": plan.backend,
+        "bg_fused_launches": bg_fused.launches - b1,
+        "bg_fused_streamed_launches": bg_fused.streamed_launches - b3,
         "device": str(plan.device),
         "plan": plan.describe(),
     }
@@ -186,6 +199,9 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-window-ms", type=float, default=5.0, help="video batch window")
     ap.add_argument("--frame-hw", default="96x128", help="frame size HxW")
     ap.add_argument("--micro-batch", type=int, default=8, help="frames per dispatch")
+    ap.add_argument("--stream-input", action="store_true",
+                    help="serve frames through the streamed fused kernel (two-slot "
+                    "asynchronous input copies into shared memory)")
     ap.add_argument("--config", choices=CONFIGS, default="serve",
                     help="grid config: the JAX launcher's serve grid (r=6) "
                     "or the paper's full-HD default (r=12)")
@@ -208,11 +224,14 @@ def main(argv=None) -> None:
             f"b2={st['bg_fused_temporal_launches']} plan[{st['plan']}]"
         )
         return
-    stats = serve_frames(args.frames, h, w, args.micro_batch, args.config, args.device)
+    stats = serve_frames(
+        args.frames, h, w, args.micro_batch, args.config, args.device, args.stream_input
+    )
     print(
         f"[serve] {stats['frames']} frames {h}x{w} on {stats['device']} "
         f"in {stats['seconds']:.3f}s ({stats['frames_per_s']:.1f} frames/s, "
-        f"{stats['dispatches']} dispatches, plan[{stats['plan']}])"
+        f"{stats['dispatches']} dispatches, launches b1={stats['bg_fused_launches']} "
+        f"b3={stats['bg_fused_streamed_launches']}, plan[{stats['plan']}])"
     )
 
 

@@ -5,23 +5,29 @@ A :class:`BGPlan` is one frozen, hashable record of every dispatch decision,
 validated once at construction. Calling a plan runs its cached executable;
 equal plans share one executable.
 
-  backend        route
-  -------------  -----------------------------------------------------------
-  "reference"    whole-image GC -> GF -> TI per frame (``repro_torch.core``);
-                 the numerical oracle. Temporal: the staged oracle
-                 (``blurred_grid_batch`` -> EMA blend -> normalize -> slice)
-  "fused"        the fused CUDA kernel (``kernels/bg_fused.py``), grid kept
-                 in shared memory; its plain version on the CPU. Temporal:
-                 the same kernel with the in-kernel grid EMA
+  backend           route
+  ----------------  --------------------------------------------------------
+  "reference"       whole-image GC -> GF -> TI per frame (``repro_torch.core``);
+                    the numerical oracle. Temporal: the staged oracle
+                    (``blurred_grid_batch`` -> EMA blend -> normalize -> slice)
+  "fused"           the fused CUDA kernel B1 (``kernels/bg_fused.py``), grid
+                    kept in shared memory; its plain version on the CPU.
+                    Temporal: the same kernel with the in-kernel grid EMA (B2)
+  "fused_streamed"  the streamed fused kernel B3 (``bg_fused(stream_input=
+                    True)``): the image staged through a two-slot copy ring,
+                    B1's output bit for bit; one launch per ``batch_tile``
+  "staged"          the three staged kernels on the whole dispatch, grid in
+                    HBM between them: GC (B4) -> GF (B5) -> normalize (a
+                    torch expression) -> TI (B6), one launch of each
 
 A temporal plan (``temporal=True``) is called as ``plan(frames, carry=,
 alpha=)`` and returns ``(out, new_carry)``; the video packer derives the
 temporal and per-frame variants of one base plan per pack
 (:meth:`BGPlan.as_temporal`).
 
-The JAX package's other routes ("streaming", "staged", "fused_streamed"),
-``precision="bf16"`` and mesh sharding are valid plans there and raise
-``NotImplementedError`` here until they are ported. A plan the JAX package
+The JAX package's ``"streaming"`` route, ``precision="bf16"`` and mesh
+sharding are valid plans there and raise ``NotImplementedError`` here until
+they are ported. A plan the JAX package
 rejects is rejected here with the same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
@@ -52,7 +58,7 @@ _FUSED_BACKENDS = ("fused", "fused_streamed")
 _TEMPORAL_BACKENDS = ("reference", "fused")
 PRECISIONS = ("fp32", "bf16")
 _BF16_BACKENDS = ("reference", "fused", "fused_streamed")
-PORTED_BACKENDS = ("reference", "fused")
+PORTED_BACKENDS = ("reference", "fused", "fused_streamed", "staged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +67,11 @@ class BGPlan:
 
     Fields:
       cfg:             the grid/window configuration (frozen ``BGConfig``).
-      backend:         ``"reference"`` or ``"fused"`` (module docstring).
+      backend:         ``"reference"``, ``"fused"``, ``"fused_streamed"`` or
+                       ``"staged"`` (module docstring).
       temporal:        the video grid-EMA form: called with ``carry=`` and
                        ``alpha=``, returns ``(out, new_carry)``.
-      batch_tile:      frames per kernel launch on the ``"fused"`` backend
+      batch_tile:      frames per kernel launch on the fused backends
                        (``None``: the whole dispatch in one launch); frames
                        per pass of the plain version on the CPU. Results do
                        not depend on it. Normalized to ``None`` elsewhere.
@@ -329,9 +336,21 @@ def _plan_executable(plan: BGPlan):
 
         return fn
 
+    if plan.backend == "staged":
+        from repro_torch.kernels.ops import _staged_single
+
+        def fn(frames):
+            return _maybe_quantize(_staged_single(frames, cfg))
+
+        return fn
+
     from repro_torch.kernels.bg_fused import bg_fused
 
+    stream_input = plan.backend == "fused_streamed"
+
     def fn(frames):
-        return _maybe_quantize(bg_fused(frames, cfg, batch_tile=plan.batch_tile))
+        return _maybe_quantize(
+            bg_fused(frames, cfg, batch_tile=plan.batch_tile, stream_input=stream_input)
+        )
 
     return fn

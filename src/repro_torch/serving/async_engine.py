@@ -191,7 +191,8 @@ class AsyncFrameEngine:
 
     Pass ``packer=`` (video mode: the packer's plan dispatches), ``plan=``
     (a :class:`repro_torch.plan.BGPlan` that quantizes its output), or
-    ``cfg=`` and optionally ``device=`` for the fused plan.
+    ``cfg=`` and optionally ``device=`` for the fused plan
+    (``stream_input=True``: the ``"fused_streamed"`` plan).
     """
 
     def __init__(
@@ -202,6 +203,7 @@ class AsyncFrameEngine:
         batch_window_ms: float = 2.0,
         deadline_margin_ms: float = 1.0,
         max_inflight: int = 2,
+        stream_input: bool = False,
         packer=None,
         plan=None,
         device=None,
@@ -212,8 +214,11 @@ class AsyncFrameEngine:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
-        if (packer is not None or plan is not None) and device is not None:
-            raise ValueError("pass device= with cfg=; a plan carries its own device")
+        if (packer is not None or plan is not None) and (device is not None or stream_input):
+            raise ValueError(
+                "pass device= and stream_input= with cfg=; a plan carries its "
+                "own device and backend"
+            )
         if packer is not None:
             # video mode dispatches through the packer's own plan
             if plan is not None and plan is not packer.plan:
@@ -227,7 +232,8 @@ class AsyncFrameEngine:
                 raise TypeError("AsyncFrameEngine needs cfg=, plan= or packer=")
             from repro_torch.plan import BGPlan
 
-            plan = BGPlan(cfg=cfg, backend="fused", quantize_output=True, device=device)
+            backend = "fused_streamed" if stream_input else "fused"
+            plan = BGPlan(cfg=cfg, backend=backend, quantize_output=True, device=device)
         if not plan.quantize_output:
             raise ValueError(
                 "AsyncFrameEngine serves quantized frames; build the plan "

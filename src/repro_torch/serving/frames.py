@@ -3,8 +3,9 @@ device.
 
 Clients submit frames one at a time; ``step()`` dispatches up to
 ``max_batch`` queued frames as one batch through the engine's
-:class:`repro_torch.plan.BGPlan` (with the ``"fused"`` backend on a CUDA
-device, one kernel launch per dispatch), as the JAX package's engine does
+:class:`repro_torch.plan.BGPlan` (with the ``"fused"`` or ``"fused_streamed"``
+backend on a CUDA device, one kernel launch per dispatch), as the JAX
+package's engine does
 on one device. ``flush()`` drains the queue in such batches, the last one
 ragged. Results stay on the plan's device.
 """
@@ -32,14 +33,17 @@ class FrameDenoiseEngine:
     """Micro-batching front for the bilateral-grid plan, single device.
 
     Pass ``plan=`` (it must quantize its output, and it names the device),
-    or ``cfg=`` and optionally ``device=`` to build the ``"fused"`` plan. ``max_batch`` must be >= 1
-    (0 or negative is rejected, not clamped); it caps frames per dispatch.
+    or ``cfg=`` and optionally ``device=`` to build the ``"fused"`` plan
+    (``stream_input=True``: the ``"fused_streamed"`` plan, as the JAX
+    engine builds it). ``max_batch`` must be >= 1 (0 or negative is
+    rejected, not clamped); it caps frames per dispatch.
     """
 
     def __init__(
         self,
         cfg: BGConfig | None = None,
         max_batch: int = 32,
+        stream_input: bool = False,
         *,
         plan=None,
         device=None,
@@ -51,9 +55,13 @@ class FrameDenoiseEngine:
                 raise TypeError("FrameDenoiseEngine needs cfg= or plan=")
             from repro_torch.plan import BGPlan
 
-            plan = BGPlan(cfg=cfg, backend="fused", device=device)
-        elif device is not None:
-            raise ValueError("pass device= with cfg=; a plan carries its own device")
+            backend = "fused_streamed" if stream_input else "fused"
+            plan = BGPlan(cfg=cfg, backend=backend, device=device)
+        elif device is not None or stream_input:
+            raise ValueError(
+                "pass device= and stream_input= with cfg=; a plan carries its "
+                "own device and backend"
+            )
         elif not plan.quantize_output:
             raise ValueError(
                 "FrameDenoiseEngine serves quantized frames; build the plan "

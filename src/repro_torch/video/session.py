@@ -82,8 +82,6 @@ class MultiStreamPacker:
         elif device is not None:
             raise ValueError("pass device= with cfg=; a plan carries its own device")
         if plan.backend == "fused_streamed":
-            # unreachable while the port raises NotImplementedError for that
-            # backend; kept so the contract holds once it is ported
             raise ValueError(
                 "MultiStreamPacker needs a temporal-capable plan; "
                 "backend='fused_streamed' cannot carry the grid EMA"

@@ -36,6 +36,29 @@ print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
     assert int(proc.stdout.split()[1]) >= 15
 
 
+NEW_IN_SLICE_3 = ["kernels._wrap", "kernels.bg_create", "kernels.bg_blur", "kernels.bg_slice"]
+
+
+@pytest.mark.parametrize("name", NEW_IN_SLICE_3)
+def test_kernel_modules_import_alone_without_jax(name):
+    """Each kernel module imports in a fresh interpreter by itself, loading
+    no JAX, nothing of ``repro`` and no compiled kernel (the CPU host has no
+    nvcc: a kernel is built at its first launch, never at import)."""
+    code = f"""
+import importlib, sys
+importlib.import_module("repro_torch.{name}")
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+from repro_torch.kernels import _build
+assert not _build._libs, sorted(_build._libs)
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, env=env
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_and_no_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))

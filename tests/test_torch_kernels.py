@@ -1,14 +1,16 @@
 """The fused bilateral-grid kernel module of the port.
 
 On the CPU, ``bg_fused`` runs its plain version; it is held to the JAX
-package's fused Pallas kernel (interpret mode) and to ``ref_fused`` at the
-JAX package's tolerance (atol 5e-3, tests/test_kernels.py), and to the
-per-frame bitwise contracts of tests/test_batched_bg.py. The tests marked
-``gpu`` run the CUDA kernel and skip without a card:
+package's fused Pallas kernel (interpret mode, default and streamed input)
+and to ``ref_fused`` at the JAX package's tolerance (atol 5e-3,
+tests/test_kernels.py), and to the per-frame bitwise contracts of
+tests/test_batched_bg.py. The tests marked ``gpu`` run the CUDA kernels
+(B1, B2 and the streamed B3) and skip without a card:
 
     pytest -m gpu tests/test_torch_kernels.py
 """
 import importlib
+import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -18,7 +20,13 @@ import torch
 from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
 from repro_torch.core import BGConfig, quantize_intensity, synthetic_image_np
 from repro_torch.kernels import bg_fused, bg_fused_plain
-from repro_torch.kernels.bg_fused import H100_SMEM_OPTIN, launch_geometry, smem_bytes
+from repro_torch.kernels.bg_fused import (
+    H100_SMEM_OPTIN,
+    launch_geometry,
+    smem_bytes,
+    stream_geometry,
+    stream_smem_bytes,
+)
 from repro_torch.kernels.ref import ref_fused
 
 # the module (the package attribute of the same name is the wrapper)
@@ -115,6 +123,37 @@ def test_output_independent_of_batch_tile(batch_tile):
         assert torch.equal(bg_fused(imgs[i].clone(), cfg), base[i])
 
 
+STREAMED = [((40, 55), 6, 1), ((40, 55), 6, 3), ((61, 83), 7, 3), ((33, 47), 4, 1), ((60, 96), 5, 3)]
+
+
+@pytest.mark.parametrize("shape,r,b", STREAMED)
+def test_streamed_matches_jax_streamed_kernel(jx, shape, r, b):
+    """``stream_input=True`` on the CPU (the plain version) against the JAX
+    package's streamed Pallas kernel, ragged shapes and b in {1, 3}."""
+    imgs = noisy_np(b, *shape, seed=r)
+    cfg, jcfg = BGConfig(r, 4.0, 60.0), jx.cfg(r, 4.0, 60.0)
+    port = bg_fused(torch.from_numpy(imgs), cfg, stream_input=True)
+    kernel = np.asarray(jx.bg_fused(jx.np(imgs), jcfg, interpret=True, stream_input=True))
+    assert port.shape == (b,) + shape
+    np.testing.assert_allclose(port.numpy(), kernel, atol=5e-3)
+    single = bg_fused(torch.from_numpy(imgs[0]), cfg, stream_input=True)
+    assert torch.equal(single, port[0]) and torch.equal(port, bg_fused(torch.from_numpy(imgs), cfg))
+
+
+def test_streamed_rejects_a_carry_as_jax_does(jx):
+    img = noisy_np(2, 24, 30)
+    cfg = BGConfig(6, 4.0, 60.0)
+    carry = np.zeros((2, *K.grid_shape(24, 30, cfg), 2), np.float32)
+    alpha = np.zeros(2, np.float32)
+    msg = "stream_input does not compose with a temporal carry"
+    with pytest.raises(ValueError, match=msg):
+        jx.bg_fused(jx.np(img), jx.cfg(6, 4.0, 60.0), interpret=True, stream_input=True,
+                    carry=jx.np(carry), alpha=jx.np(alpha))
+    with pytest.raises(ValueError, match=msg):
+        bg_fused(torch.from_numpy(img), cfg, carry=torch.from_numpy(carry),
+                 alpha=torch.from_numpy(alpha), stream_input=True)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     cfg = BGConfig(6, 4.0, 60.0)
     img = torch.zeros(2, 12, 12)
@@ -177,6 +216,36 @@ def test_full_hd_temporal_working_set_fits(name, cfg):
     # PAPER_DEFAULT and the serve grid at band 2 (ISSUE figures)
     assert smem_bytes(2, 4, 162, temporal=True) == 41472
     assert smem_bytes(2, 4, 322, temporal=True) == 82432
+
+
+@pytest.mark.parametrize("name,cfg", FULL_HD)
+def test_full_hd_configs_fit_the_streamed_kernel(name, cfg):
+    """Two slots of a whole stripe do not fit beside the planes at every
+    radius: the chunk is the most rows that do, at most r."""
+    _, gy, gz = K.grid_shape(1080, 1920, cfg)
+    for b in (1, 4, 8):
+        band, bands, chunk, smem = stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
+        assert 1 <= chunk <= cfg.r and smem == stream_smem_bytes(chunk, 1920, gz, gy) <= H100_SMEM_OPTIN
+        assert chunk == cfg.r or stream_smem_bytes(chunk + 1, 1920, gz, gy) > H100_SMEM_OPTIN
+        n = -(-1080 // cfg.r)
+        assert bands == -(-n // band) and b * bands <= 132 + b
+
+
+def test_streamed_geometry_rules():
+    cfg = PAPER_DEFAULT.bg  # 90 stripes, gz=4, gy=162
+    assert stream_geometry(8, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[:3] == (6, 15, 12)
+    assert stream_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[:3] == (1, 90, 12)
+    # r=16 and r=4 at full HD: a whole stripe per slot does not fit
+    assert stream_geometry(8, 1080, 1920, TABLE1_SWEEP[3].bg, 132, H100_SMEM_OPTIN)[2] == 14
+    assert stream_geometry(8, 1080, 1920, TABLE1_SWEEP[0].bg, 132, H100_SMEM_OPTIN)[2] == 3
+    # explicit band and chunk are cut to the frame and to what fits
+    assert stream_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, band=500, chunk=99)[:3] == (90, 1, 12)
+    # slots start on a 16-byte boundary and hold the unaligned head
+    assert stream_smem_bytes(1, 55, 3, 11) == 4 * (332 + 2 * 60)  # 330 floats of planes
+    r2 = FIG12_SWEEPS["r"][0]
+    need = stream_smem_bytes(1, 1920, r2.gz, 962)
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        stream_geometry(1, 1080, 1920, r2, 132, H100_SMEM_OPTIN)
 
 
 # ------------------------------------------------------------- on the card
@@ -269,6 +338,39 @@ def test_kernel_matches_plain_on_card(cuda, shape, params):
     assert torch.equal(bg_fused(imgs, cfg, batch_tile=2), out)
 
 
+STREAMED_CARD = [((40, 55), SERVE_CONFIG), ((45, 55), SERVE_CONFIG), ((33, 47), BGConfig(4, 4.0, 60.0)),
+                 ((61, 83), BGConfig(7, 4.0, 50.0)), ((1080, 1918), PAPER_DEFAULT.bg),
+                 ((1080, 1920), TABLE1_SWEEP[3].bg)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", STREAMED_CARD)
+def test_streamed_kernel_bitwise_b1_on_card(cuda, shape, cfg):
+    imgs = torch.from_numpy(noisy_np(3, *shape)).to(cuda)
+    ref = bg_fused(imgs, cfg)
+    b1, b3 = bg_fused.launches, bg_fused.streamed_launches
+    out = bg_fused(imgs, cfg, stream_input=True)
+    torch.cuda.synchronize()
+    assert bg_fused.streamed_launches == b3 + 1 and bg_fused.launches == b1
+    assert torch.equal(out, ref)
+    assert torch.equal(bg_fused(imgs[1], cfg, stream_input=True), ref[1])
+    # frames 1.. start h*w floats in: an unaligned source when h*w is odd
+    assert torch.equal(bg_fused(imgs[1:], cfg, stream_input=True), ref[1:])
+    assert torch.equal(bg_fused(imgs, cfg, batch_tile=2, stream_input=True), ref)
+    n = -(-shape[0] // cfg.r)
+    for band, chunk in ((1, 1), (2, cfg.r), (3, 2), (n, None)):
+        got = torch.full_like(imgs, float("nan"))
+        K._stream_launch(imgs, got, cfg, band, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (band, chunk)
+
+
+@pytest.mark.gpu
+def test_streamed_kernel_raises_where_nothing_fits(cuda):
+    with pytest.raises(ValueError, match="bytes"):
+        bg_fused(torch.zeros(1, 1080, 1920, device=cuda), FIG12_SWEEPS["r"][0], stream_input=True)
+
+
 @pytest.mark.gpu
 def test_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
     def boom(*a, **k):
@@ -276,9 +378,11 @@ def test_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
 
     monkeypatch.setattr(K, "bg_fused_plain", boom)
     monkeypatch.setattr(K, "_plain_frames", boom)
-    out = K.bg_fused(torch.from_numpy(noisy_np(2, 45, 200)).to(cuda), SERVE_CONFIG)
-    torch.cuda.synchronize()
-    assert out.is_cuda and out.shape == (2, 45, 200)
+    for stream_input in (False, True):
+        out = K.bg_fused(torch.from_numpy(noisy_np(2, 45, 200)).to(cuda), SERVE_CONFIG,
+                         stream_input=stream_input)
+        torch.cuda.synchronize()
+        assert out.is_cuda and out.shape == (2, 45, 200)
 
 
 @pytest.mark.gpu
@@ -304,3 +408,28 @@ def test_build_without_nvcc_raises_and_names_it(monkeypatch, tmp_path):
     assert name.startswith("bg_fused-") and name.endswith(".so")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DX",))
     assert _build._target("bg_fused").name != name
+
+
+def test_build_target_follows_included_headers(monkeypatch, tmp_path):
+    """A source's cache name covers every csrc header it includes, directly
+    or through another header, so an edited header is never a stale build."""
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    kernels = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur", "bg_slice")
+    for name in kernels:
+        assert _build._sources(name) == [f"{name}.cu", "bg_common.cuh"]
+    before = {n: _build._target(n).name for n in kernels}
+    header = csrc / "bg_common.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    edited = {n: _build._target(n).name for n in kernels}
+    assert all(edited[n] != before[n] for n in kernels)
+    # a header included by the header counts too
+    (csrc / "bg_extra.cuh").write_text("#pragma once\n")
+    header.write_text('#include "bg_extra.cuh"\n' + header.read_text())
+    assert _build._sources("bg_blur") == ["bg_blur.cu", "bg_common.cuh", "bg_extra.cuh"]
+    nested = _build._target("bg_blur").name
+    (csrc / "bg_extra.cuh").write_text("#pragma once\n// changed\n")
+    assert _build._target("bg_blur").name not in (nested, edited["bg_blur"])

@@ -19,7 +19,8 @@ from repro_torch.core import BGConfig, synthetic_image, synthetic_image_np
 from repro_torch.data.pipeline import denoise_batch
 from repro_torch.kernels import bilateral_grid_filter_pallas
 from repro_torch.plan import BGPlan
-from repro_torch.serving import FrameDenoiseEngine, FrameRequest
+from repro_torch.serving import AsyncFrameEngine, FrameDenoiseEngine, FrameRequest
+from repro_torch.video import MultiStreamPacker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = (6, 4.0, 60.0)
@@ -53,8 +54,8 @@ REJECTED = [
 ]
 NOT_PORTED = [
     dict(backend="streaming"),
-    dict(backend="staged"),
-    dict(backend="fused_streamed"),
+    dict(backend="fused_streamed", precision="bf16"),
+    dict(backend="streaming", quantize_output=False),
     dict(temporal=True, precision="bf16"),
     dict(backend="reference", temporal=True, precision="bf16"),
     dict(precision="bf16"),
@@ -129,15 +130,39 @@ def test_from_json_rejects_what_is_not_ported():
     payload = JBGPlan(cfg=JCFG, backend="fused").to_json()
     with pytest.raises(NotImplementedError, match="mesh"):
         BGPlan.from_json(dict(payload, mesh_size=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_streamed"):
-        BGPlan.from_json(dict(payload, backend="fused_streamed"), device="cpu")
+    with pytest.raises(NotImplementedError, match="streaming"):
+        BGPlan.from_json(dict(payload, backend="streaming"), device="cpu")
     with pytest.raises(NotImplementedError, match="bf16"):
         BGPlan.from_json(dict(payload, precision="bf16"), device="cpu")
     with pytest.raises(ValueError, match="version"):
         BGPlan.from_json(dict(payload, version=2), device="cpu")
 
 
-@pytest.mark.parametrize("backend", ["reference", "fused"])
+@pytest.mark.parametrize("backend", ["fused_streamed", "staged"])
+def test_streamed_and_staged_plans_are_accepted(backend):
+    plan = BGPlan(CFG, backend=backend, batch_tile=2, device="cpu")
+    jplan = JBGPlan(cfg=JCFG, backend=backend, batch_tile=2)
+    # batch_tile is a fused-family field in both packages
+    assert plan.batch_tile == jplan.batch_tile == (2 if backend == "fused_streamed" else None)
+    assert plan.executable() is BGPlan(CFG, backend=backend, batch_tile=2, device="cpu").executable()
+    with pytest.raises(ValueError, match="temporal"):
+        BGPlan(CFG, backend=backend, temporal=True, device="cpu")
+    assert BGPlan.from_json(json.loads(json.dumps(plan.to_json())), device="cpu") == plan
+
+
+@pytest.mark.parametrize("backend", ["fused_streamed", "staged"])
+def test_from_json_of_a_jax_streamed_or_staged_payload(backend):
+    jplan = JBGPlan(cfg=JCFG, backend=backend, batch_tile=3, interpret=True)
+    plan = BGPlan.from_json(json.loads(json.dumps(jplan.to_json())), device="cpu")
+    assert (plan.cfg, plan.backend, plan.device.type) == (CFG, backend, "cpu")
+    assert plan.batch_tile == jplan.batch_tile
+    frames = frames_np(3, 40, 55, seed=6)
+    quantized_contract(plan(frames).numpy(), np.asarray(jplan(frames)))
+    back = JBGPlan.from_json(json.loads(json.dumps(plan.to_json())))
+    assert back == JBGPlan(cfg=JCFG, backend=backend, batch_tile=3)
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused", "fused_streamed", "staged"])
 def test_backends_match_jax(backend):
     frames = frames_np(2, 40, 55, seed=4)
     out = BGPlan(CFG, backend=backend, device="cpu")(frames)
@@ -147,7 +172,7 @@ def test_backends_match_jax(backend):
     assert raw.shape == frames[0].shape and not torch.equal(raw, torch.floor(raw))
 
 
-@pytest.mark.parametrize("backend", ["reference", "fused"])
+@pytest.mark.parametrize("backend", ["reference", "fused", "staged"])
 def test_color_frames_fold_channels_into_batch(backend):
     base = frames_np(3, 40, 55)
     color = np.stack([base, base[:, ::-1], base[:, :, ::-1]], axis=-1)
@@ -183,6 +208,50 @@ def test_frame_engine_matches_jax_engine_with_ragged_flush():
         quantized_contract(r.result.numpy(), np.asarray(jr.result))
 
 
+def test_frame_engine_stream_input_builds_the_streamed_plan():
+    frames = frames_np(5, 40, 55, seed=3)
+    eng = FrameDenoiseEngine(CFG, max_batch=2, stream_input=True, device="cpu")
+    jeng = JEngine(JCFG, max_batch=2, stream_input=True)
+    assert eng.plan.backend == jeng.plan.backend == "fused_streamed"
+    for i in range(5):
+        eng.submit(FrameRequest(uid=i, frame=frames[i]))
+        jeng.submit(JRequest(uid=i, frame=frames[i]))
+    done, jdone = eng.flush(), jeng.flush()
+    assert [r.uid for r in done] == [r.uid for r in jdone] == list(range(5))
+    for r, jr in zip(done, jdone):
+        quantized_contract(r.result.numpy(), np.asarray(jr.result))
+    with pytest.raises(ValueError, match="stream_input"):
+        FrameDenoiseEngine(plan=BGPlan(CFG, device="cpu"), stream_input=True)
+
+
+def test_async_engine_stream_input_builds_the_streamed_plan():
+    from repro.serving import AsyncFrameEngine as JAsyncEngine
+
+    frames = frames_np(3, 40, 55, seed=5)
+    with AsyncFrameEngine(CFG, max_batch=3, stream_input=True, device="cpu") as eng:
+        assert eng.plan.backend == "fused_streamed"
+        outs = [f.result() for f in [eng.submit(f) for f in frames]]
+    with JAsyncEngine(JCFG, max_batch=3, stream_input=True) as jeng:
+        assert jeng.plan.backend == "fused_streamed"
+        jouts = [f.result() for f in [jeng.submit(f) for f in frames]]
+    for o, jo in zip(outs, jouts):
+        quantized_contract(o.numpy(), np.asarray(jo))
+    with pytest.raises(ValueError, match="stream_input"):
+        AsyncFrameEngine(plan=BGPlan(CFG, device="cpu"), stream_input=True)
+    with pytest.raises(ValueError, match="stream_input"):
+        AsyncFrameEngine(packer=MultiStreamPacker(CFG, device="cpu"), stream_input=True)
+
+
+def test_packer_rejects_input_streamed_plan():
+    """The JAX package's tests/test_plan.py test of the same name."""
+    from repro.video import MultiStreamPacker as JPacker
+
+    with pytest.raises(ValueError, match="fused_streamed"):
+        JPacker(plan=JBGPlan(cfg=JCFG, backend="fused_streamed"))
+    with pytest.raises(ValueError, match="fused_streamed"):
+        MultiStreamPacker(plan=BGPlan(CFG, backend="fused_streamed", device="cpu"))
+
+
 def test_frame_engine_rejections_match_jax():
     for bad in (0, -1):
         with pytest.raises(ValueError, match="max_batch"):
@@ -209,3 +278,26 @@ def test_serve_launcher_runs_on_cpu():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "[serve] 4 frames 48x64 on cpu" in proc.stdout
     assert "2 dispatches" in proc.stdout
+
+
+def test_serve_launcher_stream_input_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--frames", "2",
+         "--frame-hw", "40x55", "--stream-input", "--device", "cpu"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "[serve] 2 frames 40x55 on cpu" in proc.stdout
+    assert "backend=fused_streamed" in proc.stdout
+    # on the CPU the plain version serves: no kernel launch is counted
+    assert "launches b1=0 b3=0" in proc.stdout
+
+
+def test_serve_frames_reports_backend_and_launches():
+    from repro_torch.launch.serve import serve_frames
+
+    st = serve_frames(3, 24, 30, micro_batch=2, device="cpu", stream_input=True)
+    assert st["backend"] == "fused_streamed" and st["dispatches"] == 2
+    assert st["bg_fused_launches"] == st["bg_fused_streamed_launches"] == 0
+    assert serve_frames(2, 24, 30, micro_batch=2, device="cpu")["backend"] == "fused"

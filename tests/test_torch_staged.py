@@ -1,0 +1,215 @@
+"""The staged kernels of the port (GC, GF and TI with the grid in HBM) and
+the ``"staged"`` backend, against the JAX package on the same numpy frames.
+
+On the CPU each wrapper runs its plain version; it is held to the JAX
+package's staged Pallas kernels (interpret mode) at the JAX package's own
+tolerances (tests/test_kernels.py): GC atol 1e-4 with counts summing to
+h*w, GF rtol 1e-4 / atol 1e-2, TI atol 1e-3, and the staged backend's
+quantized output at >= 99.5 % exact / <= 1 LSB. The tests marked ``gpu``
+run the CUDA kernels and skip without a card:
+
+    pytest -m gpu tests/test_torch_staged.py
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
+from repro_torch.core import BGConfig, grid_normalize, synthetic_image_np
+from repro_torch.kernels import (
+    bg_blur,
+    bg_blur_plain,
+    bg_create,
+    bg_create_plain,
+    bg_fused,
+    bg_slice,
+    bg_slice_plain,
+    bilateral_grid_filter_pallas,
+)
+from repro_torch.kernels.bg_create import create_threads
+from repro_torch.plan import BGPlan
+
+SHAPES = [(40, 55), (60, 96)]
+PARAMS = [(5, 3.0, 40.0), (6, 4.0, 60.0), (8, 8.0, 70.0)]
+
+
+def noisy_np(*shape, seed=11):
+    """(h, w) or (b, h, w) synthetic scenes + numpy noise, 8-bit quantized."""
+    h, w = shape[-2:]
+    b = shape[0] if len(shape) == 3 else 1
+    clean = np.stack([synthetic_image_np(h, w, seed=seed + i) for i in range(b)])
+    noise = np.random.default_rng(seed + 100).normal(0.0, 30.0, clean.shape)
+    out = np.clip(np.floor(clean + noise + 0.5), 0.0, 255.0).astype(np.float32)
+    return out.reshape(shape)
+
+
+def quantized_contract(a, b):
+    diff = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    assert np.mean(diff == 0.0) >= 0.995, np.mean(diff == 0.0)
+    assert diff.max() <= 1.0
+
+
+@pytest.fixture
+def jx():
+    """The JAX package's staged kernels, oracles and plan. The card's host
+    has no JAX, so ``pytest -m gpu`` there must not import it."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import BGConfig as JBGConfig
+    from repro.core.bilateral_grid import grid_normalize as j_normalize
+    from repro.kernels import bg_blur as j_blur
+    from repro.kernels import bg_create as j_create
+    from repro.kernels import bg_slice as j_slice
+    from repro.kernels.ref import ref_blur, ref_create
+    from repro.plan import BGPlan as JBGPlan
+
+    return SimpleNamespace(
+        np=jnp.asarray, cfg=JBGConfig, create=j_create, blur=j_blur, slice=j_slice,
+        normalize=j_normalize, ref_create=ref_create, ref_blur=ref_blur, plan=JBGPlan,
+    )
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; skips the test on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+# ------------------------------------------------------------ CPU: parity
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("params", PARAMS)
+def test_create_matches_jax_kernel(jx, shape, params):
+    img = noisy_np(*shape)
+    port = bg_create(torch.from_numpy(img), BGConfig(*params))
+    kernel = np.asarray(jx.create(jx.np(img), jx.cfg(*params), interpret=True))
+    assert tuple(port.shape) == kernel.shape and port.dtype == torch.float32
+    np.testing.assert_allclose(port.numpy(), kernel, atol=1e-4)
+    assert float(port[..., 0].sum()) == shape[0] * shape[1]
+
+
+def test_create_batch_rows_equal_single_frames():
+    cfg = BGConfig(*PARAMS[0])
+    imgs = torch.from_numpy(noisy_np(3, 40, 55))
+    batch = bg_create(imgs, cfg)
+    assert batch.shape == (3,) + bg_create(imgs[0], cfg).shape
+    for i in range(3):
+        assert torch.equal(batch[i], bg_create(imgs[i].clone(), cfg))
+    assert torch.equal(batch, bg_create_plain(imgs, cfg))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("params", PARAMS)
+def test_blur_matches_jax_kernel(jx, shape, params):
+    img = noisy_np(*shape)
+    grid = np.array(jx.ref_create(jx.np(img), jx.cfg(*params)))
+    port = bg_blur(torch.from_numpy(grid), BGConfig(*params))
+    kernel = np.asarray(jx.blur(jx.np(grid), jx.cfg(*params), interpret=True))
+    assert tuple(port.shape) == kernel.shape
+    np.testing.assert_allclose(port.numpy(), kernel, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("params", PARAMS)
+def test_slice_matches_jax_kernel(jx, shape, params):
+    img = noisy_np(*shape)
+    jcfg = jx.cfg(*params)
+    gf = np.array(jx.normalize(jx.ref_blur(jx.ref_create(jx.np(img), jcfg), jcfg)))
+    port = bg_slice(torch.from_numpy(gf), torch.from_numpy(img), BGConfig(*params))
+    kernel = np.asarray(jx.slice(jx.np(gf), jx.np(img), jcfg, interpret=True))
+    assert tuple(port.shape) == shape
+    np.testing.assert_allclose(port.numpy(), kernel, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_staged_backend_matches_jax_staged(jx, shape):
+    cfg_args = PARAMS[1]
+    frames = noisy_np(2, *shape, seed=4)
+    ref = np.asarray(jx.plan(jx.cfg(*cfg_args), backend="staged", interpret=True)(frames))
+    plan = BGPlan(BGConfig(*cfg_args), backend="staged", device="cpu")
+    quantized_contract(plan(frames).numpy(), ref)
+    kw = bilateral_grid_filter_pallas(
+        torch.from_numpy(frames), BGConfig(*cfg_args), fused=False, device="cpu"
+    )
+    quantized_contract(kw.numpy(), ref)
+    assert torch.equal(kw, plan(frames))
+
+
+def test_staged_backend_matches_fused_backend():
+    cfg = BGConfig(*PARAMS[2])
+    frames = noisy_np(3, 60, 96, seed=8)
+    staged = BGPlan(cfg, backend="staged", device="cpu")(frames)
+    fused = BGPlan(cfg, backend="fused", device="cpu")(frames)
+    quantized_contract(staged.numpy(), fused.numpy())
+    raw = BGPlan(cfg, backend="staged", quantize_output=False, device="cpu")(frames[0])
+    np.testing.assert_allclose(raw.numpy(), bg_fused(torch.from_numpy(frames[0]), cfg).numpy(), atol=5e-3)
+
+
+def test_staged_wrappers_reject_what_the_kernels_do_not_take():
+    cfg = BGConfig(*PARAMS[1])
+    img = torch.from_numpy(noisy_np(2, 40, 55))
+    grid = bg_create(img, cfg)
+    with pytest.raises(TypeError, match="float32"):
+        bg_create(img.double(), cfg)
+    with pytest.raises(ValueError, match="frames"):
+        bg_create(torch.zeros(1, 2, 12, 12), cfg)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        bg_create(img.to("meta"), cfg)
+    with pytest.raises(TypeError, match="float32"):
+        bg_blur(grid.double(), cfg)
+    with pytest.raises(ValueError, match="grid"):
+        bg_blur(grid[..., :1], cfg)
+    gf = grid_normalize(bg_blur(grid, cfg))
+    with pytest.raises(ValueError, match="grid"):
+        bg_slice(gf[:, :-1], img, cfg)
+    with pytest.raises(ValueError, match="grid"):
+        bg_slice(gf, img[0], cfg)
+    assert bg_slice(gf[1], img[1], cfg).shape == (40, 55)
+
+
+def test_create_block_size_follows_shared_memory():
+    assert create_threads(PAPER_DEFAULT.bg.gz) == 128
+    assert create_threads(100) == 32  # 2*100 floats each: 61 threads fit 48 KB
+    with pytest.raises(ValueError, match="bytes"):
+        create_threads(1000)
+
+
+# ------------------------------------------------------------- on the card
+CARD = [((40, 55), SERVE_CONFIG), ((33, 47), BGConfig(4, 4.0, 60.0)),
+        ((1080, 1918), PAPER_DEFAULT.bg), ((1080, 1920), BGConfig(16, 8.0, 70.0))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", CARD)
+def test_staged_kernels_match_plain_on_card(cuda, shape, cfg):
+    imgs = torch.from_numpy(noisy_np(3, *shape)).to(cuda)
+    counts = (bg_create.launches, bg_blur.launches, bg_slice.launches)
+    grid = bg_create(imgs, cfg)
+    blurred = bg_blur(grid, cfg)
+    gf = grid_normalize(blurred)
+    out = bg_slice(gf, imgs, cfg)
+    torch.cuda.synchronize()
+    assert (bg_create.launches, bg_blur.launches, bg_slice.launches) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(grid, bg_create_plain(imgs, cfg), atol=1e-4, rtol=0)
+    assert float(grid[..., 0].sum()) == 3 * shape[0] * shape[1]
+    torch.testing.assert_close(blurred, bg_blur_plain(grid, cfg), atol=1e-2, rtol=1e-4)
+    torch.testing.assert_close(out, bg_slice_plain(gf, imgs, cfg), atol=1e-3, rtol=0)
+    # no atomics: launches agree, and a frame's rows do not depend on the batch
+    assert torch.equal(bg_create(imgs, cfg), grid)
+    assert torch.equal(bg_create(imgs[1], cfg), grid[1])
+    assert torch.equal(bg_blur(grid[1].contiguous(), cfg), blurred[1])
+    assert torch.equal(bg_slice(gf[1].contiguous(), imgs[1], cfg), out[1])
+
+
+@pytest.mark.gpu
+def test_staged_backend_on_card_is_three_launches(cuda):
+    cfg = SERVE_CONFIG
+    frames = noisy_np(4, 45, 64)
+    counts = (bg_create.launches, bg_blur.launches, bg_slice.launches, bg_fused.launches)
+    out = BGPlan(cfg, backend="staged")(frames)
+    torch.cuda.synchronize()
+    after = (bg_create.launches, bg_blur.launches, bg_slice.launches, bg_fused.launches)
+    assert after == (counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3])
+    quantized_contract(out.cpu().numpy(), BGPlan(cfg, backend="fused")(frames).cpu().numpy())
