@@ -6,18 +6,22 @@
 Builds every CUDA kernel of the port from this checkout's sources (the
 per-frame kernel B1 and the temporal kernel B2, one source; the streamed
 kernel B3; the staged kernels B4, B5 and B6), holds each against its plain
-PyTorch version at full-HD shapes (B3 against B1 bit for bit), serves
+PyTorch version at full-HD shapes (B3 against B1, and B5 against B1's
+blurred grid, bit for bit), serves
 full-HD frames through ``repro_torch.serving.FrameDenoiseEngine`` on the
 fused and the streamed backend, runs the staged backend through
 ``denoise_batch``, serves full-HD video streams through ``AsyncFrameEngine``
 + ``MultiStreamPacker``, shows with the launch counters that the kernels
-carried those runs, then times the kernels, their plain versions and the
-PyTorch calls that compute the same functions with CUDA events, and serves
-the paths through the launcher. Prints one JSON object per phase; the line
-before the last is the card's ``nvidia-smi`` name and power limit, the last
-``{"ok": true, "device": {...}}``. Any failed check raises and the script
-exits non-zero. It needs a CUDA card and fails without one; it imports
-nothing of JAX.
+carried those runs, then times the kernels at b = 1, 4 and 8 with CUDA
+events (``ms``: the mean of back-to-back calls; ``device_ms``: calls
+replayed from a CUDA graph, the device alone), their plain versions and
+the PyTorch calls that compute the same functions, sweeps the split knobs
+of B1, B3 and B5 (every variant checked bit for bit against the default),
+and serves the paths through the launcher. Prints one JSON object per
+phase; the line before the last is the card's ``nvidia-smi`` name and
+power limit, the last ``{"ok": true, "device": {...}}``. Any failed check
+raises and the script exits non-zero. It needs a CUDA card and fails
+without one; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -76,6 +80,43 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int, replays: int = 3) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in a CUDA
+    graph (after two warm-up calls on a side stream), replayed once to warm
+    up and then ``replays`` times, each timed by CUDA events; the fastest
+    replay over ``reps``. No host launch work is in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best / reps
+
+
+def kernel_ms(torch, fn, reps: int):
+    """(ms, device_ms) of one ``fn`` call: the mean of ``reps`` back-to-back
+    calls (``cuda_ms``, the kernels line's ``ms`` since the port began: what
+    a caller sees, the host's launch work included where that is the slower
+    side), and the device's time alone (``graph_ms``)."""
+    return cuda_ms(torch, fn, reps), graph_ms(torch, fn, reps)
 
 
 def bound(nbytes: float, flops: float):
@@ -362,7 +403,7 @@ def staged_vs_plain(torch, x4, label, cfg):
     against the fused backend's. Returns the largest GC, GF and TI errors."""
     from repro_torch.core import grid_normalize
     from repro_torch.kernels import (bg_blur, bg_blur_plain, bg_create, bg_create_plain,
-                                     bg_slice, bg_slice_plain)
+                                     bg_fused, bg_slice, bg_slice_plain)
     from repro_torch.plan import BGPlan
 
     dev = x4.device
@@ -375,6 +416,12 @@ def staged_vs_plain(torch, x4, label, cfg):
     gf_err = float((blurred - blurred_plain).abs().max())
     gf_ok = bool(torch.allclose(blurred, blurred_plain, rtol=TOL_GF[0], atol=TOL_GF[1]))
     ti_err = float((out - bg_slice_plain(gf, x4, cfg)).abs().max())
+    # B1's blurred grid, read from B2's carry at alpha 0 on a zero carry
+    # (1*B + 0*0 is B exactly): every kernel compiles the GF taps as
+    # bg::tap3, so B5's grid equals it bit for bit
+    fused_blur = bg_fused(x4, cfg, carry=torch.zeros_like(grid), alpha=torch.zeros(len(x4), device=dev))[1]
+    gf_fused_differ = int((blurred != fused_blur).sum())
+    gf_plain_differ = int((blurred != blurred_plain).sum())
     counted = float(grid[..., 0].sum())
     staged_q = BGPlan(cfg, backend="staged", device=dev)(x4)
     fused_q = BGPlan(cfg, backend="fused", device=dev)(x4)
@@ -383,11 +430,14 @@ def staged_vs_plain(torch, x4, label, cfg):
     emit({"phase": "staged_vs_plain", "config": label, "shape": list(x4.shape),
           "grid_shape": list(grid.shape), "gc_max_abs_err": gc_err, "gc_counts": counted,
           "gf_max_abs_err": gf_err, "gf_within_tolerance": gf_ok, "ti_max_abs_err": ti_err,
+          "gf_values": blurred.numel(), "gf_values_differing_from_fused": gf_fused_differ,
+          "gf_values_differing_from_plain": gf_plain_differ,
           "tolerances": {"gc": TOL_GC, "gf": list(TOL_GF), "ti": TOL_TI},
           "staged_vs_fused_exact": exact, "staged_vs_fused_max_diff": lsb})
     check(bool(torch.isfinite(out).all()) and out.shape == x4.shape, f"{label}: staged shape/finite")
     check(gc_err <= TOL_GC and counted == x4.numel(), f"{label}: GC err {gc_err}, counts {counted}")
     check(gf_ok, f"{label}: GF err {gf_err}")
+    check(gf_fused_differ == 0, f"{label}: B5 differs from B1's blurred grid on {gf_fused_differ} values")
     check(ti_err <= TOL_TI, f"{label}: TI err {ti_err}")
     check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"{label}: staged vs fused {exact}, {lsb}")
     return gc_err, gf_err, ti_err
@@ -515,6 +565,65 @@ def grid_sample_slice(torch, gf, frames, cfg):
     return call, call()[:, 0, 0]
 
 
+def kernel_sweep(torch, x, cfg, label, limits):
+    """The split knobs of B1 (stripes per block, column tile from the whole
+    width down to a sixth, rows of every raw plane per GC step) on the
+    frames ``x``, and of B5 (run of x-planes, y tile) on their grid, beside
+    one grouped ``conv3d`` of B5's function. Every variant is checked bit
+    for bit against the default launch before it is timed, both ways
+    (``kernel_ms``). Returns one phase row per kernel."""
+    import itertools
+
+    from repro_torch.kernels import bg_create
+
+    kmod = importlib.import_module("repro_torch.kernels.bg_fused")
+    bmod = importlib.import_module("repro_torch.kernels.bg_blur")
+    g = bg_create(x, cfg)
+    b, h, w = x.shape
+    gx, gy, gz = g.shape[1:4]
+    nc = -(-w // cfg.r)
+    rows = []
+    cols = ("band", "tile", "rows", "ms_per_frame", "device_ms_per_frame")
+    out, ref = torch.empty_like(x), kmod.bg_fused(x, cfg)
+    default = kmod.launch_geometry(b, h, w, cfg, *limits)
+    seen, variants = set(), []
+    tiles = sorted({-(-nc // k) for k in (1, 2, 3, 4, 6)}, reverse=True)
+    for band, tile, depth in itertools.product((1, 2, 3, 4, 6, 8), tiles, (1, 2, 3, 4, 6)):
+        geo = kmod.launch_geometry(b, h, w, cfg, *limits, band=band, tile=tile, rows=depth)
+        if geo in seen:  # a knob cut to the same launch
+            continue
+        seen.add(geo)
+        out.fill_(float("nan"))
+        kmod._launch(x, out, cfg, band=band, tile=tile, rows=depth)
+        check(torch.equal(out, ref), f"B1 {geo} differs from the default launch {default}")
+        t = kernel_ms(torch, lambda: kmod._launch(x, out, cfg, band=band, tile=tile, rows=depth), reps=20)
+        variants.append([geo.band, geo.tile, geo.rows, t[0] / b, t[1] / b])
+    rows.append({"phase": "kernel_sweep", "kernel": "B1", "config": label, "batch": b,
+                 "default": default._asdict(), "columns": cols, "variants": variants,
+                 "all_bitwise_default": True})
+    g_out, g_ref = torch.empty_like(g), torch.empty_like(g)
+    bmod._launch(g, g_ref, cfg)
+    default = bmod.blur_geometry(b, gx, gy, gz, *limits)
+    seen, variants = set(), []
+    for run, k in itertools.product((1, 2, 3, 4, 6, 8, 12), (1, 2, 3, 4, 6)):
+        geo = bmod.blur_geometry(b, gx, gy, gz, *limits, run=run, ytile=-(-gy // k))
+        if geo in seen:
+            continue
+        seen.add(geo)
+        g_out.fill_(float("nan"))
+        bmod._launch(g, g_out, cfg, run=geo[0], ytile=geo[2])
+        check(torch.equal(g_out, g_ref), f"B5 {geo} differs from the default launch {default}")
+        t = kernel_ms(torch, lambda: bmod._launch(g, g_out, cfg, run=geo[0], ytile=geo[2]), reps=20)
+        variants.append([geo[0], geo[2], t[0] / b, t[1] / b])
+    conv = kernel_ms(torch, conv3d_blur(torch, g, cfg)[0], reps=20)
+    rows.append({"phase": "kernel_sweep", "kernel": "B5", "config": label, "batch": b,
+                 "default": dict(zip(("run", "runs", "ytile", "ytiles", "smem"), default)),
+                 "columns": ("run", "ytile", "ms_per_frame", "device_ms_per_frame"), "variants": variants,
+                 "all_bitwise_default": True, "conv3d_ms_per_frame": conv[0] / b,
+                 "conv3d_device_ms_per_frame": conv[1] / b})
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -530,6 +639,9 @@ def main() -> None:
     from repro_torch.plan import BGPlan
     from repro_torch.serving import FrameDenoiseEngine, FrameRequest
 
+    kmod = importlib.import_module("repro_torch.kernels.bg_fused")
+    bmod = importlib.import_module("repro_torch.kernels.bg_blur")
+
     # the plain versions are the fp32 yardstick: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -544,6 +656,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all(SOURCES)  # one nvcc per source, all started together
     build_s = time.perf_counter() - t0
+    limits = (torch.cuda.get_device_properties(0).multi_processor_count, kmod._device_limits(0)[1])
     ptxas = {src: [ln.strip() for ln in _build.build_log(src).splitlines() if "ptxas info" in ln]
              for src in SOURCES}
     emit({"phase": "device", "nvidia_smi": smi, "device_name": name,
@@ -584,16 +697,28 @@ def main() -> None:
     t_img_err, t_carry_err = temporal_vs_plain(
         torch, x8, cfgs, bg_fused, bg_fused_plain, quantize_intensity, grid_shape
     )
-    too_big = FIG12_SWEEPS["r"][0]  # r=2 at full HD: the working set exceeds shared memory
-    for stream_input in (False, True):
-        try:
-            bg_fused(x4[:1].contiguous(), too_big, stream_input=stream_input)
-        except ValueError as e:
-            check("bytes" in str(e), "r=2 error names the bytes")
-            emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "stream_input": stream_input,
-                  "raised": str(e)})
-        else:
-            raise RuntimeError(f"chip_smoke check failed: r=2 at full HD did not raise ({stream_input})")
+    # r=2 at full HD: B1 runs in column tiles (the whole width would need
+    # 461,760 B of shared memory); B3 has no tiles and raises naming the bytes
+    r2 = FIG12_SWEEPS["r"][0]
+    x1 = x4[:1].contiguous()
+    k = bg_fused(x1, r2)
+    plain = bg_fused_plain(x1, r2)
+    torch.cuda.synchronize()
+    err = float((k - plain).abs().max())
+    exact, lsb = quantized_agreement(quantize_intensity(k, r2), quantize_intensity(plain, r2))
+    emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "shape": list(x1.shape), "max_abs_err": err,
+          "quantized_exact": exact, "quantized_max_diff": lsb,
+          "geometry": kmod.launch_geometry(1, H, W, r2, *limits)._asdict()})
+    check(bool(torch.isfinite(k).all()) and err <= TOL_ABS, f"FIG12 r=2: max |kernel - plain| {err}")
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"FIG12 r=2: quantized {exact}, {lsb}")
+    max_err = max(max_err, err)
+    try:
+        bg_fused(x1, r2, stream_input=True)
+    except ValueError as e:
+        check("bytes" in str(e), "r=2 error names the bytes")
+        emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "stream_input": True, "raised": str(e)})
+    else:
+        raise RuntimeError("chip_smoke check failed: r=2 at full HD did not raise on B3")
 
     # ---- phase 3: the slice, through the engine a user calls
     n_req, max_batch = 19, 8
@@ -638,19 +763,21 @@ def main() -> None:
     # ---- phase 3d: the video slice, through the async engine and packer
     video = video_slice(torch, cfg, smi, dev)
 
-    # ---- phase 4: times at b=8, PAPER_DEFAULT, CUDA events
+    # ---- phase 4: times at b=8, PAPER_DEFAULT, CUDA events: a kernel's
+    # `ms` is the mean of back-to-back wrapper calls (the method since the
+    # port began), `device_ms` the device's time alone (graph_ms)
     k8 = bg_fused(x8, cfg)
     p8 = bg_fused_plain(x8, cfg)
     err8 = float((k8 - p8).abs().max())
     check(err8 <= TOL_ABS, f"b=8: max |kernel - plain| {err8}")
     max_err = max(max_err, err8)
-    ms = cuda_ms(torch, lambda: bg_fused(x8, cfg), reps=50)
+    ms, device_ms = kernel_ms(torch, lambda: bg_fused(x8, cfg), reps=50)
     plain_ms = cuda_ms(torch, lambda: bg_fused_plain(x8, cfg), reps=5, warmup=1)
     b = x8.shape[0]
     bound_ms, bound_by, nbytes, flops = bg_fused_bound(b, H, W, cfg, grid_shape)
     # B2 at b=4 and b=8 on a carry from the frames themselves, alpha mixed
     gx, gy, gz = grid_shape(H, W, cfg)
-    temporal_times = {}
+    temporal_times, temporal_device = {}, {}
     for tb in (4, 8):
         xs = x8[:tb].contiguous()
         alpha = torch.tensor((ALPHAS * 2)[:tb], device=dev)
@@ -661,11 +788,12 @@ def main() -> None:
         err = float((k_out - p_out).abs().max())
         check(err <= TOL_ABS and carry_close(torch, k_carry, p_carry), f"B2 b={tb}: err {err}")
         t_img_err = max(t_img_err, err)
-        t_ms = cuda_ms(torch, lambda: bg_fused(xs, cfg, carry=carry, alpha=alpha), reps=50)
+        t_ms, temporal_device[tb] = kernel_ms(torch, lambda: bg_fused(xs, cfg, carry=carry, alpha=alpha), reps=50)
         t_plain_ms = cuda_ms(torch, lambda: bg_fused_plain(xs, cfg, carry=carry, alpha=alpha), reps=5, warmup=1)
         temporal_times[tb] = (t_ms, t_plain_ms) + bg_fused_temporal_bound(tb, H, W, cfg, grid_shape)
         emit({"phase": "temporal_times", "config": "PAPER_DEFAULT", "batch": tb, "ms": t_ms,
-              "ms_per_frame": t_ms / tb, "plain_ms": t_plain_ms, "plain_ms_per_frame": t_plain_ms / tb,
+              "ms_per_frame": t_ms / tb, "device_ms_per_frame": temporal_device[tb] / tb,
+              "plain_ms": t_plain_ms, "plain_ms_per_frame": t_plain_ms / tb,
               "bound_ms": temporal_times[tb][2], "bound_ms_per_frame": temporal_times[tb][2] / tb,
               "bound_by": temporal_times[tb][3], "card": smi})
     t_ms, t_plain_ms, t_bound_ms, t_bound_by, t_bytes, t_flops = temporal_times[8]
@@ -673,7 +801,7 @@ def main() -> None:
     # B3 at b=8: its plain version is B1's (the same function)
     s8 = bg_fused(x8, cfg, stream_input=True)
     check(torch.equal(s8, k8), "b=8: B3 differs from B1")
-    s_ms = cuda_ms(torch, lambda: bg_fused(x8, cfg, stream_input=True), reps=50)
+    s_ms, s_device_ms = kernel_ms(torch, lambda: bg_fused(x8, cfg, stream_input=True), reps=50)
     # B4, B5, B6 at b=8 (the staged slice's shape) against their plain
     # versions at the JAX tolerances, as at b=4
     g8 = bg_create(x8, cfg)
@@ -701,7 +829,7 @@ def main() -> None:
         ("B6", grid_sample_slice(torch, gf8, x8, cfg), sl8, lambda d: d <= TOL_TI),
     ):
         diff = float((lib_out - kout).abs().max())
-        library[kid] = (cuda_ms(torch, call, reps=20), diff, within(diff))
+        library[kid] = (*kernel_ms(torch, call, reps=20), diff, within(diff))
     descr = {"B4": "index_add_ of each pixel's (1, px) into a zeroed (cells, 2) grid, the cells computed "
                    "from the frames outside the timed call",
              "B5": "grouped conv3d, 3x3x3 outer-product taps, on the grid permuted to (b, 2, gx, gy, gz) "
@@ -709,24 +837,70 @@ def main() -> None:
              "B6": "3-D trilinear grid_sample, zero padding, corners aligned, coordinates built outside "
                    "the timed call"}
     sb = staged_bounds(b, H, W, cfg, grid_shape)
+    # {kernel: (ms, device_ms, plain_ms, library_ms, library_device_ms,
+    #  library_max_abs_diff, library_within_tolerance, library)}
     staged_times = {
-        "B4": (cuda_ms(torch, lambda: bg_create(x8, cfg), reps=50),
+        "B4": (*kernel_ms(torch, lambda: bg_create(x8, cfg), reps=50),
                cuda_ms(torch, lambda: bg_create_plain(x8, cfg), reps=3, warmup=1)),
-        "B5": (cuda_ms(torch, lambda: bg_blur(g8, cfg), reps=50),
+        "B5": (*kernel_ms(torch, lambda: bg_blur(g8, cfg), reps=50),
                cuda_ms(torch, lambda: bg_blur_plain(g8, cfg), reps=3, warmup=1)),
-        "B6": (cuda_ms(torch, lambda: bg_slice(gf8, x8, cfg), reps=50),
+        "B6": (*kernel_ms(torch, lambda: bg_slice(gf8, x8, cfg), reps=50),
                cuda_ms(torch, lambda: bg_slice_plain(gf8, x8, cfg), reps=3, warmup=1)),
     }
     staged_times = {k: v + library[k] + (descr[k],) for k, v in staged_times.items()}
     emit({"phase": "staged_times", "config": "PAPER_DEFAULT", "batch": b, "card": smi,
           "b3_ms_per_frame": s_ms / b, "b1_ms_per_frame": ms / b,
-          **{k: {"ms_per_frame": v[0] / b, "plain_ms_per_frame": v[1] / b,
-                 "library_ms_per_frame": v[2] / b, "library_max_abs_diff": v[3],
-                 "library_within_tolerance": v[4], "library": v[5],
+          **{k: {"ms_per_frame": v[0] / b, "device_ms_per_frame": v[1] / b, "plain_ms_per_frame": v[2] / b,
+                 "library_ms_per_frame": v[3] / b, "library_device_ms_per_frame": v[4] / b,
+                 "library_max_abs_diff": v[5], "library_within_tolerance": v[6], "library": v[7],
                  "bound_ms_per_frame": sb[k][0] / b, "bound_by": sb[k][1]}
              for k, v in staged_times.items()}})
     emit({"phase": "bounds", "config": "PAPER_DEFAULT", "frame_hw": [H, W],
           "bytes_bound_ms_per_frame": tpu_kernel_bounds(cfg, grid_shape)})
+    # B1, B2, B3 and B5 at b = 1, 4 and 8 at their default splits, B5
+    # beside grouped conv3d on the same grids, both ways
+    by_batch, device_by_batch = {}, {}
+    for bb in (1, 4, 8):
+        xs = x8[:bb].contiguous()
+        alpha = torch.tensor((ALPHAS * 2)[:bb], device=dev)
+        carry = bg_fused(xs, cfg, carry=torch.zeros((bb, gx, gy, gz, 2), device=dev),
+                         alpha=torch.zeros_like(alpha))[1]
+        gb = g8[:bb].contiguous()
+        conv_call, conv_out = conv3d_blur(torch, gb, cfg)
+        conv_ok = bool(torch.allclose(conv_out, bg_blur(gb, cfg), rtol=TOL_GF[0], atol=TOL_GF[1]))
+        calls = {"B1": lambda: bg_fused(xs, cfg),
+                 "B2": lambda: bg_fused(xs, cfg, carry=carry, alpha=alpha),
+                 "B3": lambda: bg_fused(xs, cfg, stream_input=True),
+                 "B5": lambda: bg_blur(gb, cfg),
+                 "conv3d": conv_call}
+        t, td = {}, {}
+        for k, fn in calls.items():
+            t[k], td[k] = (v / bb for v in kernel_ms(torch, fn, reps=50))
+        by_batch[bb], device_by_batch[bb] = t, td
+        emit({"phase": "redesign_times", "config": "PAPER_DEFAULT", "batch": bb,
+              "ms_per_frame": t, "device_ms_per_frame": td,
+              "b5_at_or_below_conv3d": t["B5"] <= t["conv3d"],
+              "b5_device_at_or_below_conv3d": td["B5"] <= td["conv3d"],
+              "conv3d_within_gf_tolerance": conv_ok,
+              "b1_geometry": kmod.launch_geometry(bb, H, W, cfg, *limits)._asdict(),
+              "b2_geometry": kmod.launch_geometry(bb, H, W, cfg, *limits, temporal=True)._asdict(),
+              "b5_geometry": dict(zip(("run", "runs", "ytile", "ytiles", "smem"),
+                                      bmod.blur_geometry(bb, gx, gy, gz, *limits))),
+              "card": smi})
+    # the split knobs of B1 and B5 at b = 1, 4, 8 (and at the serve grid at
+    # b=8), each variant checked bit for bit against the default launch
+    for label, sweep_cfg, bb in (("PAPER_DEFAULT", cfg, 1), ("PAPER_DEFAULT", cfg, 4),
+                                 ("PAPER_DEFAULT", cfg, 8), ("serve r=6", SERVE_CONFIG, 8)):
+        for row in kernel_sweep(torch, x8[:bb].contiguous(), sweep_cfg, label, limits):
+            emit({**row, "card": smi})
+    # B3: stripes per block and rows per copy slot against the rules
+    out8 = torch.empty_like(x8)
+    rule = kmod.stream_geometry(b, H, W, cfg, *limits)
+    ms_by = {f"band {band} chunk {chunk}": cuda_ms(torch, lambda: kmod._stream_launch(x8, out8, cfg, band, chunk),
+                                                   reps=20) / b
+             for band in (1, 2, 3, 6, 12) for chunk in (cfg.r, cfg.r // 2, cfg.r // 3)}
+    emit({"phase": "stream_sweep", "config": "PAPER_DEFAULT", "batch": b, "default_band": rule[0],
+          "default_chunk": rule[2], "ms_per_frame": ms_by, "card": smi})
     emit({"kernels": [{
         "name": "bg_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bg_fused.cu",
@@ -736,8 +910,10 @@ def main() -> None:
         "video_slice_launches": video["bg_fused_launches"], "video_slice_cold_packs": video["cold_packs"],
         "max_abs_err": max_err, "tolerance": TOL_ABS,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": None, "device_ms": device_ms,
         "ms_per_frame": ms / b, "plain_ms_per_frame": plain_ms / b, "bound_ms_per_frame": bound_ms / b,
+        "ms_per_frame_by_batch": {bb: t["B1"] for bb, t in by_batch.items()},
+        "device_ms_per_frame_by_batch": {bb: t["B1"] for bb, t in device_by_batch.items()},
         "bytes": nbytes, "flops": flops, "timed_shape": [b, H, W], "config": "PAPER_DEFAULT",
         "card": smi,
     }, {
@@ -749,9 +925,11 @@ def main() -> None:
         "max_abs_err": t_img_err, "tolerance": TOL_ABS,
         "carry_max_abs_err": t_carry_err, "carry_tolerance": [TOL_CARRY_ABS, TOL_CARRY_REL],
         "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound_ms, "bound_by": t_bound_by,
-        "library_ms": None,
+        "library_ms": None, "device_ms": temporal_device[8],
         "ms_per_frame": t_ms / 8, "plain_ms_per_frame": t_plain_ms / 8, "bound_ms_per_frame": t_bound_ms / 8,
         "ms_per_frame_b4": temporal_times[4][0] / 4,
+        "ms_per_frame_by_batch": {bb: t["B2"] for bb, t in by_batch.items()},
+        "device_ms_per_frame_by_batch": {bb: t["B2"] for bb, t in device_by_batch.items()},
         "bytes": t_bytes, "flops": t_flops, "timed_shape": [8, H, W], "config": "PAPER_DEFAULT",
         "card": smi,
     }, {
@@ -762,8 +940,10 @@ def main() -> None:
         "launches_per_dispatch": streamed["launches"]["bg_fused.streamed_launches"] / streamed["dispatches"],
         "max_abs_err": b3_err, "tolerance": TOL_ABS, "bitwise_b1": True,
         "ms": s_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": None, "device_ms": s_device_ms,
         "ms_per_frame": s_ms / b, "plain_ms_per_frame": plain_ms / b, "bound_ms_per_frame": bound_ms / b,
+        "ms_per_frame_by_batch": {bb: t["B3"] for bb, t in by_batch.items()},
+        "device_ms_per_frame_by_batch": {bb: t["B3"] for bb, t in device_by_batch.items()},
         "bytes": nbytes, "flops": flops, "timed_shape": [b, H, W], "config": "PAPER_DEFAULT",
         "card": smi,
     }] + [{
@@ -773,38 +953,32 @@ def main() -> None:
         "launches": staged["launches"][f"{kname}.launches"], "dispatches": staged["dispatches"],
         "launches_per_dispatch": staged["launches"][f"{kname}.launches"] / staged["dispatches"],
         "max_abs_err": err, "tolerance": tol,
-        "ms": staged_times[kid][0], "plain_ms": staged_times[kid][1],
+        "ms": staged_times[kid][0], "device_ms": staged_times[kid][1], "plain_ms": staged_times[kid][2],
         "bound_ms": sb[kid][0], "bound_by": sb[kid][1],
-        "library_ms": staged_times[kid][2], "library_max_abs_diff": staged_times[kid][3],
-        "library_within_tolerance": staged_times[kid][4], "library": staged_times[kid][5],
-        "ms_per_frame": staged_times[kid][0] / b, "plain_ms_per_frame": staged_times[kid][1] / b,
+        "library_ms": staged_times[kid][3], "library_device_ms": staged_times[kid][4],
+        "library_max_abs_diff": staged_times[kid][5],
+        "library_within_tolerance": staged_times[kid][6], "library": staged_times[kid][7],
+        "ms_per_frame": staged_times[kid][0] / b, "plain_ms_per_frame": staged_times[kid][2] / b,
         "bound_ms_per_frame": sb[kid][0] / b, "bytes": sb[kid][2], "flops": sb[kid][3],
         "timed_shape": [b, H, W], "config": "PAPER_DEFAULT", "card": smi,
+        **({"ms_per_frame_by_batch": {bb: t["B5"] for bb, t in by_batch.items()},
+            "library_ms_per_frame_by_batch": {bb: t["conv3d"] for bb, t in by_batch.items()},
+            "device_ms_per_frame_by_batch": {bb: t["B5"] for bb, t in device_by_batch.items()},
+            "library_device_ms_per_frame_by_batch": {bb: t["conv3d"] for bb, t in device_by_batch.items()}}
+           if kid == "B5" else {}),
     } for kid, kname, replaces, err, tol in (
         ("B4", "bg_create", "src/repro/kernels/bg_create.py:68", staged_err[0], TOL_GC),
         ("B5", "bg_blur", "src/repro/kernels/bg_blur.py:57", staged_err[1], list(TOL_GF)),
         ("B6", "bg_slice", "src/repro/kernels/bg_slice.py:90", staged_err[2], TOL_TI),
     )]})
-    # stripes per block: the wrapper's rule against the alternatives
-    kmod = importlib.import_module("repro_torch.kernels.bg_fused")
-    out8 = torch.empty_like(x8)
-    for label, sweep_cfg in (("PAPER_DEFAULT", cfg), ("serve r=6", SERVE_CONFIG)):
-        ms_by_band = {
-            band: cuda_ms(torch, lambda: kmod._launch(x8, out8, sweep_cfg, band), reps=20) / b
-            for band in (1, 2, 4, 8)
-        }
-        props = torch.cuda.get_device_properties(0)
-        rule = kmod.launch_geometry(b, H, W, sweep_cfg, props.multi_processor_count,
-                                    kmod._device_limits(0)[1])[0]
-        emit({"phase": "band_sweep", "config": label, "batch": b, "default_stripes": rule,
-              "ms_per_frame_by_stripes_per_block": ms_by_band, "card": smi})
-    # B3: stripes per block and rows per copy slot against the rules
-    rule = kmod.stream_geometry(b, H, W, cfg, props.multi_processor_count, kmod._device_limits(0)[1])
-    ms_by = {f"band {band} chunk {chunk}": cuda_ms(torch, lambda: kmod._stream_launch(x8, out8, cfg, band, chunk),
-                                                   reps=20) / b
-             for band in (1, 2, 3, 6, 12) for chunk in (cfg.r, cfg.r // 2, cfg.r // 3)}
-    emit({"phase": "stream_sweep", "config": "PAPER_DEFAULT", "batch": b, "default_band": rule[0],
-          "default_chunk": rule[2], "ms_per_frame": ms_by, "card": smi})
+    # the previous designs' times, copied from PERF.md's kernel table: not
+    # measured in this run
+    emit({"phase": "earlier_designs", "measured_here": False, "copied_from": "PERF.md kernel table, PR 13",
+          "card": "NVIDIA H100 80GB HBM3, 700.00 W", "config": "PAPER_DEFAULT", "batch": 8,
+          "ms_per_frame": {"bg_fused": 0.03417, "bg_fused_temporal": 0.03461, "bg_blur": 0.00410},
+          "designs": {"bg_fused": "bands of 2 stripes, one GC thread per cell column",
+                      "bg_fused_temporal": "the same template as bg_fused",
+                      "bg_blur": "one thread per output value, 27 loads each"}})
     stats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda")
     check(stats["bg_fused_launches"] == stats["dispatches"] and stats["bg_fused_streamed_launches"] == 0,
           f"serve_frames: {stats}")

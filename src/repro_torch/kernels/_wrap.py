@@ -43,8 +43,10 @@ def contiguous(t: torch.Tensor, what: str, kernel: str) -> None:
 
 
 def stream(dev: torch.device) -> int:
-    """The current CUDA stream of ``dev``, as the pointer ctypes passes."""
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The current CUDA stream of ``dev``, as the pointer ctypes passes: the
+    raw pointer, without building a ``torch.cuda.Stream`` object (a launch
+    of a few microseconds must not spend as long on the host)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 @functools.lru_cache(maxsize=64)

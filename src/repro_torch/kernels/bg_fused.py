@@ -24,16 +24,16 @@ is the reference the tests and ``chip_smoke.py`` hold the kernel to.
 
 Per-frame results depend on nothing but the frame (and its carry row and
 alpha): not on the batch it shares, not on ``batch_tile``, not on how the
-kernel cuts the frame into bands (a band recomputes its halo planes with the
-same code as its neighbours), not on ``stream_input``, and not on the launch
-(no float atomics). An ``alpha == 0`` row of a temporal call equals the
+kernel cuts the frame into bands of stripes and tiles of columns (a block
+recomputes its halo planes and cells with the same code as its neighbours),
+not on ``stream_input``, and not on the launch (no float atomics). An ``alpha == 0`` row of a temporal call equals the
 per-frame call bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,7 @@ from .common import BGConfig, gc_row_split, grid_shape, taps_np
 __all__ = [
     "bg_fused",
     "bg_fused_plain",
+    "Geometry",
     "launch_geometry",
     "smem_bytes",
     "stream_geometry",
@@ -60,15 +61,36 @@ STREAM_KERNEL = "bg_fused_streamed"
 # cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100; the wrapper asks the
 # card it launches on, the tests use this value for the geometry rules
 H100_SMEM_OPTIN = 232448
-# The band heuristic: about _BLOCKS_PER_SM blocks per SM, and never more
-# than _MAX_BAND stripes per block. On an H100 at 1080x1920, b=8, wider
-# bands lose more to fewer resident blocks than they save in recomputed halo
-# planes (chip_smoke.py prints the sweep of stripes per block).
-_BLOCKS_PER_SM = 2
-_MAX_BAND = 2
+# shared memory the card reserves for each resident block
+_SMEM_PER_BLOCK = 1024
+# B1/B2's split rule (launch_geometry), set from the sweep of its knobs at
+# b = 1, 4 and 8 on an H100 (chip_smoke.py, phase "kernel_sweep";
+# PERF.md has the numbers): column tiles about _TILE_PX pixels wide; bands
+# of b * n * tiles // (_BLOCKS_PER_SM * SMs) stripes, 1 to _MAX_BAND; GC
+# steps of the most rows, up to _MAX_ROWS, that keep every block of the
+# launch resident at once. A block has THREADS threads (the kernel's
+# kThreads).
+_TILE_PX = 480
+_BLOCKS_PER_SM = 2.5
+_MAX_BAND = 6
+_MAX_ROWS = 4
+THREADS = 256
 # The streamed kernel's blocks hold one 512-thread block per SM; its band
 # rule gives each SM about one block (chip_smoke.py prints the sweep).
 _STREAM_BLOCKS_PER_SM = 1
+
+
+class Geometry(NamedTuple):
+    """One B1/B2 launch: ``band`` stripes x ``tile`` column cells per block,
+    ``bands`` x ``tiles`` blocks per frame, GC steps of ``rows`` rows of
+    every raw plane, ``smem`` bytes of dynamic shared memory per block."""
+
+    band: int
+    bands: int
+    tile: int
+    tiles: int
+    rows: int
+    smem: int
 
 
 # ----------------------------------------------------------------- plain
@@ -120,13 +142,18 @@ def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None):
 
 
 # ---------------------------------------------------------------- kernel
-def smem_bytes(band: int, gz: int, gy: int, temporal: bool = False) -> int:
-    """Dynamic shared memory of one block that owns ``band`` stripes: raw
-    planes (count, sum) k0-1 .. k1+1 and normalized planes k0 .. k1, and for
-    a temporal launch one more of each (the last band's drain plane when
-    ``h % r == 0``)."""
+def smem_bytes(band: int, tile: int, rows: int, r: int, gz: int, temporal: bool = False) -> int:
+    """Dynamic shared memory of one block that owns ``band`` stripes and
+    ``tile`` column cells: raw planes (count, sum) k0-1 .. k1+1 over raw
+    cells c0-1 .. c1+1 (a temporal launch one more plane, for the drain
+    when ``h % r == 0``), normalized planes k0 .. k1 over cells c0 .. c1,
+    and two GC slots of ``rows`` rows of every raw plane that has rows,
+    ``r`` columns per raw cell, the cell stride made odd, which TI reuses
+    for each thread's y-lerped corners (two planes, every z)."""
     t = int(temporal)
-    return 4 * gz * gy * (2 * (band + 3 + t) + (band + 1 + t))
+    nr = tile + 3
+    slots = max(2 * (band + 3) * rows * r * (nr | 1), 2 * gz * THREADS)
+    return 4 * ((band + 3 + t) * 2 * gz * nr + gz * (tile + 1) * (band + 1) + slots)
 
 
 def launch_geometry(
@@ -138,32 +165,52 @@ def launch_geometry(
     smem_limit: int,
     band: Optional[int] = None,
     temporal: bool = False,
-) -> Tuple[int, int, int]:
-    """``(band, bands_per_frame, smem_bytes)`` of a launch over ``b`` frames.
+    tile: Optional[int] = None,
+    rows: Optional[int] = None,
+) -> Geometry:
+    """The :class:`Geometry` of a B1 (or, ``temporal``, B2) launch over
+    ``b`` frames.
 
-    ``band`` (stripes per block) defaults to a value that gives the card
-    about ``_BLOCKS_PER_SM`` blocks per SM, at most ``_MAX_BAND``, cut to
-    what fits ``smem_limit`` bytes of shared memory. A frame whose
-    single-stripe working set does not fit raises ``ValueError``: the kernel
-    has no y tiling yet.
+    Defaults: column tiles of ``ceil(_TILE_PX / r)`` cells; ``band`` =
+    ``b * n * tiles // (_BLOCKS_PER_SM * num_sms)`` stripes, 1 to
+    ``_MAX_BAND``; ``rows``, the most (up to ``_MAX_ROWS``) that keep all
+    the launch's blocks resident on the card at once, ``smem_limit`` bytes
+    of shared memory per SM, else 1. What does not fit ``smem_limit`` is
+    cut: rows first, then the band, then the tile; a block of one stripe,
+    one cell and one row that still does not fit raises ``ValueError``
+    naming the bytes.
     """
     _, gy, gz = grid_shape(h, w, cfg)
-    n = -(-h // cfg.r)
-    need = smem_bytes(1, gz, gy, temporal)
+    r = cfg.r
+    n = -(-h // r)
+    nc = -(-w // r)
+    need = smem_bytes(1, 1, 1, r, gz, temporal)
     if need > smem_limit:
         raise ValueError(
-            f"bg_fused: one stripe of a {h}x{w} frame at r={cfg.r} (gy={gy}, "
-            f"gz={gz}{', temporal' if temporal else ''}) needs {need} bytes of "
-            f"shared memory per block, above the card's {smem_limit}; this "
-            f"shape needs y tiling, which the kernel does not have yet"
+            f"bg_fused: one stripe and one column cell of a {h}x{w} frame at "
+            f"r={r} (gz={gz}{', temporal' if temporal else ''}) need {need} "
+            f"bytes of shared memory per block, above the card's {smem_limit}"
         )
-    fit = 1
-    while fit < n and smem_bytes(fit + 1, gz, gy, temporal) <= smem_limit:
-        fit += 1
+    tile = max(1, min(-(-_TILE_PX // r) if tile is None else tile, nc))
+    tiles = -(-nc // tile)
     if band is None:
-        band = min(_MAX_BAND, (b * n) // (_BLOCKS_PER_SM * num_sms))
-    band = max(1, min(band, fit, n))
-    return band, -(-n // band), smem_bytes(band, gz, gy, temporal)
+        band = min(_MAX_BAND, (b * n * tiles) // int(_BLOCKS_PER_SM * num_sms))
+    band = max(1, min(band, n))
+    if rows is None:
+        blocks = b * -(-n // band) * tiles
+        rows = next((k for k in range(min(_MAX_ROWS, r), 1, -1)
+                     if smem_limit // (smem_bytes(band, tile, k, r, gz, temporal) + _SMEM_PER_BLOCK)
+                     * num_sms >= blocks), 1)
+    rows = max(1, min(rows, r))
+    while smem_bytes(band, tile, rows, r, gz, temporal) > smem_limit:
+        if rows > 1:
+            rows -= 1
+        elif band > 1:
+            band -= 1
+        else:
+            tile = -(-tile // 2)
+    return Geometry(band, -(-n // band), tile, -(-nc // tile), rows,
+                    smem_bytes(band, tile, rows, r, gz, temporal))
 
 
 def stream_smem_bytes(chunk: int, w: int, gz: int, gy: int) -> int:
@@ -217,13 +264,23 @@ def stream_geometry(
     return band, -(-n // band), chunk, stream_smem_bytes(chunk, w, gz, gy)
 
 
+class LaunchShape(ctypes.Structure):
+    """``csrc/bg_fused.cu``'s ``LaunchShape``: a launch's shape and geometry,
+    built once per shape and passed by pointer."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gx", "gy", "gz", "split", "band",
+                                            "tile", "rows")] + \
+               [(f, ctypes.c_float) for f in ("inv_rs", "t0", "t1", "t2")] + \
+               [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bg_fused_launch.argtypes = [p] * 4 + [i] * 9 + [f] * 4 + [i, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bg_fused_launch.argtypes = [p] * 6
     lib.bg_fused_launch.restype = i
-    lib.bg_fused_temporal_launch.argtypes = [p] * 7 + [i] * 9 + [f] * 4 + [i, i, p]
+    lib.bg_fused_temporal_launch.argtypes = [p] * 9
     lib.bg_fused_temporal_launch.restype = i
     lib.bg_fused_smem_optin.argtypes = [i]
     lib.bg_fused_smem_optin.restype = i
@@ -248,6 +305,22 @@ def _device_limits(index: int) -> Tuple[int, int]:
     return torch.cuda.get_device_properties(index).multi_processor_count, smem
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, temporal: bool, band, knobs) -> tuple:
+    """``(geometry, shape, address)``: the launch's :class:`Geometry`, its
+    :class:`LaunchShape` (kept alive by the cache) and that struct's
+    address, cached per shape, config and knobs (a launch's host work is a
+    visible share of a launch)."""
+    num_sms, smem_limit = _device_limits(index)
+    geo = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal, **dict(knobs))
+    gx, gy, gz = grid_shape(h, w, cfg)
+    t0, t1, t2 = (float(t) for t in taps_np(cfg))
+    shape = LaunchShape(b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile,
+                        geo.rows, float(np.float32(1.0 / cfg.range_scale)), t0, t1, t2,
+                        geo.smem, index)
+    return geo, shape, ctypes.addressof(shape)
+
+
 def _launch(
     x: torch.Tensor,
     out: torch.Tensor,
@@ -256,37 +329,34 @@ def _launch(
     carry: Optional[torch.Tensor] = None,
     carry_out: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
-) -> None:
+    **knobs,
+) -> Geometry:
     """One kernel launch over the contiguous (b, h, w) CUDA frames ``x``:
-    B1, or B2 when ``carry`` is given (with ``carry_out`` and ``alpha``)."""
+    B1, or B2 when ``carry`` is given (with ``carry_out`` and ``alpha``).
+    ``band`` and ``knobs`` (``tile``, ``rows``) override
+    :func:`launch_geometry`'s rule (for sweeps); returns the geometry
+    launched."""
     b, h, w = x.shape
     dev = x.device
     temporal = carry is not None
-    num_sms, smem_limit = _device_limits(dev.index)
-    band, _, smem = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal)
-    gx, gy, gz = grid_shape(h, w, cfg)
+    geo, _, shape = _launch_args(b, h, w, cfg, dev.index, temporal, band, tuple(sorted(knobs.items())))
     yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
-    t0, t1, t2 = (float(t) for t in taps_np(cfg))
-    geometry = (
-        b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), band,
-        float(np.float32(1.0 / cfg.range_scale)), t0, t1, t2,
-        smem, dev.index, _wrap.stream(dev),
-    )
     lib = _lib()
     if temporal:
         err = lib.bg_fused_temporal_launch(
             x.data_ptr(), out.data_ptr(), carry.data_ptr(), carry_out.data_ptr(),
-            alpha.data_ptr(), yf.data_ptr(), xf.data_ptr(), *geometry,
+            alpha.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev),
         )
     else:
         err = lib.bg_fused_launch(
-            x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), *geometry
+            x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev)
         )
     _build.check(KERNEL, err)
     if temporal:
         bg_fused.temporal_launches += 1
     else:
         bg_fused.launches += 1
+    return geo
 
 
 def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, band=None, chunk=None) -> None:

@@ -11,10 +11,12 @@
 //   z bin        floor(px * fp32(1/rs) + 0.5), without FMA contraction
 //   row/col cell round-half-up(i / r) in integers (common.py gc_row_split)
 //   TI corners   y0 = j / r, y1 = min(y0 + 1, gy - 1); yf, xf from the host
+//   TI lerps     y, then x, then z, each a(1-t) + bt rounded op by op
 //   normalize    count > 1e-12 ? sum / max(count, 1e-12) : 0
 //   blend        (1-a)*B + a*C, each product and the sum rounded on its own
-// GF applies the x taps, then z, then y, each t0*lo + t1*mid + t2*hi with
-// zeros outside the grid (the reference order).
+// GF applies the x taps, then z, then y, each (t0*lo + t1*mid) + t2*hi with
+// every product and sum rounded on its own (no FMA contraction) and zeros
+// outside the grid: the reference order, and the plain version's rounding.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,11 +48,19 @@ __device__ __forceinline__ void gc_cell(const float* rows, int stride, int n_row
   }
 }
 
+// One GF tap, (t0*lo + t1*mid) + t2*hi rounded op by op: left to the
+// compiler, the expression contracts into FMAs in an order that depends on
+// its context, so two kernels that inline it could disagree in the last bit
+__device__ __forceinline__ float tap3(float lo, float mid, float hi, float t0,
+                                      float t1, float t2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(t0, lo), __fmul_rn(t1, mid)), __fmul_rn(t2, hi));
+}
+
 // x taps over the three raw planes of one channel at flat (z, y) index idx
 __device__ __forceinline__ float xmix(const float* rm, const float* rc,
                                       const float* rp, int idx, float t0,
                                       float t1, float t2) {
-  return t0 * rm[idx] + t1 * rc[idx] + t2 * rp[idx];
+  return tap3(rm[idx], rc[idx], rp[idx], t0, t1, t2);
 }
 
 // z, then y taps at (z, y) over x-mixed values xm(z', y'), zeros outside
@@ -66,11 +76,11 @@ __device__ __forceinline__ float blur_zy(const XMix& xm, int z, int y, int gz,
       const float lo = z > 0 ? xm(z - 1, yy) : 0.f;
       const float mid = xm(z, yy);
       const float hi = z + 1 < gz ? xm(z + 1, yy) : 0.f;
-      v = t0 * lo + t1 * mid + t2 * hi;
+      v = tap3(lo, mid, hi, t0, t1, t2);
     }
     zc[d] = v;
   }
-  return t0 * zc[0] + t1 * zc[1] + t2 * zc[2];
+  return tap3(zc[0], zc[1], zc[2], t0, t1, t2);
 }
 
 // x-mixed values of three raw planes held as [z][y] in shared memory
@@ -101,20 +111,19 @@ __device__ __forceinline__ float normalize(float c, float s) {
   return c > 1e-12f ? s / fmaxf(c, 1e-12f) : 0.f;
 }
 
-// y, then x lerp of the four corners (plane, column) of one z bin
-__device__ __forceinline__ float lerp_xy(float v00, float v01, float v10,
-                                         float v11, float wx, float wy) {
-  const float a0 = v00 * (1.f - wy) + v01 * wy;
-  const float a1 = v10 * (1.f - wy) + v11 * wy;
-  return a0 * (1.f - wx) + a1 * wx;
+// a (1-t) + b t, each product and the sum rounded on its own (no FMA
+// contraction), so that a lerp has the same bits in every kernel, and when a
+// kernel hoists it out of a loop
+__device__ __forceinline__ float lerp(float a, float b, float t) {
+  return __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, t)), __fmul_rn(b, t));
 }
 
-// TI of one pixel of intensity px: planes(p, z, y) reads normalized plane p
-// (0: the stripe's floor plane, 1: the next) at bin z, column cell y.
-template <class Planes>
-__device__ __forceinline__ float ti_pixel(const Planes& planes, float px,
-                                          float inv_rs, int y0, int y1, int gz,
-                                          float wx, float wy) {
+// TI of one pixel of intensity px from its y-lerped corners: ylerp(p, z) is
+// lerp(corner at column cell y0, corner at y1, wy) of normalized plane p
+// (0: the stripe's floor plane, 1: the next) at bin z. Then x, then z.
+template <class YLerp>
+__device__ __forceinline__ float ti_pixel_y(const YLerp& ylerp, float px, float inv_rs,
+                                            int gz, float wx) {
   const float fz = __fmul_rn(px, inv_rs);
   const float zfl = floorf(fz);
   const int z0 = static_cast<int>(zfl);
@@ -123,12 +132,29 @@ __device__ __forceinline__ float ti_pixel(const Planes& planes, float px,
 #pragma unroll
   for (int d = 0; d < 2; ++d) {
     const int z = z0 + d;
-    q[d] = (z < 0 || z >= gz)
-               ? 0.f
-               : lerp_xy(planes(0, z, y0), planes(0, z, y1), planes(1, z, y0),
-                         planes(1, z, y1), wx, wy);
+    q[d] = (z < 0 || z >= gz) ? 0.f : lerp(ylerp(0, z), ylerp(1, z), wx);
   }
-  return (1.f - zf) * q[0] + zf * q[1];
+  return lerp(q[0], q[1], zf);
+}
+
+// y lerp of the corners read through planes(p, z, y)
+template <class Planes>
+struct YLerp {
+  const Planes& planes;
+  int y0, y1;
+  float wy;
+  __device__ __forceinline__ float operator()(int p, int z) const {
+    return lerp(planes(p, z, y0), planes(p, z, y1), wy);
+  }
+};
+
+// TI of one pixel of intensity px: planes(p, z, y) reads normalized plane p
+// (0: the stripe's floor plane, 1: the next) at bin z, column cell y.
+template <class Planes>
+__device__ __forceinline__ float ti_pixel(const Planes& planes, float px,
+                                          float inv_rs, int y0, int y1, int gz,
+                                          float wx, float wy) {
+  return ti_pixel_y(YLerp<Planes>{planes, y0, y1, wy}, px, inv_rs, gz, wx);
 }
 
 // two normalized planes held as [z][y] in shared memory

@@ -17,34 +17,54 @@
 // 2 x 4 x gx*gy*gz*2 B, 0.48 MB per frame at r=12 (5.24 us in all). The
 // arithmetic is about 10^2 FLOP per pixel, far below the fp32 rate.
 // What the design does about it: the grid never touches HBM. Each block
-// builds the raw grid planes it needs in shared memory, blurs (and blends)
-// and normalizes them there, and slices its output rows from there.
+// builds the raw grid cells it needs in shared memory, blurs (and blends)
+// and normalizes them there, and slices its output pixels from there. Short
+// of the bound, what costs is latency and instructions per pixel in GC
+// (the copy of the block's window and the binning) and in TI, so both keep
+// many loads in flight and little work per pixel.
 //
-// Decomposition. The TPU walks the stripes of a frame in order and carries
-// a three-plane working set from one grid step to the next. Blocks here run
-// in no order, so one block owns (frame, band of `band` stripes) and
-// recomputes its halo: TI of stripe k reads normalized planes k and k+1,
-// those need raw planes k-1..k+2, so a band [k0, k1) builds raw planes
-// k0-1..k1+1 from the image rows that round to them. A halo plane is
-// computed by the same code in every block that needs it, so its bits do
-// not depend on the band, the batch or the launch.
+// Decomposition. Blocks run in no order, so one block owns (frame, band of
+// `band` stripes [k0, k1), tile of `tile` column cells [c0, c1)) and
+// recomputes its halo in both directions: TI of stripe k and column cell y
+// reads normalized planes k, k+1 and cells y, y+1; those need raw planes
+// k-1..k+2 and cells y-1..y+2, so the block builds raw planes k0-1..k1+1 and
+// raw cells c0-1..c1+1. A halo plane or cell is computed by the same code
+// in every block that needs it, so its bits do not depend on the band, the
+// tile, the batch or the launch. Tiling the columns bounds the working set
+// (r=2 at full HD fits), and gives a small batch enough blocks to fill the
+// card.
 //
-// Carry planes (temporal). A band blends planes k0..k1 (k1 is its halo,
-// which the next band blends too, with the same bits) and writes carry
-// planes k0..k1-1; the last band also writes k1..gx-1. With h % r == 0 the
-// last plane gx-1 = n+1 is one TI never reads, but the EMA must advance it,
-// so the last band builds one more raw plane (n+2, empty) and blends plane
-// n+1: the TPU kernel's extra drain step. Each carry plane has exactly one
-// writer, and carry_out must not alias carry_in: a neighbour may still read
-// C[k1] while its owner writes it. The carry is kept in the JAX package's
-// (b, gx, gy, gz, 2) layout; its reads and writes are strided against the
-// (plane, channel, z, y) order of shared memory.
+// GC. The block's image window (the rows of its raw planes, the columns of
+// its raw cells) streams through a two-slot ring in shared memory in steps
+// of `rows` rows of every raw plane at once, copied with 4-byte cp.async
+// (coalesced reads of global memory) while the block bins the step before
+// it. A slot holds the rows transposed, [plane][row][column in cell][cell],
+// so the threads that bin neighbouring cells read neighbouring words. One
+// thread owns one (raw plane, raw cell, group of kZ = 4 z bins) per step: it
+// loads those bins, adds the step's pixels in registers, rows ascending and
+// columns ascending (the order of bg::gc_cell, shared with B3 and B4, so
+// the sums are theirs bit for bit), and stores them back. No float atomics.
+// Taking every plane in each step gives the block (band + 3) x as many
+// binning tasks and as many fewer round trips to memory as per-plane steps.
 //
-// Deterministic GC, no float atomics: one thread owns one (raw plane, y
-// cell) column of gz bins and adds its r x r pixels into them in row-major
-// order. The TPU's one-hot matmul was a workaround for the missing scatter
-// and is gone. The validity mask is implicit: a thread visits only rows
-// < h of its own frame.
+// Carry planes (temporal). A block blends planes k0..k1 and cells c0..c1
+// (the last halo plane and cell are blended by its neighbours too, with the
+// same bits) and writes the carry of planes k0..k1-1 and cells c0..c1-1; the
+// last band also writes planes k1..gx-1 and the last tile cells c1..gy-1.
+// With h % r == 0 the last plane gx-1 = n+1 is one TI never reads, but the
+// EMA must advance it, so the last band builds one more raw plane (n+2,
+// empty) and blends plane n+1: the TPU kernel's extra drain step. The y
+// axis drains the same way (w % r == 0 gives a cell gy-1 that TI never
+// reads). Each carry cell has exactly one writer, and carry_out must not
+// alias carry_in: a neighbour may still read a halo cell while its owner
+// writes it. The carry is kept in the JAX package's (b, gx, gy, gz, 2)
+// layout.
+//
+// TI. A thread takes one column of a stripe (neighbouring threads on
+// neighbouring columns, so loads and stores are coalesced), y-lerps the
+// corners of both planes at every z once for the stripe, and slices the
+// column's rows four at a time, their loads issued together. The column
+// cell comes from a multiply-high, not a division.
 //
 // The arithmetic (bins, taps, normalization, lerp order) lives in
 // bg_common.cuh, shared with the streamed kernel B3 and the staged kernels
@@ -53,137 +73,308 @@
 // (C finite), so an alpha-0 row of B2 is B1 bit for bit.
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "bg_common.cuh"
+#include "bg_copy.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kZ = 4;  // z bins per GC task (all of them at gz <= 4)
+constexpr int kMaxDevices = 64;
 
-// grid: (ceil(n_stripes / band), frames). Shared memory, with T = kTemporal:
-//   raw  [band + 3 + T][2][gz][gy]   count, sum of raw planes k0-1 .. p_hi+1
-//   norm [band + 1 + T][gz][gy]      normalized (blended) planes k0 .. p_hi
-// where p_hi = k1, or gx-1 for the last band of a temporal launch.
+struct Args {
+  const float* img;
+  float* out;
+  const float* yf;
+  const float* xf;
+  const float* carry_in;
+  float* carry_out;
+  const float* alpha;
+  int h, w, r, gx, gy, gz, split;
+  int band, tile, rows, n_stripes, n_cells;
+  unsigned r_magic;  // ceil(2^32 / r): j / r == umulhi(j, r_magic) for r > 1
+  float inv_rs, t0, t1, t2;
+};
+
+// x-mixed values of three raw planes held as [z][cell] with `stride` cells,
+// read at global cell y (cell y_lo is at index 0)
+struct TileMix {
+  const float *rm, *rc, *rp;
+  int stride, y_lo;
+  float t0, t1, t2;
+  __device__ __forceinline__ float operator()(int z, int y) const {
+    return bg::xmix(rm, rc, rp, z * stride + y - y_lo, t0, t1, t2);
+  }
+};
+
+// grid: (bands, tiles, frames). Shared memory, with T = kTemporal,
+// NR = tile + 3 raw cells, NN = tile + 1 normalized cells and SC = NR | 1:
+//   raw   [band + 3 + T][2][gz][NR]   count, sum of raw planes k0-1 ..
+//   norm  [band + 1][gz][NN]          normalized planes k0 .. k1, cells
+//                                     c0 .. c1 (what TI reads)
+//   slots [2][band + 3][rows][r][SC]  GC steps: `rows` rows of every raw
+//                                     plane that has rows, transposed per
+//                                     cell; in TI [gz][2][kThreads], each
+//                                     thread's y-lerped corners
+// A temporal drain plane (or cell) is blended into the carry but never
+// normalized. The raw plane past it has no rows but is read as zeros; the
+// raw cell past it has no columns and is never read (blur_zy's y bound),
+// so it has no room.
 // carry_in / carry_out: (frames, gx, gy, gz, 2); alpha: (frames,).
 template <bool kTemporal>
-__global__ void __launch_bounds__(kThreads)
-bg_fused_kernel(const float* __restrict__ img, float* __restrict__ out,
-                const float* __restrict__ yf, const float* __restrict__ xf,
-                const float* __restrict__ carry_in, float* __restrict__ carry_out,
-                const float* __restrict__ alpha,
-                int h, int w, int r, int gx, int gy, int gz, int split, int band,
-                int n_stripes, float inv_rs, float t0, float t1, float t2) {
-  extern __shared__ float smem[];
-  const int k0 = blockIdx.x * band;
-  const int k1 = min(k0 + band, n_stripes);
-  const bool last = k1 == n_stripes;
-  const int p_hi = (kTemporal && last) ? gx - 1 : k1;
-  const int plane = gz * gy;
-  const int n_norm = p_hi - k0 + 1;
-  const int n_raw = n_norm + 2;
+__global__ void __launch_bounds__(kThreads) bg_fused_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int T = kTemporal ? 1 : 0;
+  const int r = a.r, gz = a.gz, gy = a.gy, w = a.w;
+  const int NR = a.tile + 3;
+  const int NN = a.tile + 1;
+  const int SC = NR | 1;
   float* raw = smem;
-  float* norm = smem + (band + 3 + (kTemporal ? 1 : 0)) * 2 * plane;
-  const size_t frame = static_cast<size_t>(blockIdx.y) * h * w;
-  const float* im = img + frame;
-  float* o = out + frame;
+  float* norm = raw + (a.band + 3 + T) * 2 * gz * NR;
+  float* slots = norm + (a.band + 1) * gz * NN;
+  const int slot_floats = (a.band + 3) * a.rows * r * SC;
+  float* ylerp = slots + threadIdx.x;  // TI reuses the GC slots
 
-  // ---- GC: raw plane p holds rows [(p-1)r + split, p r + split), column
-  // cell y holds columns [(y-1)r + split, y r + split), both cut to the frame
-  for (int t = threadIdx.x; t < n_raw * gy; t += blockDim.x) {
-    const int pl = t / gy;
-    const int y = t - pl * gy;
-    const int p = k0 - 1 + pl;
-    float* cnt = raw + pl * 2 * plane + y;
-    float* sum = cnt + plane;
-    for (int z = 0; z < gz; ++z) {
-      cnt[z * gy] = 0.f;
-      sum[z * gy] = 0.f;
+  const int k0 = blockIdx.x * a.band;
+  const int k1 = min(k0 + a.band, a.n_stripes);
+  const bool last_x = k1 == a.n_stripes;
+  const int c0 = blockIdx.y * a.tile;
+  const int c1 = min(c0 + a.tile, a.n_cells);
+  const bool last_y = c1 == a.n_cells;
+  const int nx_hi = (kTemporal && last_x) ? a.gx - 1 : k1;  // last normalized plane
+  const int ny_hi = (kTemporal && last_y) ? gy - 1 : c1;    // last normalized cell
+  const int n_norm = nx_hi - k0 + 1;
+  const int n_raw = n_norm + 2;
+  const int nn_y = ny_hi - c0 + 1;
+  const int nr_y = nn_y + 2;
+  const size_t frame = static_cast<size_t>(blockIdx.z) * a.h * w;
+  const float* im = a.img + frame;
+  float* o = a.out + frame;
+
+  for (int t = threadIdx.x; t < n_raw * 2 * gz * NR; t += kThreads) raw[t] = 0.f;
+
+  // ---- GC. Window column jw + q is column q % r of raw cell c0-1 + q / r;
+  // raw plane k0-1+pl holds rows row0 + pl*r + m, m in [0, r), cut to the
+  // frame. Step s copies offsets m in [s*R, s*R + R) of every raw plane.
+  const int jw = (c0 - 2) * r + a.split;
+  const int ja = max(jw, 0);
+  const int jb = min(jw + nr_y * r, w);
+  const int row0 = (k0 - 2) * r + a.split;
+  const int R = a.rows;
+  const int n_steps = (r + R - 1) / R;
+  const int q0 = ja - jw + threadIdx.x;
+  const int cell0 = q0 / r, jj0 = q0 - cell0 * r;
+  const int step_c = kThreads / r, step_j = kThreads - step_c * r;
+  auto issue = [&](int step, float* slot) {
+    const int m0 = step * R, m1 = min(m0 + R, r);
+    for (int pl = 0; pl < n_raw; ++pl) {
+      for (int m = m0; m < m1; ++m) {
+        const int i = row0 + pl * r + m;
+        if (i < 0 || i >= a.h) continue;
+        const float* src = im + static_cast<size_t>(i) * w;
+        float* dst = slot + (pl * R + m - m0) * r * SC;
+        int cell = cell0, jj = jj0;
+        for (int j = ja + threadIdx.x; j < jb; j += kThreads) {
+          bg::cp_async4(dst + jj * SC + cell, src + j);
+          jj += step_j;
+          cell += step_c;
+          if (jj >= r) {
+            jj -= r;
+            ++cell;
+          }
+        }
+      }
     }
-    const int i_lo = max((p - 1) * r + split, 0);
-    const int i_hi = min(p * r + split, h);
-    const int j_lo = max((y - 1) * r + split, 0);
-    const int j_hi = min(y * r + split, w);
-    bg::gc_cell<true>(im + static_cast<size_t>(i_lo) * w, w, i_hi - i_lo, j_lo,
-                      j_hi, inv_rs, gz, cnt, sum, gy);
+    bg::cp_async_commit();
+  };
+  const int n_groups = (gz + kZ - 1) / kZ;
+  const int n_tasks = n_raw * n_groups * nr_y;
+  issue(0, slots);
+  for (int step = 0; step < n_steps; ++step) {
+    if (step + 1 < n_steps) {
+      issue(step + 1, slots + ((step + 1) & 1) * slot_floats);
+      bg::cp_async_wait<1>();
+    } else {
+      bg::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* slot = slots + (step & 1) * slot_floats;
+    const int m0 = step * R, m1 = min(m0 + R, r);
+    for (int t = threadIdx.x; t < n_tasks; t += kThreads) {
+      const int yl = t % nr_y;
+      const int rest = t / nr_y;
+      const int pl = rest / n_groups;
+      const int z0 = (rest - pl * n_groups) * kZ;
+      const int first = row0 + pl * r;  // the plane's first row, uncut
+      const int m_lo = max(m0, -first);
+      const int m_hi = min(m1, a.h - first);
+      if (m_lo >= m_hi) continue;
+      const int cs = jw + yl * r;  // first column of raw cell c0-1+yl, uncut
+      const int jj_lo = max(cs, 0) - cs;
+      const int jj_hi = min(cs + r, w) - cs;
+      if (jj_lo >= jj_hi) continue;  // no columns: its bins stay zero
+      float* bins = raw + pl * 2 * gz * NR + yl;
+      float cnt[kZ], sum[kZ];
+#pragma unroll
+      for (int k = 0; k < kZ; ++k) {
+        cnt[k] = z0 + k < gz ? bins[(z0 + k) * NR] : 0.f;
+        sum[k] = z0 + k < gz ? bins[(gz + z0 + k) * NR] : 0.f;
+      }
+      for (int m = m_lo; m < m_hi; ++m) {
+        const float* row = slot + (pl * R + m - m0) * r * SC + yl;
+        for (int jj = jj_lo; jj < jj_hi; ++jj) {
+          const float px = row[jj * SC];
+          const int d = bg::gc_bin(px, a.inv_rs) - z0;
+#pragma unroll
+          for (int k = 0; k < kZ; ++k) {
+            if (d == k) {
+              cnt[k] += 1.f;
+              sum[k] += px;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kZ; ++k) {
+        if (z0 + k < gz) {
+          bins[(z0 + k) * NR] = cnt[k];
+          bins[(gz + z0 + k) * NR] = sum[k];
+        }
+      }
+    }
+    __syncthreads();  // the slot is free for the step after next
   }
-  __syncthreads();
 
-  // ---- GF (+ EMA) + normalize: plane k0+ql from raw planes k0+ql-1 .. +1
-  float a = 0.f, one_minus_a = 1.f;
+  // ---- GF (+ EMA) + normalize: plane k0+ql, cell c0+yl from raw planes
+  // k0+ql-1 .. +1 and raw cells c0+yl-1 .. +1
+  float al = 0.f, one_minus_a = 1.f;
   const float* c_in = nullptr;
   float* c_out = nullptr;
   if constexpr (kTemporal) {
-    a = __ldg(alpha + blockIdx.y);
-    one_minus_a = 1.f - a;
-    const size_t fc = static_cast<size_t>(blockIdx.y) * gx * plane * 2;
-    c_in = carry_in + fc;
-    c_out = carry_out + fc;
+    al = __ldg(a.alpha + blockIdx.z);
+    one_minus_a = 1.f - al;
+    const size_t fc = static_cast<size_t>(blockIdx.z) * a.gx * gy * gz * 2;
+    c_in = a.carry_in + fc;
+    c_out = a.carry_out + fc;
   }
-  const int write_hi = last ? p_hi : k1 - 1;  // last carry plane this band owns
-  for (int t = threadIdx.x; t < n_norm * plane; t += blockDim.x) {
-    const int ql = t / plane;
-    const int zy = t - ql * plane;
-    const int z = zy / gy;
-    const int y = zy - z * gy;
-    const float* rm = raw + ql * 2 * plane;
-    const float* rc = rm + 2 * plane;
-    const float* rp = rc + 2 * plane;
-    float c = bg::blur_cell(rm, rc, rp, z, y, gz, gy, t0, t1, t2);
-    float s = bg::blur_cell(rm + plane, rc + plane, rp + plane, z, y, gz, gy,
-                            t0, t1, t2);
+  const int wx_hi = last_x ? nx_hi : k1 - 1;  // last carry plane this block owns
+  const int wy_hi = last_y ? ny_hi : c1 - 1;  // last carry cell this block owns
+  const int per_plane = gz * nn_y;
+  for (int t = threadIdx.x; t < n_norm * per_plane; t += kThreads) {
+    const int ql = t / per_plane;
+    const int zy = t - ql * per_plane;
+    const int z = zy / nn_y;
+    const int yl = zy - z * nn_y;
+    const int y = c0 + yl;
+    const float* rm = raw + ql * 2 * gz * NR;
+    const float* rc = rm + 2 * gz * NR;
+    const float* rp = rc + 2 * gz * NR;
+    float c = bg::blur_zy(TileMix{rm, rc, rp, NR, c0 - 1, a.t0, a.t1, a.t2}, z, y, gz,
+                          gy, a.t0, a.t1, a.t2);
+    float s = bg::blur_zy(TileMix{rm + gz * NR, rc + gz * NR, rp + gz * NR, NR, c0 - 1,
+                                  a.t0, a.t1, a.t2},
+                          z, y, gz, gy, a.t0, a.t1, a.t2);
     if constexpr (kTemporal) {
       const int p = k0 + ql;
       const size_t ci = ((static_cast<size_t>(p) * gy + y) * gz + z) * 2;
       const float2 prev = __ldg(reinterpret_cast<const float2*>(c_in + ci));
-      c = bg::blend(c, prev.x, a, one_minus_a);
-      s = bg::blend(s, prev.y, a, one_minus_a);
-      if (p <= write_hi) *reinterpret_cast<float2*>(c_out + ci) = make_float2(c, s);
+      c = bg::blend(c, prev.x, al, one_minus_a);
+      s = bg::blend(s, prev.y, al, one_minus_a);
+      if (p <= wx_hi && y <= wy_hi)
+        *reinterpret_cast<float2*>(c_out + ci) = make_float2(c, s);
     }
-    norm[t] = bg::normalize(c, s);
+    if (k0 + ql <= k1 && y <= c1) norm[ql * gz * NN + z * NN + yl] = bg::normalize(c, s);
   }
   __syncthreads();
 
-  // ---- TI of the band's rows against normalized planes k and k+1
-  const int row_lo = k0 * r;
-  const int row_hi = min(k1 * r, h);
-  const int npx = (row_hi - row_lo) * w;
-  for (int t = threadIdx.x; t < npx; t += blockDim.x) {
-    const int ii = t / w;
-    const int j = t - ii * w;
-    const int kl = ii / r;
-    const int m = ii - kl * r;
-    const size_t off = static_cast<size_t>(row_lo + ii) * w + j;
-    const int y0 = j / r;
-    const float* n0 = norm + kl * plane;
-    o[off] = bg::ti_pixel(bg::SmemPlanes{n0, n0 + plane, gy}, __ldg(im + off),
-                          inv_rs, y0, min(y0 + 1, gy - 1), gz, __ldg(xf + m),
-                          __ldg(yf + j));
+  // ---- TI of the band's rows and the tile's columns against normalized
+  // planes k, k+1 and cells y, y+1. A thread takes one column of a stripe:
+  // it y-lerps the corners of both planes at every z once into its own
+  // table (bg::YLerp's values, the same bits), then loads kRows of the
+  // column's rows before it slices them, so that many image loads are in
+  // flight at once.
+  constexpr int kRows = 4;
+  const int col_lo = c0 * r;
+  const int col_hi = min(c1 * r, w);
+  const auto table = [ylerp](int p, int z) { return ylerp[(2 * z + p) * kThreads]; };
+  for (int k = k0; k < k1; ++k) {
+    const float* n0 = norm + (k - k0) * gz * NN;
+    const bg::SmemPlanes planes{n0, n0 + gz * NN, NN};
+    const int m_hi = min(r, a.h - k * r);
+    const float* src = im + static_cast<size_t>(k) * r * w;
+    float* dst = o + static_cast<size_t>(k) * r * w;
+    for (int j = col_lo + threadIdx.x; j < col_hi; j += kThreads) {
+      const int y0 = r > 1 ? static_cast<int>(__umulhi(j, a.r_magic)) : j;
+      const bg::YLerp<bg::SmemPlanes> yl{planes, y0 - c0, min(y0 + 1, gy - 1) - c0,
+                                         __ldg(a.yf + j)};
+      for (int z = 0; z < gz; ++z) {
+        ylerp[(2 * z) * kThreads] = yl(0, z);
+        ylerp[(2 * z + 1) * kThreads] = yl(1, z);
+      }
+      for (int m0 = 0; m0 < m_hi; m0 += kRows) {
+        float px[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          px[u] = m0 + u < m_hi ? __ldg(src + static_cast<size_t>(m0 + u) * w + j) : 0.f;
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          if (m0 + u < m_hi)
+            dst[static_cast<size_t>(m0 + u) * w + j] =
+                bg::ti_pixel_y(table, px[u], a.inv_rs, gz, __ldg(a.xf + m0 + u));
+        }
+      }
+    }
   }
 }
 
+// Opts `kernel` in to `bytes` of dynamic shared memory on `device` once per
+// size (the largest so far), not at every launch: the call costs host time
+// on every launch of a kernel that takes a few microseconds.
 template <bool kTemporal>
-int launch(const float* img, float* out, const float* yf, const float* xf,
-           const float* carry_in, float* carry_out, const float* alpha, int b,
-           int h, int w, int r, int gx, int gy, int gz, int split, int band,
-           float inv_rs, float t0, float t1, float t2, int smem_bytes,
-           int device, void* stream) {
+cudaError_t opt_in(int device, int bytes) {
+  static std::atomic<int> granted[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= granted[device].load()) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      bg_fused_kernel<kTemporal>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) granted[device].store(bytes);
+  return e;
+}
+
+template <bool kTemporal>
+int launch(const Args& a, int b, int smem_bytes, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(bg_fused_kernel<kTemporal>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int n_stripes = (h + r - 1) / r;
-  const dim3 grid((n_stripes + band - 1) / band, b);
+  e = opt_in<kTemporal>(device, smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.n_stripes + a.band - 1) / a.band, (a.n_cells + a.tile - 1) / a.tile, b);
   bg_fused_kernel<kTemporal>
-      <<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-          img, out, yf, xf, carry_in, carry_out, alpha, h, w, r, gx, gy, gz,
-          split, band, n_stripes, inv_rs, t0, t1, t2);
+      <<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// The launch's shape and geometry, packed once per shape by the wrapper and
+// passed by pointer (a ctypes call converts each scalar argument on the
+// host, and a launch of tens of microseconds must not wait on that).
+struct LaunchShape {
+  int b, h, w, r, gx, gy, gz, split, band, tile, rows;
+  float inv_rs, t0, t1, t2;
+  int smem_bytes, device;
+};
+
+static Args make_args(const float* img, float* out, const float* yf, const float* xf,
+                      const float* carry_in, float* carry_out, const float* alpha,
+                      const LaunchShape& s) {
+  const int r = s.r;
+  return Args{img, out, yf, xf, carry_in, carry_out, alpha, s.h, s.w, r, s.gx, s.gy, s.gz,
+              s.split, s.band, s.tile, s.rows, (s.h + r - 1) / r, (s.w + r - 1) / r,
+              r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s.inv_rs,
+              s.t0, s.t1, s.t2};
+}
 
 extern "C" {
 
@@ -199,30 +390,23 @@ const char* bg_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch on `stream` for `b` contiguous (h, w) fp32 frames. Returns
-// cudaGetLastError() after the launch (0 on success); never synchronizes.
-int bg_fused_launch(const float* img, float* out, const float* yf,
-                    const float* xf, int b, int h, int w, int r, int gx,
-                    int gy, int gz, int split, int band, float inv_rs,
-                    float t0, float t1, float t2, int smem_bytes, int device,
-                    void* stream) {
-  return launch<false>(img, out, yf, xf, nullptr, nullptr, nullptr, b, h, w,
-                       r, gx, gy, gz, split, band, inv_rs, t0, t1, t2,
-                       smem_bytes, device, stream);
+// Launch on `stream` for `s->b` contiguous (h, w) fp32 frames: blocks of
+// `band` stripes x `tile` column cells, GC steps of `rows` rows of every raw
+// plane. Returns cudaGetLastError() after the launch (0 on success); never
+// synchronizes.
+int bg_fused_launch(const float* img, float* out, const float* yf, const float* xf,
+                    const LaunchShape* s, void* stream) {
+  const Args a = make_args(img, out, yf, xf, nullptr, nullptr, nullptr, *s);
+  return launch<false>(a, s->b, s->smem_bytes, s->device, stream);
 }
 
 // The temporal launch: as bg_fused_launch, plus the contiguous fp32 carries
 // (b, gx, gy, gz, 2) in and out (distinct buffers) and alpha (b,).
-int bg_fused_temporal_launch(const float* img, float* out,
-                             const float* carry_in, float* carry_out,
-                             const float* alpha, const float* yf,
-                             const float* xf, int b, int h, int w, int r,
-                             int gx, int gy, int gz, int split, int band,
-                             float inv_rs, float t0, float t1, float t2,
-                             int smem_bytes, int device, void* stream) {
-  return launch<true>(img, out, yf, xf, carry_in, carry_out, alpha, b, h, w, r,
-                      gx, gy, gz, split, band, inv_rs, t0, t1, t2, smem_bytes,
-                      device, stream);
+int bg_fused_temporal_launch(const float* img, float* out, const float* carry_in,
+                             float* carry_out, const float* alpha, const float* yf,
+                             const float* xf, const LaunchShape* s, void* stream) {
+  const Args a = make_args(img, out, yf, xf, carry_in, carry_out, alpha, *s);
+  return launch<true>(a, s->b, s->smem_bytes, s->device, stream);
 }
 
 }  // extern "C"

@@ -47,29 +47,11 @@
 #include <cstdint>
 
 #include "bg_common.cuh"
+#include "bg_copy.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
 
 // One staged run of rows [row0, row0 + nrows) of the frame: binned into the
 // raw planes of stripe `stripe` (ti false) or sliced as rows of stripe
@@ -136,12 +118,12 @@ __device__ __forceinline__ int issue(const Chunk& c, const float* im, int w,
   const int quads = (n - head) >> 2;
   float* dst = slot + off;
   for (int q = threadIdx.x; q < quads; q += blockDim.x)
-    cp_async16(dst + head + 4 * q, src + head + 4 * q);
+    bg::cp_async16(dst + head + 4 * q, src + head + 4 * q);
   const int tail0 = head + 4 * quads;
   const int t = threadIdx.x;
-  if (t < head) cp_async4(dst + t, src + t);
-  if (t >= 4 && t - 4 < n - tail0) cp_async4(dst + tail0 + t - 4, src + tail0 + t - 4);
-  cp_async_commit();
+  if (t < head) bg::cp_async4(dst + t, src + t);
+  if (t >= 4 && t - 4 < n - tail0) bg::cp_async4(dst + tail0 + t - 4, src + tail0 + t - 4);
+  bg::cp_async_commit();
   return off;
 }
 
@@ -205,7 +187,7 @@ bg_fused_streamed_kernel(const float* __restrict__ img, float* __restrict__ out,
       __syncthreads();
     }
 
-    if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+    if (more) bg::cp_async_wait<1>(); else bg::cp_async_wait<0>();
     __syncthreads();
     const float* px = slots + slot * slot_floats + cur_off;
 

@@ -474,7 +474,9 @@ class AsyncFrameEngine:
             streams.add(nxt.stream_id)
             if nxt.deadline is not None:
                 t_out = min(t_out, nxt.deadline - self.deadline_margin)
-        self._held.extend(deferred)
+        # back to the FRONT, in order: a deferred frame popped from the held
+        # queue is older than any frame of its stream still held behind it
+        self._held.extendleft(reversed(deferred))
         return batch
 
     def _launch(self, batch: List[AsyncFrameRequest]) -> _InFlight:

@@ -117,6 +117,29 @@ def test_concurrent_clients_stress():
             assert torch.equal(solo.pack({str(s): per_stream[s][i]})[str(s)], outs[s][i])
 
 
+def test_deferred_frames_keep_stream_order():
+    """A pack takes one frame per stream; the frames it defers go back ahead
+    of the held frames behind them, so a stream's frames leave in order even
+    when a pack fills before the held queue drains (the race behind rare
+    failures of test_concurrent_clients_stress)."""
+    from concurrent.futures import Future
+
+    from repro_torch.serving.async_engine import AsyncFrameRequest
+
+    eng = AsyncFrameEngine(max_batch=3, batch_window_ms=1.0, packer=packer(a=0.5, b=0.5, c=0.5))
+    eng.close()  # no dispatch thread: collect packs by hand
+    held = [("a", 1), ("a", 2), ("b", 1), ("c", 1), ("a", 3), ("b", 2)]
+    eng._held.extend(AsyncFrameRequest(uid=i, frame=None, future=Future(), t_submit=0.0, stream_id=s)
+                     for s, i in held)
+    sent = {}
+    while eng._held:
+        pack = eng._collect_batch()
+        assert len({r.stream_id for r in pack}) == len(pack)
+        for r in pack:
+            sent.setdefault(r.stream_id, []).append(r.uid)
+    assert sent == {"a": [1, 2, 3], "b": [1, 2], "c": [1]}
+
+
 def test_backpressure_and_flush():
     frame = frames_np(1)[0]
     with AsyncFrameEngine(CFG, max_batch=1, max_queue=2, batch_window_ms=0.0, device="cpu") as eng:

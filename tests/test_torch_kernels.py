@@ -175,47 +175,69 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 # ------------------------------------------------- CPU: launch geometry
 @pytest.mark.parametrize("name,cfg", FULL_HD)
 def test_full_hd_configs_fit_shared_memory(name, cfg):
+    """Every full-HD config gets a block that fits, bands and column tiles
+    that cover the frame, and at least one block per SM at b = 1, 4, 8."""
+    _, gy, gz = K.grid_shape(1080, 1920, cfg)
+    n, nc = -(-1080 // cfg.r), -(-1920 // cfg.r)
     for b in (1, 4, 8):
-        band, bands, smem = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
-        n = -(-1080 // cfg.r)
-        assert 1 <= band <= K._MAX_BAND and bands == -(-n // band)
-        assert smem <= H100_SMEM_OPTIN
+        geo = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
+        assert 1 <= geo.band <= K._MAX_BAND and geo.bands == -(-n // geo.band)
+        assert 1 <= geo.tile <= nc and geo.tiles == -(-nc // geo.tile)
+        assert 1 <= geo.rows <= cfg.r
+        assert geo.smem == smem_bytes(geo.band, geo.tile, geo.rows, cfg.r, gz) <= H100_SMEM_OPTIN
+        assert b * geo.bands * geo.tiles >= 132
 
 
 def test_working_set_beyond_shared_memory_raises_with_bytes():
+    """r=2 at full HD no longer needs the whole width in one block: the
+    column tile is cut until it fits. Below one stripe x one cell x one row
+    nothing fits, and the error names the bytes."""
     r2 = FIG12_SWEEPS["r"][0]
     assert r2.r == 2
-    need = smem_bytes(1, r2.gz, 1920 // 2 + 2)
-    assert need > H100_SMEM_OPTIN
+    geo = launch_geometry(1, 1080, 1920, r2, 132, H100_SMEM_OPTIN)
+    assert geo.smem <= H100_SMEM_OPTIN and geo.tiles > 1
+    assert smem_bytes(1, 960, 1, 2, r2.gz) > H100_SMEM_OPTIN  # the whole width does not fit
+    need = smem_bytes(1, 1, 1, 2, r2.gz)
     with pytest.raises(ValueError, match=f"{need} bytes"):
-        launch_geometry(1, 1080, 1920, r2, 132, H100_SMEM_OPTIN)
+        launch_geometry(1, 1080, 1920, r2, 132, need - 1)
 
 
 def test_band_rules():
-    cfg = PAPER_DEFAULT.bg  # 90 stripes, gz=4, gy=162
-    assert launch_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[0] == 1
-    assert launch_geometry(8, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[0] == 2
-    # an explicit band is cut to the stripes and to shared memory
-    assert launch_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, band=500)[0] == 27
+    cfg = PAPER_DEFAULT.bg  # 90 stripes, 160 column cells, gz=4
+    geo = lambda b, **kw: launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, **kw)
+    # tiles of 40 cells (480 px); bands grow with the batch, up to 6; GC
+    # steps as deep as keeps every block resident
+    assert geo(1)[:5] == (1, 90, 40, 4, 4)
+    assert geo(4)[:5] == (4, 23, 40, 4, 2)
+    assert geo(8)[:5] == (6, 15, 40, 4, 1)
+    # explicit knobs are cut to the frame and to shared memory, rows first
+    assert geo(1, band=500, tile=1000)[:5] == (7, 13, 160, 1, 1)
     assert launch_geometry(1, 30, 1920, cfg, 132, H100_SMEM_OPTIN, band=500)[0] == 3
-    r4 = TABLE1_SWEEP[0].bg  # gz=9, gy=482: two stripes fit, three do not
-    assert launch_geometry(8, 1080, 1920, r4, 132, H100_SMEM_OPTIN, band=8)[0] == 2
+    assert geo(8, rows=99).rows == 5
 
 
 @pytest.mark.parametrize("name,cfg", FULL_HD)
 def test_full_hd_temporal_working_set_fits(name, cfg):
     """The temporal launch sizes every block for the last band's working
-    set: one more raw and one more blended plane than B1."""
+    set: one more raw plane, for the drain."""
     _, gy, gz = K.grid_shape(1080, 1920, cfg)
-    for band in (1, 2):
-        extra = smem_bytes(band, gz, gy, temporal=True) - smem_bytes(band, gz, gy)
-        assert extra == 3 * 4 * gz * gy
+
+    def layout(band, tile, rows, t):  # raw planes, normalized planes, GC slots or TI table
+        nr = tile + 3
+        slots = max(2 * (band + 3) * rows * cfg.r * (nr | 1), 2 * gz * K.THREADS)
+        return 4 * ((band + 3 + t) * 2 * gz * nr + (band + 1) * gz * (tile + 1) + slots)
+
+    for band, tile, rows in ((1, 1, 1), (2, 40, 4), (4, 160, 1)):
+        for t in (False, True):
+            assert smem_bytes(band, tile, rows, cfg.r, gz, temporal=t) == layout(band, tile, rows, int(t))
+        assert smem_bytes(band, tile, rows, cfg.r, gz, temporal=True) > smem_bytes(band, tile, rows, cfg.r, gz)
     for b in (1, 4, 8):
-        band, _, smem = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, temporal=True)
-        assert smem == smem_bytes(band, gz, gy, temporal=True) <= H100_SMEM_OPTIN
-    # PAPER_DEFAULT and the serve grid at band 2 (ISSUE figures)
-    assert smem_bytes(2, 4, 162, temporal=True) == 41472
-    assert smem_bytes(2, 4, 322, temporal=True) == 82432
+        geo = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, temporal=True)
+        assert geo.smem == smem_bytes(geo.band, geo.tile, geo.rows, cfg.r, gz, temporal=True)
+        assert geo.smem <= H100_SMEM_OPTIN
+    # PAPER_DEFAULT and the serve grid at b=8: bands of 4, 480-pixel tiles
+    assert smem_bytes(4, 40, 2, 12, 4, temporal=True) == 72080
+    assert smem_bytes(4, 80, 2, 6, 4, temporal=True) == 83504
 
 
 @pytest.mark.parametrize("name,cfg", FULL_HD)
@@ -305,13 +327,13 @@ def test_temporal_alpha0_rows_bitwise_b1_on_card(cuda, shape, cfg):
 @pytest.mark.parametrize("shape,cfg", TEMPORAL_CARD)
 def test_temporal_carry_planes_have_one_owner(cuda, shape, cfg):
     """Every carry plane is written (none left at its NaN fill) and its bits
-    do not depend on how many stripes a block owns."""
+    do not depend on how many stripes and column cells a block owns."""
     frames, carry, alpha = temporal_inputs(3, *shape, cfg, cuda)
     ref_out, ref_carry = None, None
-    for band in (1, 2, 3, 500):
+    for band, tile in ((1, None), (2, 1), (3, 5), (500, None)):
         out = torch.empty_like(frames)
         new = torch.full_like(carry, float("nan"))
-        K._launch(frames, out, cfg, band, carry=carry, carry_out=new, alpha=alpha[:3].contiguous())
+        K._launch(frames, out, cfg, band, carry=carry, carry_out=new, alpha=alpha[:3].contiguous(), tile=tile)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(new).all()) and bool(torch.isfinite(out).all())
         if ref_out is None:
@@ -387,11 +409,58 @@ def test_cuda_tensor_never_reaches_plain(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_kernel_rejects_non_contiguous_and_oversized(cuda):
+    """What the kernel does not take raises: strided frames, and more
+    frames than one launch holds. (r=2 at full HD, which raised before the
+    column tiles, now runs: test_kernel_r2_full_hd_matches_plain_on_card.)"""
     imgs = torch.zeros(2, 64, 96, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         bg_fused(imgs.transpose(1, 2), SERVE_CONFIG)
+    with pytest.raises(ValueError, match="exceed one launch"):
+        bg_fused(torch.zeros(65536, 1, 2, device=cuda), SERVE_CONFIG)
+
+
+@pytest.mark.gpu
+def test_kernel_r2_full_hd_matches_plain_on_card(cuda):
+    """FIG12 r=2 at 1080x1920 (461,760 B of shared memory for the whole
+    width) runs in column tiles and matches its plain version; B3, which has
+    no tiles, still raises naming the bytes."""
+    cfg = FIG12_SWEEPS["r"][0]
+    img = torch.from_numpy(noisy_np(1, 1080, 1920)).to(cuda)
+    out = bg_fused(img, cfg)
+    torch.cuda.synchronize()
+    assert float((out - bg_fused_plain(img, cfg)).abs().max()) <= 5e-3
     with pytest.raises(ValueError, match="bytes"):
-        bg_fused(torch.zeros(1, 1080, 1920, device=cuda), FIG12_SWEEPS["r"][0])
+        bg_fused(img, cfg, stream_input=True)
+
+
+# B1's split knobs at their edges: single stripes and cells, a band past
+# the frame, tiles that do not divide the width, one-row and cut GC steps
+GEOMETRIES = [dict(band=1, tile=1, rows=1), dict(band=3, tile=7, rows=5), dict(band=500, tile=2, rows=2),
+              dict(band=2, tile=1000, rows=99)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", [((61, 83), BGConfig(7, 4.0, 50.0)), ((45, 55), SERVE_CONFIG),
+                                       ((1080, 1918), PAPER_DEFAULT.bg)])
+def test_kernel_geometries_bitwise_on_card(cuda, shape, cfg):
+    """B1's output does not depend on its split: every geometry gives the
+    default launch's bits, within 5e-3 of plain, and B3 equals it; so do
+    the temporal launch's image and carry."""
+    imgs = torch.from_numpy(noisy_np(2, *shape)).to(cuda)
+    ref = bg_fused(imgs, cfg)
+    assert float((ref - bg_fused_plain(imgs, cfg)).abs().max()) <= 5e-3
+    assert torch.equal(bg_fused(imgs, cfg, stream_input=True), ref)
+    frames, carry, alpha = temporal_inputs(2, *shape, cfg, cuda)
+    t_ref = bg_fused(frames, cfg, carry=carry, alpha=alpha)
+    for knobs in GEOMETRIES:
+        got = torch.full_like(imgs, float("nan"))
+        K._launch(imgs, got, cfg, **knobs)
+        out = torch.full_like(frames, float("nan"))
+        new = torch.full_like(carry, float("nan"))
+        K._launch(frames, out, cfg, carry=carry, carry_out=new, alpha=alpha, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), knobs
+        assert torch.equal(out, t_ref[0]) and torch.equal(new, t_ref[1]), knobs
 
 
 def test_build_without_nvcc_raises_and_names_it(monkeypatch, tmp_path):
@@ -419,17 +488,23 @@ def test_build_target_follows_included_headers(monkeypatch, tmp_path):
     shutil.copytree(_build._CSRC, csrc)
     monkeypatch.setattr(_build, "_CSRC", csrc)
     kernels = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur", "bg_slice")
+    staging = ("bg_fused", "bg_fused_streamed", "bg_blur")  # stage through cp.async
     for name in kernels:
-        assert _build._sources(name) == [f"{name}.cu", "bg_common.cuh"]
+        copy = ["bg_copy.cuh"] if name in staging else []
+        assert _build._sources(name) == [f"{name}.cu", "bg_common.cuh"] + copy
     before = {n: _build._target(n).name for n in kernels}
     header = csrc / "bg_common.cuh"
     header.write_text(header.read_text() + "\n// an edit\n")
     edited = {n: _build._target(n).name for n in kernels}
     assert all(edited[n] != before[n] for n in kernels)
+    copy = csrc / "bg_copy.cuh"
+    copy.write_text(copy.read_text() + "\n// an edit\n")
+    assert {n for n in kernels if _build._target(n).name != edited[n]} == set(staging)
+    edited = {n: _build._target(n).name for n in kernels}
     # a header included by the header counts too
     (csrc / "bg_extra.cuh").write_text("#pragma once\n")
     header.write_text('#include "bg_extra.cuh"\n' + header.read_text())
-    assert _build._sources("bg_blur") == ["bg_blur.cu", "bg_common.cuh", "bg_extra.cuh"]
+    assert _build._sources("bg_blur") == ["bg_blur.cu", "bg_common.cuh", "bg_copy.cuh", "bg_extra.cuh"]
     nested = _build._target("bg_blur").name
     (csrc / "bg_extra.cuh").write_text("#pragma once\n// changed\n")
     assert _build._target("bg_blur").name not in (nested, edited["bg_blur"])

@@ -10,13 +10,14 @@ run the CUDA kernels and skip without a card:
 
     pytest -m gpu tests/test_torch_staged.py
 """
+import importlib
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
+from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
 from repro_torch.core import BGConfig, grid_normalize, synthetic_image_np
 from repro_torch.kernels import (
     bg_blur,
@@ -28,7 +29,10 @@ from repro_torch.kernels import (
     bg_slice_plain,
     bilateral_grid_filter_pallas,
 )
+from repro_torch.kernels import bg_blur as B5
+from repro_torch.kernels.bg_blur import blur_geometry, blur_smem_bytes
 from repro_torch.kernels.bg_create import create_threads
+from repro_torch.kernels.common import grid_shape
 from repro_torch.plan import BGPlan
 
 SHAPES = [(40, 55), (60, 96)]
@@ -176,6 +180,45 @@ def test_create_block_size_follows_shared_memory():
         create_threads(1000)
 
 
+H100_SMS, H100_SMEM_OPTIN = 132, 232448
+FULL_HD = [(f"table1-r{wl.bg.r}", wl.bg) for wl in TABLE1_SWEEP] + [("serve", SERVE_CONFIG)]
+
+
+@pytest.mark.parametrize("name,cfg", FULL_HD)
+def test_blur_geometry_fills_the_card_at_full_hd(name, cfg):
+    """B5's run of x-planes and y tile at the five full-HD grids: the block
+    fits, runs and tiles cover the grid, and b = 1, 4, 8 give at least one
+    block per SM."""
+    gx, gy, gz = grid_shape(1080, 1920, cfg)
+    for b in (1, 4, 8):
+        run, runs, ytile, ytiles, smem = blur_geometry(b, gx, gy, gz, H100_SMS, H100_SMEM_OPTIN)
+        assert 1 <= run <= gx and runs == -(-gx // run)
+        assert 1 <= ytile <= gy and ytiles == -(-gy // ytile)
+        assert smem == blur_smem_bytes(ytile, gz) <= H100_SMEM_OPTIN
+        assert b * runs * ytiles >= H100_SMS
+
+
+def test_blur_geometry_rules():
+    gx, gy, gz = grid_shape(1080, 1920, PAPER_DEFAULT.bg)  # 92 x 162 x 4
+    geo = lambda b, **kw: blur_geometry(b, gx, gy, gz, H100_SMS, H100_SMEM_OPTIN, **kw)
+    # a plane tile is (ytile + 2) * gz * 2 floats; five of them per block
+    assert blur_smem_bytes(162, 4) == 5 * 164 * 8 * 4 == 26240
+    assert geo(8) == (2, 46, 162, 1, 26240)
+    assert geo(4) == (1, 92, 162, 1, 26240)
+    assert geo(1) == (1, 92, 54, 3, 8960)  # too few planes: y tiles instead
+    # explicit knobs are cut to the grid; a run longer than gx is one run
+    assert geo(1, run=500, ytile=1000) == (92, 1, 162, 1, 26240)
+    # r=2 at full HD: a whole plane does not fit, the tile is cut to what does
+    r2 = FIG12_SWEEPS["r"][0]
+    g2 = grid_shape(1080, 1920, r2)
+    assert blur_smem_bytes(g2[1], r2.gz) > H100_SMEM_OPTIN
+    run, runs, ytile, ytiles, smem = blur_geometry(8, *g2, H100_SMS, H100_SMEM_OPTIN)
+    assert ytiles > 1 and smem <= H100_SMEM_OPTIN < blur_smem_bytes(ytile + 1, r2.gz)
+    need = blur_smem_bytes(1, 3000)
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        blur_geometry(1, 4, 4, 3000, H100_SMS, H100_SMEM_OPTIN)
+
+
 # ------------------------------------------------------------- on the card
 CARD = [((40, 55), SERVE_CONFIG), ((33, 47), BGConfig(4, 4.0, 60.0)),
         ((1080, 1918), PAPER_DEFAULT.bg), ((1080, 1920), BGConfig(16, 8.0, 70.0))]
@@ -201,6 +244,51 @@ def test_staged_kernels_match_plain_on_card(cuda, shape, cfg):
     assert torch.equal(bg_create(imgs[1], cfg), grid[1])
     assert torch.equal(bg_blur(grid[1].contiguous(), cfg), blurred[1])
     assert torch.equal(bg_slice(gf[1].contiguous(), imgs[1], cfg), out[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", CARD)
+def test_blur_kernel_equals_fused_blur_on_card(cuda, shape, cfg):
+    """B5's grid equals the blurred grid of the fused template bit for bit
+    (read from B2's carry at alpha 0 on a zero carry, which is 1*B + 0*0 = B
+    exactly): every kernel compiles the GF taps as bg::tap3, rounded op by
+    op, so the staged backend filters as the fused one does."""
+    imgs = torch.from_numpy(noisy_np(3, *shape)).to(cuda)
+    grid = bg_create(imgs, cfg)
+    blurred = bg_blur(grid, cfg)
+    fused = bg_fused(imgs, cfg, carry=torch.zeros_like(grid), alpha=torch.zeros(3, device=cuda))[1]
+    plain = bg_blur_plain(grid, cfg)
+    torch.cuda.synchronize()
+    differ = {"b5_vs_fused": int((blurred != fused).sum()), "b5_vs_plain": int((blurred != plain).sum()),
+              "fused_vs_plain": int((fused != plain).sum()), "values": blurred.numel()}
+    assert differ["b5_vs_fused"] == 0, differ
+
+
+# ragged grids: gx <= 2, runs longer than gx, y tiles that do not divide gy
+BLUR_CARD = [(1, 1, 3, 2), (2, 2, 5, 3), (3, 7, 11, 4), (1, 92, 162, 4), (4, 13, 9, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BLUR_CARD)
+def test_blur_kernel_ragged_grids_on_card(cuda, shape):
+    """B5 against its plain version at GF's tolerance on ragged grids, and
+    bit for bit across runs and y tiles (a plane's bits do not depend on the
+    block that filters it)."""
+    cfg = SERVE_CONFIG
+    g = torch.from_numpy(np.random.default_rng(sum(shape)).uniform(0.0, 60.0, (*shape, 2)).astype(np.float32)).to(cuda)
+    before = B5.launches
+    ref = bg_blur(g, cfg)
+    torch.cuda.synchronize()
+    assert B5.launches == before + 1
+    torch.testing.assert_close(ref, bg_blur_plain(g, cfg), atol=1e-2, rtol=1e-4)
+    assert torch.equal(bg_blur(g[0], cfg), ref[0])
+    b, gx, gy = shape[:3]
+    bmod = importlib.import_module("repro_torch.kernels.bg_blur")
+    for run, ytile in ((1, 1), (2, 3), (gx + 5, gy), (3, gy + 9)):
+        got = torch.full_like(g, float("nan"))
+        bmod._launch(g, got, cfg, run, ytile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (run, ytile)
 
 
 @pytest.mark.gpu
