@@ -6,8 +6,8 @@
 Builds every CUDA kernel of the port from this checkout's sources (the
 per-frame kernel B1 and the temporal kernel B2, one source; the streamed
 kernel B3; the staged kernels B4, B5 and B6), holds each against its plain
-PyTorch version at full-HD shapes (B3 against B1, and B5 against B1's
-blurred grid, bit for bit), serves
+PyTorch version at full-HD shapes (B3 against B1, also at r=2, and B5
+against B1's blurred grid, bit for bit), serves
 full-HD frames through ``repro_torch.serving.FrameDenoiseEngine`` on the
 fused and the streamed backend, runs the staged backend through
 ``denoise_batch``, serves full-HD video streams through ``AsyncFrameEngine``
@@ -16,7 +16,8 @@ carried those runs, then times the kernels at b = 1, 4 and 8 with CUDA
 events (``ms``: the mean of back-to-back calls; ``device_ms``: calls
 replayed from a CUDA graph, the device alone), their plain versions and
 the PyTorch calls that compute the same functions, sweeps the split knobs
-of B1, B3 and B5 (every variant checked bit for bit against the default),
+of B1, B3, B5 and B6 (every variant checked bit for bit against the
+default),
 and serves the paths through the launcher. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
 power limit, the last ``{"ok": true, "device": {...}}``. Any failed check
@@ -624,6 +625,75 @@ def kernel_sweep(torch, x, cfg, label, limits):
     return rows
 
 
+def stream_sweep(torch, x, cfg, limits):
+    """B3's knobs on the frames ``x``: band x column tile at the rule's
+    chunk and z group, then chunk x z group at the rule's band and tile.
+    The default launch is checked bit for bit against B1, every variant
+    against the default, before it is timed both ways (``kernel_ms``).
+    Returns the phase row."""
+    import itertools
+
+    kmod = importlib.import_module("repro_torch.kernels.bg_fused")
+    b, h, w = x.shape
+    n, nc = -(-h // cfg.r), -(-w // cfg.r)
+    out, ref = torch.empty_like(x), kmod.bg_fused(x, cfg)
+    default = kmod._stream_launch(x, out, cfg)
+    check(torch.equal(out, ref), f"B3 {default} differs from B1")
+    bands = sorted({1, 2, 3, 4, 6, 8, 12, 15, 23, n, default.band})
+    tiles = sorted({-(-nc // k) for k in (2, 3, 4, 6, 8)} | {default.tile})
+    knobs = [dict(band=bd, tile=tl) for bd, tl in itertools.product(bands, tiles)]
+    knobs += [dict(band=default.band, tile=default.tile, chunk=c, zgroup=z)
+              for c, z in itertools.product(sorted({1, 2, 3, 4, 6, cfg.r}), (1, 2, 4))]
+    seen, variants = set(), []
+    for kn in knobs:
+        geo = kmod.stream_geometry(b, h, w, cfg, *limits, **kn)
+        if geo in seen:  # a knob cut to the same launch
+            continue
+        seen.add(geo)
+        out.fill_(float("nan"))
+        kmod._stream_launch(x, out, cfg, **kn)
+        check(torch.equal(out, ref), f"B3 {geo} differs from the default launch {default}")
+        t = kernel_ms(torch, lambda: kmod._stream_launch(x, out, cfg, **kn), reps=20)
+        variants.append([geo.band, geo.tile, geo.chunk, geo.zgroup, geo.smem, t[0] / b, t[1] / b])
+    b1 = kernel_ms(torch, lambda: kmod.bg_fused(x, cfg), reps=20)
+    return {"phase": "stream_sweep", "kernel": "B3", "config": "PAPER_DEFAULT", "batch": b,
+            "default": default._asdict(), "all_bitwise_default": True,
+            "columns": ("band", "tile", "chunk", "zgroup", "smem", "ms_per_frame", "device_ms_per_frame"),
+            "variants": variants, "b1_ms_per_frame": b1[0] / b, "b1_device_ms_per_frame": b1[1] / b}
+
+
+def slice_sweep(torch, x, gf, cfg):
+    """B6's knobs (band x column tile) on the frames ``x`` and their
+    normalized grids ``gf``, each variant checked bit for bit against the
+    default launch, which is checked against the plain version, then timed
+    both ways. Returns the phase row."""
+    import itertools
+
+    from repro_torch.kernels import bg_slice_plain
+
+    smod = importlib.import_module("repro_torch.kernels.bg_slice")
+    b, h, w = x.shape
+    n = -(-h // cfg.r)
+    out = torch.empty_like(x)
+    default = smod._launch(gf, x, out, cfg)
+    ref = out.clone()
+    check(torch.equal(ref, bg_slice_plain(gf, x, cfg)), f"B6 {default} differs from plain")
+    seen, variants = set(), []
+    for band, tile in itertools.product(sorted({1, 2, 3, 4, 6, n}), sorted({5, 10, 16, 21, 32, 42, 64})):
+        geo = smod.slice_geometry(h, w, cfg, smod._smem_limit(x.device.index), band, tile)
+        if geo in seen:
+            continue
+        seen.add(geo)
+        out.fill_(float("nan"))
+        smod._launch(gf, x, out, cfg, band, tile)
+        check(torch.equal(out, ref), f"B6 {geo} differs from the default launch {default}")
+        t = kernel_ms(torch, lambda: smod._launch(gf, x, out, cfg, band, tile), reps=20)
+        variants.append([geo.band, geo.tile, t[0] / b, t[1] / b])
+    return {"phase": "slice_sweep", "kernel": "B6", "config": "PAPER_DEFAULT", "batch": b,
+            "default": default._asdict(), "all_bitwise_default": True,
+            "columns": ("band", "tile", "ms_per_frame", "device_ms_per_frame"), "variants": variants}
+
+
 def main() -> None:
     import torch
 
@@ -631,8 +701,8 @@ def main() -> None:
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
-    from repro_torch.core import (add_gaussian_noise, grid_normalize, grid_shape, mssim, psnr,
-                                  quantize_intensity, synthetic_batch)
+    from repro_torch.core import (BGConfig, add_gaussian_noise, grid_normalize, grid_shape, mssim,
+                                  psnr, quantize_intensity, synthetic_batch)
     from repro_torch.kernels import (_build, bg_blur, bg_blur_plain, bg_create, bg_create_plain,
                                      bg_fused, bg_fused_plain, bg_slice, bg_slice_plain)
     from repro_torch.launch.serve import serve_frames, serve_video
@@ -641,6 +711,7 @@ def main() -> None:
 
     kmod = importlib.import_module("repro_torch.kernels.bg_fused")
     bmod = importlib.import_module("repro_torch.kernels.bg_blur")
+    smod = importlib.import_module("repro_torch.kernels.bg_slice")
 
     # the plain versions are the fp32 yardstick: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -697,28 +768,26 @@ def main() -> None:
     t_img_err, t_carry_err = temporal_vs_plain(
         torch, x8, cfgs, bg_fused, bg_fused_plain, quantize_intensity, grid_shape
     )
-    # r=2 at full HD: B1 runs in column tiles (the whole width would need
-    # 461,760 B of shared memory); B3 has no tiles and raises naming the bytes
-    r2 = FIG12_SWEEPS["r"][0]
+    # r=2 at full HD, with FIG12's sigmas and with PAPER_DEFAULT's: B1 and B3
+    # run in column tiles (the whole width would need 461,760 B of shared
+    # memory on B1); B3 equals B1 bit for bit
     x1 = x4[:1].contiguous()
-    k = bg_fused(x1, r2)
-    plain = bg_fused_plain(x1, r2)
-    torch.cuda.synchronize()
-    err = float((k - plain).abs().max())
-    exact, lsb = quantized_agreement(quantize_intensity(k, r2), quantize_intensity(plain, r2))
-    emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "shape": list(x1.shape), "max_abs_err": err,
-          "quantized_exact": exact, "quantized_max_diff": lsb,
-          "geometry": kmod.launch_geometry(1, H, W, r2, *limits)._asdict()})
-    check(bool(torch.isfinite(k).all()) and err <= TOL_ABS, f"FIG12 r=2: max |kernel - plain| {err}")
-    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"FIG12 r=2: quantized {exact}, {lsb}")
-    max_err = max(max_err, err)
-    try:
-        bg_fused(x1, r2, stream_input=True)
-    except ValueError as e:
-        check("bytes" in str(e), "r=2 error names the bytes")
-        emit({"phase": "kernel_vs_plain", "config": "FIG12 r=2", "stream_input": True, "raised": str(e)})
-    else:
-        raise RuntimeError("chip_smoke check failed: r=2 at full HD did not raise on B3")
+    for label, r2 in (("FIG12 r=2", FIG12_SWEEPS["r"][0]), ("r=2 PAPER_DEFAULT sigmas", BGConfig(2, 8.0, 70.0))):
+        k = bg_fused(x1, r2)
+        s2 = bg_fused(x1, r2, stream_input=True)
+        plain = bg_fused_plain(x1, r2)
+        torch.cuda.synchronize()
+        err = float((k - plain).abs().max())
+        s_err = float((s2 - plain).abs().max())
+        exact, lsb = quantized_agreement(quantize_intensity(k, r2), quantize_intensity(plain, r2))
+        emit({"phase": "kernel_vs_plain", "config": label, "shape": list(x1.shape), "max_abs_err": err,
+              "quantized_exact": exact, "quantized_max_diff": lsb, "b3_bitwise_b1": bool(torch.equal(s2, k)),
+              "b3_max_abs_err": s_err, "geometry": kmod.launch_geometry(1, H, W, r2, *limits)._asdict(),
+              "b3_geometry": kmod.stream_geometry(1, H, W, r2, *limits)._asdict()})
+        check(bool(torch.isfinite(k).all()) and err <= TOL_ABS, f"{label}: max |kernel - plain| {err}")
+        check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"{label}: quantized {exact}, {lsb}")
+        check(torch.equal(s2, k) and s_err <= TOL_ABS, f"{label}: B3 differs from B1 ({s_err} from plain)")
+        max_err, b3_err = max(max_err, err), max(b3_err, s_err)
 
     # ---- phase 3: the slice, through the engine a user calls
     n_req, max_batch = 19, 8
@@ -857,8 +926,9 @@ def main() -> None:
              for k, v in staged_times.items()}})
     emit({"phase": "bounds", "config": "PAPER_DEFAULT", "frame_hw": [H, W],
           "bytes_bound_ms_per_frame": tpu_kernel_bounds(cfg, grid_shape)})
-    # B1, B2, B3 and B5 at b = 1, 4 and 8 at their default splits, B5
-    # beside grouped conv3d on the same grids, both ways
+    # B1, B2, B3, B5 and B6 at b = 1, 4 and 8 at their default splits, B5
+    # beside grouped conv3d and B6 beside grid_sample on the same inputs,
+    # both ways
     by_batch, device_by_batch = {}, {}
     for bb in (1, 4, 8):
         xs = x8[:bb].contiguous()
@@ -866,13 +936,17 @@ def main() -> None:
         carry = bg_fused(xs, cfg, carry=torch.zeros((bb, gx, gy, gz, 2), device=dev),
                          alpha=torch.zeros_like(alpha))[1]
         gb = g8[:bb].contiguous()
+        gfb = gf8[:bb].contiguous()
+        gs_call, gs_out = grid_sample_slice(torch, gfb, xs, cfg)
         conv_call, conv_out = conv3d_blur(torch, gb, cfg)
         conv_ok = bool(torch.allclose(conv_out, bg_blur(gb, cfg), rtol=TOL_GF[0], atol=TOL_GF[1]))
         calls = {"B1": lambda: bg_fused(xs, cfg),
                  "B2": lambda: bg_fused(xs, cfg, carry=carry, alpha=alpha),
                  "B3": lambda: bg_fused(xs, cfg, stream_input=True),
                  "B5": lambda: bg_blur(gb, cfg),
-                 "conv3d": conv_call}
+                 "conv3d": conv_call,
+                 "B6": lambda: bg_slice(gfb, xs, cfg),
+                 "grid_sample": gs_call}
         t, td = {}, {}
         for k, fn in calls.items():
             t[k], td[k] = (v / bb for v in kernel_ms(torch, fn, reps=50))
@@ -882,10 +956,15 @@ def main() -> None:
               "b5_at_or_below_conv3d": t["B5"] <= t["conv3d"],
               "b5_device_at_or_below_conv3d": td["B5"] <= td["conv3d"],
               "conv3d_within_gf_tolerance": conv_ok,
+              "b3_at_or_below_b1": t["B3"] <= t["B1"], "b3_device_at_or_below_b1": td["B3"] <= td["B1"],
+              "b6_bitwise_plain": bool(torch.equal(bg_slice(gfb, xs, cfg), bg_slice_plain(gfb, xs, cfg))),
+              "grid_sample_max_abs_diff": float((gs_out - bg_slice(gfb, xs, cfg)).abs().max()),
               "b1_geometry": kmod.launch_geometry(bb, H, W, cfg, *limits)._asdict(),
               "b2_geometry": kmod.launch_geometry(bb, H, W, cfg, *limits, temporal=True)._asdict(),
               "b5_geometry": dict(zip(("run", "runs", "ytile", "ytiles", "smem"),
                                       bmod.blur_geometry(bb, gx, gy, gz, *limits))),
+              "b3_geometry": kmod.stream_geometry(bb, H, W, cfg, *limits)._asdict(),
+              "b6_geometry": smod.slice_geometry(H, W, cfg, limits[1])._asdict(),
               "card": smi})
     # the split knobs of B1 and B5 at b = 1, 4, 8 (and at the serve grid at
     # b=8), each variant checked bit for bit against the default launch
@@ -893,14 +972,12 @@ def main() -> None:
                                  ("PAPER_DEFAULT", cfg, 8), ("serve r=6", SERVE_CONFIG, 8)):
         for row in kernel_sweep(torch, x8[:bb].contiguous(), sweep_cfg, label, limits):
             emit({**row, "card": smi})
-    # B3: stripes per block and rows per copy slot against the rules
-    out8 = torch.empty_like(x8)
-    rule = kmod.stream_geometry(b, H, W, cfg, *limits)
-    ms_by = {f"band {band} chunk {chunk}": cuda_ms(torch, lambda: kmod._stream_launch(x8, out8, cfg, band, chunk),
-                                                   reps=20) / b
-             for band in (1, 2, 3, 6, 12) for chunk in (cfg.r, cfg.r // 2, cfg.r // 3)}
-    emit({"phase": "stream_sweep", "config": "PAPER_DEFAULT", "batch": b, "default_band": rule[0],
-          "default_chunk": rule[2], "ms_per_frame": ms_by, "card": smi})
+    # B3's knobs (band x tile, then chunk x z group) and B6's (band x tile)
+    # at b = 1, 4, 8, each variant checked bit for bit against the default
+    for bb in (1, 4, 8):
+        xs = x8[:bb].contiguous()
+        emit({**stream_sweep(torch, xs, cfg, limits), "card": smi})
+        emit({**slice_sweep(torch, xs, grid_normalize(bg_blur(bg_create(xs, cfg), cfg)), cfg), "card": smi})
     emit({"kernels": [{
         "name": "bg_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bg_fused.cu",
@@ -961,15 +1038,15 @@ def main() -> None:
         "ms_per_frame": staged_times[kid][0] / b, "plain_ms_per_frame": staged_times[kid][2] / b,
         "bound_ms_per_frame": sb[kid][0] / b, "bytes": sb[kid][2], "flops": sb[kid][3],
         "timed_shape": [b, H, W], "config": "PAPER_DEFAULT", "card": smi,
-        **({"ms_per_frame_by_batch": {bb: t["B5"] for bb, t in by_batch.items()},
-            "library_ms_per_frame_by_batch": {bb: t["conv3d"] for bb, t in by_batch.items()},
-            "device_ms_per_frame_by_batch": {bb: t["B5"] for bb, t in device_by_batch.items()},
-            "library_device_ms_per_frame_by_batch": {bb: t["conv3d"] for bb, t in device_by_batch.items()}}
-           if kid == "B5" else {}),
-    } for kid, kname, replaces, err, tol in (
-        ("B4", "bg_create", "src/repro/kernels/bg_create.py:68", staged_err[0], TOL_GC),
-        ("B5", "bg_blur", "src/repro/kernels/bg_blur.py:57", staged_err[1], list(TOL_GF)),
-        ("B6", "bg_slice", "src/repro/kernels/bg_slice.py:90", staged_err[2], TOL_TI),
+        **({"ms_per_frame_by_batch": {bb: t[kid] for bb, t in by_batch.items()},
+            "library_ms_per_frame_by_batch": {bb: t[lib] for bb, t in by_batch.items()},
+            "device_ms_per_frame_by_batch": {bb: t[kid] for bb, t in device_by_batch.items()},
+            "library_device_ms_per_frame_by_batch": {bb: t[lib] for bb, t in device_by_batch.items()}}
+           if lib else {}),
+    } for kid, kname, replaces, err, tol, lib in (
+        ("B4", "bg_create", "src/repro/kernels/bg_create.py:68", staged_err[0], TOL_GC, None),
+        ("B5", "bg_blur", "src/repro/kernels/bg_blur.py:57", staged_err[1], list(TOL_GF), "conv3d"),
+        ("B6", "bg_slice", "src/repro/kernels/bg_slice.py:90", staged_err[2], TOL_TI, "grid_sample"),
     )]})
     # the previous designs' times, copied from PERF.md's kernel table: not
     # measured in this run
@@ -979,6 +1056,13 @@ def main() -> None:
           "designs": {"bg_fused": "bands of 2 stripes, one GC thread per cell column",
                       "bg_fused_temporal": "the same template as bg_fused",
                       "bg_blur": "one thread per output value, 27 loads each"}})
+    emit({"phase": "earlier_designs", "measured_here": False, "copied_from": "PERF.md kernel table, B3's and B6's previous designs",
+          "card": "NVIDIA H100 80GB HBM3, 700.00 W", "config": "PAPER_DEFAULT",
+          "ms_per_frame_by_batch": {"bg_fused_streamed": {1: 0.08369, 4: 0.03901, 8: 0.03215},
+                                    "bg_slice": {8: 0.02035}},
+          "designs": {"bg_fused_streamed": "one 512-thread block per band of stripes over the whole width, "
+                                           "one GC owner per (plane part, cell), rows copied twice",
+                      "bg_slice": "one thread per pixel, three divisions and eight corner gathers each"}})
     stats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda")
     check(stats["bg_fused_launches"] == stats["dispatches"] and stats["bg_fused_streamed_launches"] == 0,
           f"serve_frames: {stats}")

@@ -51,6 +51,12 @@ def _round_half_up(v: torch.Tensor) -> torch.Tensor:
     return torch.floor(v + 0.5)
 
 
+def _wrap_negative(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """A negative index plus ``size``, as jnp indexing normalizes it before
+    a scatter drops, or a gather clamps, what is still out of range."""
+    return torch.where(idx < 0, idx + size, idx)
+
+
 def quantize_intensity(out: torch.Tensor, cfg: "BGConfig") -> torch.Tensor:
     """The paper's output quantization: round-half-up, clip to the intensity
     range. Every pipeline exit of the port goes through this function."""
@@ -148,9 +154,10 @@ def grid_create(image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
 
     Returns a float32 grid of shape (gx, gy, gz, 2): channel 0 = pixel count,
     channel 1 = intensity sum. The scatter is ``index_put_`` with
-    ``accumulate=True``, which sums each cell in a fixed order. A pixel whose
-    intensity bin falls outside [0, gz) (input outside [0, intensity_max])
-    is dropped, as JAX's scatter drops it.
+    ``accumulate=True``, which sums each cell in a fixed order. For input
+    outside [0, intensity_max] the bin index is JAX's: a negative bin z
+    counts as z + gz (-1 is the top bin), and a pixel whose bin is still
+    outside [0, gz) is dropped, as JAX's scatter drops it.
     """
     h, w = image.shape
     gx, gy, gz = grid_shape(h, w, cfg)
@@ -158,7 +165,7 @@ def grid_create(image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
     fx, fy, fz = feature_coords(h, w, image, cfg)
     xg = _round_half_up(fx).long()
     yg = _round_half_up(fy).long()
-    zg = _round_half_up(fz).long()
+    zg = _wrap_negative(_round_half_up(fz).long(), gz)
     inside = ((zg >= 0) & (zg < gz)).to(torch.float32)
     zg = zg.clamp(0, gz - 1)
     x_idx = xg[:, None].expand(h, w)
@@ -211,7 +218,9 @@ def grid_slice(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> torc
 
     ``image`` is the original input (its intensities give the z coordinate).
     Corner weights are the standard trilinear (1-frac, frac) pair. Corner
-    indices are clamped to the grid, as JAX's gather clamps them.
+    indices are JAX's: a negative z corner counts as z + gz, then every
+    corner is clamped to the grid, as JAX's gather clamps it (only z can be
+    negative, for input below 0).
     """
     h, w = image.shape
     fx, fy, fz = feature_coords(h, w, image, cfg)
@@ -232,7 +241,7 @@ def grid_slice(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> torc
                 corner = grid_f[
                     (x0b + di).clamp(0, gx - 1),
                     (y0b + dj).clamp(0, gy - 1),
-                    (z0 + dk).clamp(0, gz - 1),
+                    _wrap_negative(z0 + dk, gz).clamp(0, gz - 1),
                 ]
                 out = out + wxi * wyj * wzk * corner
     return out

@@ -10,8 +10,9 @@ written to HBM. The temporal launch (``carry=`` and ``alpha=``) blends each
 blurred homogeneous plane with the frame's carry, ``B' = (1-a) B + a C``,
 before TI reads it, and returns ``B'`` as the new carry. ``stream_input=True``
 runs the streamed kernel (``csrc/bg_fused_streamed.cu``, B3), which replaces
-``_stream_kernel`` (``:620``): the same filter with the image staged through
-a two-slot asynchronous copy ring in shared memory, equal to B1 bit for bit.
+``_stream_kernel`` (``:620``): the same filter with each frame read from HBM
+once, streamed through a ring of rows in shared memory that TI reads too,
+equal to B1 bit for bit.
 See the sources for the designs.
 
 Dispatch follows the tensor's device and nothing else:
@@ -52,6 +53,7 @@ __all__ = [
     "Geometry",
     "launch_geometry",
     "smem_bytes",
+    "StreamGeometry",
     "stream_geometry",
     "stream_smem_bytes",
 ]
@@ -75,9 +77,32 @@ _BLOCKS_PER_SM = 2.5
 _MAX_BAND = 6
 _MAX_ROWS = 4
 THREADS = 256
-# The streamed kernel's blocks hold one 512-thread block per SM; its band
-# rule gives each SM about one block (chip_smoke.py prints the sweep).
-_STREAM_BLOCKS_PER_SM = 1
+# B3's rule (stream_geometry): B1's column tiles (half as wide for a single
+# frame), the deepest chunks that
+# keep _STREAM_BLOCKS_PER_SM blocks resident, GC tasks of the most z bins
+# that leave a plane _STREAM_GC_TASKS tasks, and the shortest band whose
+# blocks are all resident at once; a block has THREADS threads, an SM holds
+# at most _MAX_BLOCKS_PER_SM of them (2048 threads). chip_smoke.py's phase
+# "stream_sweep" sweeps the knobs.
+_STREAM_BLOCKS_PER_SM = 2
+_STREAM_GC_TASKS = 64
+_MAX_BLOCKS_PER_SM = 8
+
+
+class StreamGeometry(NamedTuple):
+    """One B3 launch: ``band`` stripes x ``tile`` column cells per block,
+    ``bands`` x ``tiles`` blocks per frame, chunks of ``chunk`` rows, GC
+    tasks of ``zgroup`` z bins, a ring of ``ring_rows`` rows, ``smem`` bytes
+    of dynamic shared memory per block."""
+
+    band: int
+    bands: int
+    tile: int
+    tiles: int
+    chunk: int
+    zgroup: int
+    ring_rows: int
+    smem: int
 
 
 class Geometry(NamedTuple):
@@ -213,17 +238,37 @@ def launch_geometry(
                     smem_bytes(band, tile, rows, r, gz, temporal))
 
 
-def stream_smem_bytes(chunk: int, w: int, gz: int, gy: int) -> int:
-    """Dynamic shared memory of one streamed block: a ring of four raw
-    planes (count, sum) and two normalized planes, then, from the next
-    16-byte boundary, two slots of ``chunk`` rows of ``w`` floats (plus up
-    to three floats of alignment)."""
-    planes = -(-10 * gz * gy // 4) * 4
-    return 4 * (planes + 2 * _slot_floats(chunk, w))
+def ring_rows(r: int, chunk: int) -> int:
+    """Rows of B3's ring: TI of stripe k reads its r rows once raw plane
+    k+2 is complete, with the next chunk in flight: 2r + split + chunk,
+    rounded up to a multiple of 4 (so that every ring row keeps its HBM
+    row's 16-byte alignment)."""
+    return -(-(2 * r + gc_row_split(r) + chunk) // 4) * 4
 
 
-def _slot_floats(chunk: int, w: int) -> int:
-    return -(-(chunk * w + 3) // 4) * 4
+def stream_smem_bytes(tile: int, chunk: int, r: int, gz: int) -> int:
+    """Dynamic shared memory of one streamed block over ``tile`` column
+    cells: a ring of four raw planes (count, sum) over raw cells c0-1 ..
+    c1+1, two normalized planes over cells c0 .. c1, each TI thread's table
+    of y-lerped corners (two planes, every z), a plane's x-mixed values
+    (count, sum over the raw cells) and TI's r x fractions; then, from the
+    next
+    16-byte boundary, the ring of :func:`ring_rows` rows of the window
+    (``tile + 3`` cells of ``r`` columns, plus up to three floats of
+    alignment, to a multiple of 4, plus up to three for the frame width)
+    and a chunk's z bin bytes, ``ceil(r / 4)`` words per cell made odd."""
+    nr = tile + 3
+    head = -(-(5 * 2 * gz * nr + 2 * gz * (tile + 1) + 2 * gz * THREADS + r) // 4) * 4
+    row = -(-(nr * r + 3) // 4) * 4 + 3
+    zbins = chunk * nr * ((-(-r // 4)) | 1)
+    return 4 * (head + ring_rows(r, chunk) * row + zbins)
+
+
+def _one_wave_band(b: int, n: int, tiles: int, slots: int) -> int:
+    """The shortest band of stripes (of ``n`` per frame) whose blocks, ``b *
+    ceil(n / band) * tiles`` of them, all fit in ``slots`` resident blocks
+    at once (one wave); ``n`` when none does."""
+    return -(-n // max(1, slots // (b * tiles)))
 
 
 def stream_geometry(
@@ -234,34 +279,64 @@ def stream_geometry(
     num_sms: int,
     smem_limit: int,
     band: Optional[int] = None,
+    tile: Optional[int] = None,
     chunk: Optional[int] = None,
-) -> Tuple[int, int, int, int]:
-    """``(band, bands_per_frame, chunk, smem_bytes)`` of a streamed launch
-    over ``b`` frames.
+    zgroup: Optional[int] = None,
+) -> StreamGeometry:
+    """The :class:`StreamGeometry` of a streamed (B3) launch over ``b``
+    frames.
 
-    ``chunk`` (rows per copy slot) defaults to the most rows, at most ``r``,
-    whose two slots fit ``smem_limit`` beside the planes; ``band`` (stripes
-    a block walks) to about ``_STREAM_BLOCKS_PER_SM`` blocks per SM. A frame
-    whose planes and two one-row slots do not fit raises ``ValueError``
-    naming the bytes.
+    Defaults: column tiles of ``ceil(_TILE_PX / r)`` cells, halved once
+    when ``b`` frames of single-stripe blocks would fill fewer than two
+    waves of ``_STREAM_BLOCKS_PER_SM`` blocks per SM, and halved until a
+    block with one-row chunks fits ``smem_limit``; chunks of the most rows,
+    at most r, that keep ``_STREAM_BLOCKS_PER_SM`` blocks resident per SM
+    (or as many as one-row chunks do, if fewer; an explicit chunk is cut to
+    what fits); GC tasks of ``zgroup`` z bins, the most of 4, 2, 1 that
+    still give a plane ``_STREAM_GC_TASKS`` tasks; the shortest band whose
+    blocks are all resident at once. A frame
+    whose one-cell tile with one-row chunks does not fit, or whose grid has
+    more than 255 z bins (a bin is a byte), raises ``ValueError``, naming
+    the bytes for the first.
     """
     _, gy, gz = grid_shape(h, w, cfg)
-    n = -(-h // cfg.r)
-    need = stream_smem_bytes(1, w, gz, gy)
+    r = cfg.r
+    n = -(-h // r)
+    nc = -(-w // r)
+    need = stream_smem_bytes(1, 1, r, gz)
     if need > smem_limit:
         raise ValueError(
-            f"bg_fused(stream_input=True): a {h}x{w} frame at r={cfg.r} (gy={gy}, "
-            f"gz={gz}) needs {need} bytes of shared memory per block for its "
-            f"planes and two one-row slots, above the card's {smem_limit}"
+            f"bg_fused(stream_input=True): one column cell of a {h}x{w} frame at "
+            f"r={r} (gz={gz}) with one-row chunks needs {need} bytes of shared "
+            f"memory per block, above the card's {smem_limit}"
         )
-    fit = 1
-    while fit < cfg.r and stream_smem_bytes(fit + 1, w, gz, gy) <= smem_limit:
-        fit += 1
-    chunk = fit if chunk is None else max(1, min(chunk, fit))
+    if gz > 255:
+        raise ValueError(f"bg_fused(stream_input=True): gz={gz} z bins do not fit a byte")
+    if tile is None:
+        tile = -(-_TILE_PX // r)
+        if b * n * -(-nc // tile) < 2 * _STREAM_BLOCKS_PER_SM * num_sms:  # small batch: narrower tiles
+            tile = -(-tile // 2)
+    tile = max(1, min(tile, nc))
+    while stream_smem_bytes(tile, 1, r, gz) > smem_limit:
+        tile = -(-tile // 2)
+    per_sm = lambda c: max(1, min(_MAX_BLOCKS_PER_SM,
+                                  smem_limit // (stream_smem_bytes(tile, c, r, gz) + _SMEM_PER_BLOCK)))
+    if chunk is None:
+        keep = min(_STREAM_BLOCKS_PER_SM, per_sm(1))
+        chunk = max(c for c in range(1, r + 1) if per_sm(c) >= keep)
+    chunk = max(1, min(chunk, r))
+    while stream_smem_bytes(tile, chunk, r, gz) > smem_limit:
+        chunk -= 1
+    tiles = -(-nc // tile)
+    if zgroup is None:
+        zgroup = next((k for k in (4, 2) if (tile + 3) * -(-gz // k) >= _STREAM_GC_TASKS), 1)
+    if zgroup not in (1, 2, 4):
+        raise ValueError(f"bg_fused(stream_input=True): zgroup must be 1, 2 or 4, got {zgroup}")
     if band is None:
-        band = -(-(b * n) // (_STREAM_BLOCKS_PER_SM * num_sms))
+        band = _one_wave_band(b, n, tiles, per_sm(chunk) * num_sms)
     band = max(1, min(band, n))
-    return band, -(-n // band), chunk, stream_smem_bytes(chunk, w, gz, gy)
+    return StreamGeometry(band, -(-n // band), tile, tiles, chunk, zgroup, ring_rows(r, chunk),
+                          stream_smem_bytes(tile, chunk, r, gz))
 
 
 class LaunchShape(ctypes.Structure):
@@ -287,12 +362,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+class StreamShape(ctypes.Structure):
+    """``csrc/bg_fused_streamed.cu``'s ``StreamShape``: a B3 launch's shape
+    and geometry, built once per shape and passed by pointer."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gy", "gz", "split", "band", "tile",
+                                            "chunk", "zgroup", "ring_rows")] + \
+               [(f, ctypes.c_float) for f in ("inv_rs", "t0", "t1", "t2")] + \
+               [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
+
+
 @functools.lru_cache(maxsize=None)
 def _stream_lib() -> ctypes.CDLL:
     lib = _build.load(STREAM_KERNEL)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bg_fused_streamed_launch.argtypes = [p] * 4 + [i] * 10 + [f] * 4 + [i, i, p]
-    lib.bg_fused_streamed_launch.restype = i
+    lib.bg_fused_streamed_launch.argtypes = [ctypes.c_void_p] * 6
+    lib.bg_fused_streamed_launch.restype = ctypes.c_int
     return lib
 
 
@@ -359,25 +443,35 @@ def _launch(
     return geo
 
 
-def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, band=None, chunk=None) -> None:
+@functools.lru_cache(maxsize=256)
+def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs) -> tuple:
+    """``(geometry, shape, address)`` of a B3 launch, cached per shape,
+    config and knobs, as :func:`_launch_args` is for B1."""
+    num_sms, smem_limit = _device_limits(index)
+    geo = stream_geometry(b, h, w, cfg, num_sms, smem_limit, **dict(knobs))
+    _, gy, gz = grid_shape(h, w, cfg)
+    t0, t1, t2 = (float(t) for t in taps_np(cfg))
+    shape = StreamShape(b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile, geo.chunk,
+                        geo.zgroup, geo.ring_rows, float(np.float32(1.0 / cfg.range_scale)),
+                        t0, t1, t2, geo.smem, index)
+    return geo, shape, ctypes.addressof(shape)
+
+
+def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -> StreamGeometry:
     """One streamed kernel launch (B3) over the contiguous (b, h, w) CUDA
-    frames ``x``; ``band`` and ``chunk`` override :func:`stream_geometry`'s
-    rules (for sweeps)."""
+    frames ``x``; ``knobs`` (``band``, ``tile``, ``chunk``, ``zgroup``)
+    override :func:`stream_geometry`'s rule (for sweeps); returns the
+    geometry launched."""
     b, h, w = x.shape
     dev = x.device
-    num_sms, smem_limit = _device_limits(dev.index)
-    band, _, chunk, smem = stream_geometry(b, h, w, cfg, num_sms, smem_limit, band, chunk)
-    _, gy, gz = grid_shape(h, w, cfg)
+    geo, _, shape = _stream_args(b, h, w, cfg, dev.index, tuple(sorted(knobs.items())))
     yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
-    t0, t1, t2 = (float(t) for t in taps_np(cfg))
     err = _stream_lib().bg_fused_streamed_launch(
-        x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-        b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), band, chunk,
-        _slot_floats(chunk, w), float(np.float32(1.0 / cfg.range_scale)),
-        t0, t1, t2, smem, dev.index, _wrap.stream(dev),
+        x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev)
     )
     _build.check(STREAM_KERNEL, err)
     bg_fused.streamed_launches += 1
+    return geo
 
 
 def bg_fused(

@@ -10,12 +10,14 @@ the JAX kernels' lerp fractions and the fused kernel's lerp order (the same
 device function); z corners outside ``[0, gz)`` count 0.
 
 A CPU tensor runs :func:`bg_slice_plain`; a CUDA tensor runs the kernel or
-the wrapper raises.
+the wrapper raises. :func:`slice_geometry` cuts the frames into the
+kernel's blocks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,9 +25,64 @@ import torch
 from . import _build, _wrap
 from .common import BGConfig, grid_shape, ti_col_fracs
 
-__all__ = ["bg_slice", "bg_slice_plain"]
+__all__ = ["bg_slice", "bg_slice_plain", "SliceGeometry", "slice_geometry", "slice_smem_bytes"]
 
 KERNEL = "bg_slice"
+# The split rule (slice_geometry), set from the sweep of bands and tiles at
+# b = 1, 4 and 8 on an H100 (chip_smoke.py, phase "slice_sweep"; PERF.md has
+# the numbers): one stripe per block, column tiles of THREADS // r cells
+# (one column per thread). A block has THREADS threads (the kernel's
+# kThreads).
+THREADS = 256
+
+
+class SliceGeometry(NamedTuple):
+    """One B6 launch: ``band`` stripes x ``tile`` column cells per block,
+    ``bands`` x ``tiles`` blocks per frame, ``smem`` bytes of dynamic shared
+    memory per block."""
+
+    band: int
+    bands: int
+    tile: int
+    tiles: int
+    smem: int
+
+
+def slice_smem_bytes(gz: int) -> int:
+    """Dynamic shared memory of one block: each thread's table of y-lerped
+    corners, two planes at every z."""
+    return 4 * 2 * gz * THREADS
+
+
+def slice_geometry(
+    h: int,
+    w: int,
+    cfg: BGConfig,
+    smem_limit: int,
+    band: Optional[int] = None,
+    tile: Optional[int] = None,
+) -> SliceGeometry:
+    """The :class:`SliceGeometry` of a launch over ``h x w`` frames.
+
+    Defaults: one stripe per block and column tiles of ``THREADS // r``
+    cells (one column per thread), so one frame alone gives ``ceil(h / r) *
+    tiles`` blocks (720 at full HD and r=12), enough for every SM; longer
+    bands and other tiles were no faster at b = 1, 4 or 8. A grid whose
+    table does not fit ``smem_limit`` raises ``ValueError`` naming the bytes.
+    """
+    _, _, gz = grid_shape(h, w, cfg)
+    r = cfg.r
+    n = -(-h // r)
+    nc = -(-w // r)
+    smem = slice_smem_bytes(gz)
+    if smem > smem_limit:
+        raise ValueError(
+            f"{KERNEL}: a grid with gz={gz} needs {smem} bytes of shared memory "
+            f"per block, above the card's {smem_limit}"
+        )
+    tile = max(1, min(max(1, THREADS // r) if tile is None else tile, nc))
+    band = max(1, min(1 if band is None else band, n))
+    return SliceGeometry(band, -(-n // band), tile, -(-nc // tile), smem)
 
 
 def _operands(grid_f, image):
@@ -94,13 +151,61 @@ def bg_slice_plain(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> 
     return out[0] if image.dim() == 2 else out
 
 
+class SliceShape(ctypes.Structure):
+    """``csrc/bg_slice.cu``'s ``SliceShape``: a launch's shape and geometry,
+    built once per shape and passed by pointer."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gx", "gy", "gz", "band", "tile")] + \
+               [("inv_rs", ctypes.c_float), ("smem_bytes", ctypes.c_int), ("device", ctypes.c_int)]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bg_slice_launch.argtypes = [p] * 5 + [i] * 7 + [f, i, p]
-    lib.bg_slice_launch.restype = i
+    lib.bg_slice_launch.argtypes = [ctypes.c_void_p] * 7
+    lib.bg_slice_launch.restype = ctypes.c_int
+    lib.bg_slice_smem_optin.argtypes = [ctypes.c_int]
+    lib.bg_slice_smem_optin.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """Opt-in shared memory per block of CUDA device ``index``."""
+    smem = _lib().bg_slice_smem_optin(index)
+    if smem <= 0:
+        raise RuntimeError(f"{KERNEL}: cannot query shared memory of cuda:{index}")
+    return smem
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, band, tile) -> tuple:
+    """``(geometry, shape, address)``: the launch's :class:`SliceGeometry`,
+    its :class:`SliceShape` (kept alive by the cache) and that struct's
+    address, cached per shape, config and knobs."""
+    geo = slice_geometry(h, w, cfg, _smem_limit(index), band, tile)
+    gx, gy, gz = grid_shape(h, w, cfg)
+    shape = SliceShape(b, h, w, cfg.r, gx, gy, gz, geo.band, geo.tile,
+                       float(np.float32(1.0 / cfg.range_scale)), geo.smem, index)
+    return geo, shape, ctypes.addressof(shape)
+
+
+def _launch(g: torch.Tensor, x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, band=None,
+            tile=None) -> SliceGeometry:
+    """One kernel launch: the contiguous (b, gx, gy, gz) CUDA grids ``g`` at
+    the (b, h, w) frames ``x`` into ``out``; ``band`` and ``tile`` override
+    :func:`slice_geometry`'s rule (for sweeps); returns the geometry
+    launched."""
+    b, h, w = x.shape
+    geo, _, shape = _launch_args(b, h, w, cfg, x.device.index, band, tile)
+    yf, xf = _wrap.ti_fracs(w, cfg.r, x.device)
+    err = _lib().bg_slice_launch(
+        g.data_ptr(), x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape,
+        _wrap.stream(x.device),
+    )
+    _build.check(KERNEL, err)
+    bg_slice.launches += 1
+    return geo
 
 
 def bg_slice(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
@@ -116,18 +221,10 @@ def bg_slice(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> torch.
     _wrap.contiguous(g, "grids", KERNEL)
     b, h, w = x.shape
     _check_grid(g, h, w, cfg)
-    gx, gy, gz = g.shape[1:]
     if b > 65535 or h * w >= 2**31:
         raise ValueError(f"bg_slice: {b} frames of {h}x{w} exceed one launch")
-    yf, xf = _wrap.ti_fracs(w, cfg.r, x.device)
     out = torch.empty_like(x)
-    err = _lib().bg_slice_launch(
-        g.data_ptr(), x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(),
-        b, h, w, cfg.r, gx, gy, gz, float(np.float32(1.0 / cfg.range_scale)),
-        x.device.index, _wrap.stream(x.device),
-    )
-    _build.check(KERNEL, err)
-    bg_slice.launches += 1
+    _launch(g, x, out, cfg)
     return out[0] if image.dim() == 2 else out
 
 

@@ -83,24 +83,6 @@ __device__ __forceinline__ float blur_zy(const XMix& xm, int z, int y, int gz,
   return tap3(zc[0], zc[1], zc[2], t0, t1, t2);
 }
 
-// x-mixed values of three raw planes held as [z][y] in shared memory
-struct PlaneMix {
-  const float *rm, *rc, *rp;
-  int gy;
-  float t0, t1, t2;
-  __device__ __forceinline__ float operator()(int z, int y) const {
-    return xmix(rm, rc, rp, z * gy + y, t0, t1, t2);
-  }
-};
-
-// Blurred value of one channel at (z, y) from raw planes x-1, x, x+1
-__device__ __forceinline__ float blur_cell(const float* rm, const float* rc,
-                                           const float* rp, int z, int y,
-                                           int gz, int gy, float t0, float t1,
-                                           float t2) {
-  return blur_zy(PlaneMix{rm, rc, rp, gy, t0, t1, t2}, z, y, gz, gy, t0, t1, t2);
-}
-
 // (1-a)*b + a*c with no contraction, as the plain version rounds it
 __device__ __forceinline__ float blend(float b, float c, float a, float one_minus_a) {
   return __fadd_rn(__fmul_rn(one_minus_a, b), __fmul_rn(a, c));
@@ -118,12 +100,13 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
   return __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, t)), __fmul_rn(b, t));
 }
 
-// TI of one pixel of intensity px from its y-lerped corners: ylerp(p, z) is
-// lerp(corner at column cell y0, corner at y1, wy) of normalized plane p
-// (0: the stripe's floor plane, 1: the next) at bin z. Then x, then z.
-template <class YLerp>
-__device__ __forceinline__ float ti_pixel_y(const YLerp& ylerp, float px, float inv_rs,
-                                            int gz, float wx) {
+// TI of one pixel of intensity px from its y-lerped corners: pair(z) is
+// (plane 0, plane 1) at bin z, each lerp(corner at column cell y0, corner
+// at y1, wy) of normalized plane p (0: the stripe's floor plane, 1: the
+// next). Then x, then z.
+template <class Pair>
+__device__ __forceinline__ float ti_pixel_pairs(const Pair& pair, float px, float inv_rs, int gz,
+                                                float wx) {
   const float fz = __fmul_rn(px, inv_rs);
   const float zfl = floorf(fz);
   const int z0 = static_cast<int>(zfl);
@@ -132,9 +115,22 @@ __device__ __forceinline__ float ti_pixel_y(const YLerp& ylerp, float px, float 
 #pragma unroll
   for (int d = 0; d < 2; ++d) {
     const int z = z0 + d;
-    q[d] = (z < 0 || z >= gz) ? 0.f : lerp(ylerp(0, z), ylerp(1, z), wx);
+    if (z < 0 || z >= gz) {
+      q[d] = 0.f;
+    } else {
+      const float2 v = pair(z);
+      q[d] = lerp(v.x, v.y, wx);
+    }
   }
   return lerp(q[0], q[1], zf);
+}
+
+// The same from ylerp(p, z), the value of plane p at bin z
+template <class YLerp>
+__device__ __forceinline__ float ti_pixel_y(const YLerp& ylerp, float px, float inv_rs,
+                                            int gz, float wx) {
+  return ti_pixel_pairs([&](int z) { return make_float2(ylerp(0, z), ylerp(1, z)); }, px,
+                        inv_rs, gz, wx);
 }
 
 // y lerp of the corners read through planes(p, z, y)
@@ -147,15 +143,6 @@ struct YLerp {
     return lerp(planes(p, z, y0), planes(p, z, y1), wy);
   }
 };
-
-// TI of one pixel of intensity px: planes(p, z, y) reads normalized plane p
-// (0: the stripe's floor plane, 1: the next) at bin z, column cell y.
-template <class Planes>
-__device__ __forceinline__ float ti_pixel(const Planes& planes, float px,
-                                          float inv_rs, int y0, int y1, int gz,
-                                          float wx, float wy) {
-  return ti_pixel_y(YLerp<Planes>{planes, y0, y1, wy}, px, inv_rs, gz, wx);
-}
 
 // two normalized planes held as [z][y] in shared memory
 struct SmemPlanes {

@@ -200,8 +200,8 @@ def main(argv=None) -> None:
     ap.add_argument("--frame-hw", default="96x128", help="frame size HxW")
     ap.add_argument("--micro-batch", type=int, default=8, help="frames per dispatch")
     ap.add_argument("--stream-input", action="store_true",
-                    help="serve frames through the streamed fused kernel (two-slot "
-                    "asynchronous input copies into shared memory)")
+                    help="serve frames through the streamed fused kernel (each "
+                    "frame read once through a ring of rows in shared memory)")
     ap.add_argument("--config", choices=CONFIGS, default="serve",
                     help="grid config: the JAX launcher's serve grid (r=6) "
                     "or the paper's full-HD default (r=12)")

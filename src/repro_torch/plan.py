@@ -14,7 +14,7 @@ equal plans share one executable.
                     kept in shared memory; its plain version on the CPU.
                     Temporal: the same kernel with the in-kernel grid EMA (B2)
   "fused_streamed"  the streamed fused kernel B3 (``bg_fused(stream_input=
-                    True)``): the image staged through a two-slot copy ring,
+                    True)``): each frame read once through a ring of rows,
                     B1's output bit for bit; one launch per ``batch_tile``
   "staged"          the three staged kernels on the whole dispatch, grid in
                     HBM between them: GC (B4) -> GF (B5) -> normalize (a

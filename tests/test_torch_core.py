@@ -187,3 +187,26 @@ def test_quantize_intensity_matches_jax():
         T.quantize_intensity(torch.from_numpy(x), tc).numpy(),
         np.asarray(j_quantize_intensity(jnp.asarray(x), jc)),
     )
+
+
+# Frames outside [0, intensity_max]: the validity guard admits any finite
+# frame. jnp turns a negative grid index into index + size before its
+# scatter drops, or its gather clamps, what is still out of range.
+OUT_OF_RANGE = [(-60.0, 0.0), (-60.0, -50.0), (255.0, 330.0)]
+
+
+@pytest.mark.parametrize("lo,hi", OUT_OF_RANGE)
+@pytest.mark.parametrize("params", [(4, 2.0, 30.0), PARAMS[2]])
+def test_reference_backend_matches_jax_out_of_range(params, lo, hi):
+    from repro.plan import BGPlan as JPlan
+    from repro_torch.plan import BGPlan as TPlan
+
+    jc, tc = pair(params)
+    frames = np.random.default_rng(11).uniform(lo, hi, (2, 37, 53)).astype(np.float32)
+    ref = np.asarray(JPlan(jc, backend="reference", quantize_output=False)(jnp.asarray(frames)))
+    port = TPlan(tc, backend="reference", quantize_output=False, device="cpu")(torch.from_numpy(frames))
+    np.testing.assert_allclose(port.numpy(), ref, atol=5e-3, rtol=0)
+    grid = TR.ref_create(torch.from_numpy(frames[0]), tc).numpy()
+    j_grid = np.asarray(JR.ref_create(jnp.asarray(frames[0]), jc))
+    np.testing.assert_array_equal(grid[..., 0], j_grid[..., 0])
+    np.testing.assert_allclose(grid[..., 1], j_grid[..., 1], atol=1e-4)

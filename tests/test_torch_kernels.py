@@ -242,32 +242,65 @@ def test_full_hd_temporal_working_set_fits(name, cfg):
 
 @pytest.mark.parametrize("name,cfg", FULL_HD)
 def test_full_hd_configs_fit_the_streamed_kernel(name, cfg):
-    """Two slots of a whole stripe do not fit beside the planes at every
-    radius: the chunk is the most rows that do, at most r."""
+    """Every full-HD config gets a streamed block that fits, bands and column
+    tiles that cover the frame, at least one block per SM at b = 1, 4, 8,
+    and no more blocks than the card holds at once."""
     _, gy, gz = K.grid_shape(1080, 1920, cfg)
+    n, nc = -(-1080 // cfg.r), -(-1920 // cfg.r)
     for b in (1, 4, 8):
-        band, bands, chunk, smem = stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
-        assert 1 <= chunk <= cfg.r and smem == stream_smem_bytes(chunk, 1920, gz, gy) <= H100_SMEM_OPTIN
-        assert chunk == cfg.r or stream_smem_bytes(chunk + 1, 1920, gz, gy) > H100_SMEM_OPTIN
-        n = -(-1080 // cfg.r)
-        assert bands == -(-n // band) and b * bands <= 132 + b
+        geo = stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
+        assert isinstance(geo, K.StreamGeometry)
+        assert 1 <= geo.band <= n and geo.bands == -(-n // geo.band)
+        assert 1 <= geo.tile <= nc and geo.tiles == -(-nc // geo.tile)
+        assert 1 <= geo.chunk <= cfg.r and geo.zgroup in (1, 2, 4)
+        assert geo.ring_rows == -(-(2 * cfg.r + K.gc_row_split(cfg.r) + geo.chunk) // 4) * 4
+        assert geo.smem == stream_smem_bytes(geo.tile, geo.chunk, cfg.r, gz) <= H100_SMEM_OPTIN
+        resident = H100_SMEM_OPTIN // (geo.smem + K._SMEM_PER_BLOCK)
+        assert 132 <= b * geo.bands * geo.tiles <= resident * 132
 
 
 def test_streamed_geometry_rules():
-    cfg = PAPER_DEFAULT.bg  # 90 stripes, gz=4, gy=162
-    assert stream_geometry(8, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[:3] == (6, 15, 12)
-    assert stream_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)[:3] == (1, 90, 12)
-    # r=16 and r=4 at full HD: a whole stripe per slot does not fit
-    assert stream_geometry(8, 1080, 1920, TABLE1_SWEEP[3].bg, 132, H100_SMEM_OPTIN)[2] == 14
-    assert stream_geometry(8, 1080, 1920, TABLE1_SWEEP[0].bg, 132, H100_SMEM_OPTIN)[2] == 3
-    # explicit band and chunk are cut to the frame and to what fits
-    assert stream_geometry(1, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, band=500, chunk=99)[:3] == (90, 1, 12)
-    # slots start on a 16-byte boundary and hold the unaligned head
-    assert stream_smem_bytes(1, 55, 3, 11) == 4 * (332 + 2 * 60)  # 330 floats of planes
-    r2 = FIG12_SWEEPS["r"][0]
-    need = stream_smem_bytes(1, 1920, r2.gz, 962)
+    cfg = PAPER_DEFAULT.bg  # 90 stripes, 160 column cells, gz=4
+    geo = lambda b, **kw: stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, **kw)
+    # B1's 40-cell tiles, whole-stripe chunks (12 rows still hold 2 blocks
+    # per SM), GC tasks of 2 z bins (43 cells x 2 groups); the band is the
+    # shortest that keeps every block resident
+    assert geo(8) == (12, 8, 40, 4, 12, 2, 44, 114672)
+    assert geo(4)[:4] == (6, 15, 40, 4)
+    # one frame (360 single-stripe blocks, under two waves of 2 per SM):
+    # 20-cell tiles, 3 blocks per SM, one-bin GC tasks (23 cells x 4 bins)
+    assert geo(1) == (2, 45, 20, 8, 12, 1, 44, 65712)
+    # the layout: 4 raw planes and the x-mixed plane (2 channels x gz x 43
+    # cells), 2 normalized planes x gz x 41, the TI table 2 x gz x 256 and
+    # r x fractions, to a multiple of 4 floats; 2r + split + chunk = 42 ring
+    # rows, rounded up to 44, of 43 x 12 columns plus up to 3 of alignment,
+    # rounded up to 520, plus up to 3 for the frame width; 12 rows of z bin
+    # bytes, 3 words per cell
+    assert K.ring_rows(12, 12) == 44 and K.ring_rows(12, 1) == 32
+    assert stream_smem_bytes(40, 12, 12, 4) == 4 * (4108 + 44 * 523 + 12 * 43 * 3) == 114672
+    # explicit knobs are cut to the frame and a chunk to r rows ...
+    assert geo(8, band=500, tile=30, chunk=99, zgroup=4)[:7] == (90, 1, 30, 6, 12, 4, 44)
+    # ... and to shared memory: a 100-cell tile fits with 6-row chunks; the
+    # whole width (160 cells) does not fit even with one-row chunks, so the
+    # tile is halved
+    assert geo(8, tile=100, chunk=99)[2:5] == (100, 2, 6)
+    assert geo(8, tile=1000)[2:4] == (80, 2)
+    with pytest.raises(ValueError, match="zgroup"):
+        geo(8, zgroup=3)
+    # a limit that holds a 20-cell tile with one-row chunks and no more
+    small = stream_geometry(8, 1080, 1920, cfg, 132, stream_smem_bytes(20, 1, 12, 4))
+    assert (small.tile, small.chunk, small.smem) == (20, 1, 49092)
+    # FIG12 r=2 at full HD fits, with its own sigmas and with PAPER_DEFAULT's
+    for r2 in (FIG12_SWEEPS["r"][0], BGConfig(2, 8.0, 70.0)):
+        g2 = stream_geometry(1, 1080, 1920, r2, 132, H100_SMEM_OPTIN)
+        assert g2.smem <= H100_SMEM_OPTIN and g2.tiles * g2.tile >= 960
+    # a grid so deep that one column cell with one-row chunks does not fit
+    # (gz = 257: the TI table alone is 526,336 B) raises naming the bytes
+    deep = BGConfig(4, 4.0, 1.0)
+    need = stream_smem_bytes(1, 1, 4, deep.gz)
+    assert need > H100_SMEM_OPTIN
     with pytest.raises(ValueError, match=f"{need} bytes"):
-        stream_geometry(1, 1080, 1920, r2, 132, H100_SMEM_OPTIN)
+        stream_geometry(1, 1080, 1920, deep, 132, H100_SMEM_OPTIN)
 
 
 # ------------------------------------------------------------- on the card
@@ -360,6 +393,14 @@ def test_kernel_matches_plain_on_card(cuda, shape, params):
     assert torch.equal(bg_fused(imgs, cfg, batch_tile=2), out)
 
 
+# B3's knobs at their edges: single stripes, cells and rows, one-bin GC
+# tasks, a band past the frame, tiles that do not divide the width, chunks
+# past r, the whole width
+STREAM_GEOMETRIES = [dict(band=1, tile=1, chunk=1, zgroup=1), dict(band=3, tile=7, chunk=5, zgroup=2),
+                     dict(band=500, tile=2, chunk=99, zgroup=4), dict(band=2, tile=1000, chunk=2, zgroup=1),
+                     dict(band=4, tile=3, chunk=3, zgroup=4)]
+
+
 STREAMED_CARD = [((40, 55), SERVE_CONFIG), ((45, 55), SERVE_CONFIG), ((33, 47), BGConfig(4, 4.0, 60.0)),
                  ((61, 83), BGConfig(7, 4.0, 50.0)), ((1080, 1918), PAPER_DEFAULT.bg),
                  ((1080, 1920), TABLE1_SWEEP[3].bg)]
@@ -380,17 +421,56 @@ def test_streamed_kernel_bitwise_b1_on_card(cuda, shape, cfg):
     assert torch.equal(bg_fused(imgs[1:], cfg, stream_input=True), ref[1:])
     assert torch.equal(bg_fused(imgs, cfg, batch_tile=2, stream_input=True), ref)
     n = -(-shape[0] // cfg.r)
-    for band, chunk in ((1, 1), (2, cfg.r), (3, 2), (n, None)):
+    for knobs in STREAM_GEOMETRIES + [dict(band=n)]:
         got = torch.full_like(imgs, float("nan"))
-        K._stream_launch(imgs, got, cfg, band, chunk)
+        K._stream_launch(imgs, got, cfg, **knobs)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref), (band, chunk)
+        assert torch.equal(got, ref), knobs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", [((61, 83), BGConfig(7, 4.0, 50.0)), ((45, 55), SERVE_CONFIG),
+                                       ((1080, 1918), PAPER_DEFAULT.bg)])
+def test_streamed_geometries_bitwise_on_card(cuda, shape, cfg):
+    """B3's output does not depend on its split: every (band, tile, chunk,
+    z group) gives B1's bits."""
+    imgs = torch.from_numpy(noisy_np(2, *shape)).to(cuda)
+    ref = bg_fused(imgs, cfg)
+    for knobs in STREAM_GEOMETRIES:
+        got = torch.full_like(imgs, float("nan"))
+        geo = K._stream_launch(imgs, got, cfg, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (knobs, geo)
+
+
+def card_frames(b, h, w, device, seed=0):
+    """b full-size frames made on the card: frame 0 a noisy synthetic scene,
+    the rest uniform in [0, 256), floored."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.floor(torch.rand((b, h, w), generator=gen, device=device) * 256.0)
+    x[0] = torch.from_numpy(noisy_np(h, w, seed=seed)).to(device)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", [((1080, 1920), c) for _, c in FULL_HD] + [
+    ((1080, 1920), FIG12_SWEEPS["r"][0]), ((1080, 1920), BGConfig(2, 8.0, 70.0)),
+    ((1080, 1918), PAPER_DEFAULT.bg)])
+def test_streamed_kernel_full_hd_bitwise_b1_on_card(cuda, shape, cfg):
+    """B3 equals B1 bit for bit at every full-HD config (r=2 included, with
+    FIG12's sigmas and with PAPER_DEFAULT's), at b = 1 and 8."""
+    x = card_frames(8, *shape, cuda)
+    ref = bg_fused(x, cfg)
+    assert torch.equal(bg_fused(x, cfg, stream_input=True), ref)
+    assert torch.equal(bg_fused(x[3:4].contiguous(), cfg, stream_input=True), ref[3:4])
 
 
 @pytest.mark.gpu
 def test_streamed_kernel_raises_where_nothing_fits(cuda):
+    """A grid so deep (gz = 257) that one column cell with one-row chunks
+    does not fit in shared memory raises naming the bytes."""
     with pytest.raises(ValueError, match="bytes"):
-        bg_fused(torch.zeros(1, 1080, 1920, device=cuda), FIG12_SWEEPS["r"][0], stream_input=True)
+        bg_fused(torch.zeros(1, 1080, 1920, device=cuda), BGConfig(4, 4.0, 1.0), stream_input=True)
 
 
 @pytest.mark.gpu
@@ -422,15 +502,14 @@ def test_kernel_rejects_non_contiguous_and_oversized(cuda):
 @pytest.mark.gpu
 def test_kernel_r2_full_hd_matches_plain_on_card(cuda):
     """FIG12 r=2 at 1080x1920 (461,760 B of shared memory for the whole
-    width) runs in column tiles and matches its plain version; B3, which has
-    no tiles, still raises naming the bytes."""
+    width) runs in column tiles and matches its plain version; so does B3,
+    in its own column tiles, equal to B1 bit for bit."""
     cfg = FIG12_SWEEPS["r"][0]
     img = torch.from_numpy(noisy_np(1, 1080, 1920)).to(cuda)
     out = bg_fused(img, cfg)
     torch.cuda.synchronize()
     assert float((out - bg_fused_plain(img, cfg)).abs().max()) <= 5e-3
-    with pytest.raises(ValueError, match="bytes"):
-        bg_fused(img, cfg, stream_input=True)
+    assert torch.equal(bg_fused(img, cfg, stream_input=True), out)
 
 
 # B1's split knobs at their edges: single stripes and cells, a band past

@@ -32,6 +32,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels import bg_blur as B5
 from repro_torch.kernels.bg_blur import blur_geometry, blur_smem_bytes
 from repro_torch.kernels.bg_create import create_threads
+from repro_torch.kernels.bg_slice import SliceGeometry, slice_geometry, slice_smem_bytes
 from repro_torch.kernels.common import grid_shape
 from repro_torch.plan import BGPlan
 
@@ -219,6 +220,40 @@ def test_blur_geometry_rules():
         blur_geometry(1, 4, 4, 3000, H100_SMS, H100_SMEM_OPTIN)
 
 
+@pytest.mark.parametrize("name,cfg", FULL_HD)
+def test_slice_geometry_fills_the_card_at_full_hd(name, cfg):
+    """B6's band of stripes and column tile at the five full-HD configs: one
+    column per thread, bands and tiles that cover the frame, and one frame
+    alone at least four blocks per SM."""
+    n, nc = -(-1080 // cfg.r), -(-1920 // cfg.r)
+    gz = grid_shape(1080, 1920, cfg)[2]
+    geo = slice_geometry(1080, 1920, cfg, H100_SMEM_OPTIN)
+    assert isinstance(geo, SliceGeometry)
+    assert 1 <= geo.band <= n and geo.bands == -(-n // geo.band)
+    assert geo.tile * cfg.r <= 256 and geo.tiles == -(-nc // geo.tile)
+    assert geo.smem == slice_smem_bytes(gz) <= H100_SMEM_OPTIN
+    assert geo.bands * geo.tiles >= 4 * H100_SMS
+
+
+def test_slice_geometry_rules():
+    cfg = PAPER_DEFAULT.bg  # 90 stripes, 160 column cells, gz=4
+    geo = lambda **kw: slice_geometry(1080, 1920, cfg, H100_SMEM_OPTIN, **kw)
+    # one stripe per block, tiles of 21 cells (252 columns, one per thread):
+    # 720 blocks per frame; the table is 2 planes x gz x 256 threads
+    assert slice_smem_bytes(4) == 2 * 4 * 256 * 4 == 8192
+    assert geo() == (1, 90, 21, 8, 8192)
+    assert slice_geometry(1080, 1920, TABLE1_SWEEP[3].bg, H100_SMEM_OPTIN)[:4] == (1, 68, 16, 8)
+    # explicit knobs are cut to the frame
+    assert geo(band=500, tile=1000) == (90, 1, 160, 1, 8192)
+    assert geo(band=7, tile=5)[:4] == (7, 13, 5, 32)
+    # a grid so deep that one block's table does not fit raises naming the bytes
+    deep = BGConfig(4, 4.0, 0.2)
+    need = slice_smem_bytes(grid_shape(1080, 1920, deep)[2])
+    assert need > H100_SMEM_OPTIN
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        slice_geometry(1080, 1920, deep, H100_SMEM_OPTIN)
+
+
 # ------------------------------------------------------------- on the card
 CARD = [((40, 55), SERVE_CONFIG), ((33, 47), BGConfig(4, 4.0, 60.0)),
         ((1080, 1918), PAPER_DEFAULT.bg), ((1080, 1920), BGConfig(16, 8.0, 70.0))]
@@ -289,6 +324,33 @@ def test_blur_kernel_ragged_grids_on_card(cuda, shape):
         bmod._launch(g, got, cfg, run, ytile)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (run, ytile)
+
+
+# B6's knobs at their edges: single stripes and cells, a band past the
+# frame, tiles that do not divide the width, the whole width
+SLICE_GEOMETRIES = [dict(band=1, tile=1), dict(band=3, tile=7), dict(band=500, tile=2), dict(band=2, tile=1000)]
+SLICE_CARD = CARD + [((61, 83), BGConfig(7, 4.0, 50.0)), ((45, 55), SERVE_CONFIG), ((1080, 1920), PAPER_DEFAULT.bg)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", SLICE_CARD)
+def test_slice_kernel_bitwise_plain_on_card(cuda, shape, cfg):
+    """B6 equals its plain version bit for bit, at ragged widths and in
+    every (band, tile) split."""
+    imgs = torch.from_numpy(noisy_np(2, *shape)).to(cuda)
+    gf = grid_normalize(bg_blur(bg_create(imgs, cfg), cfg))
+    before = bg_slice.launches
+    out = bg_slice(gf, imgs, cfg)
+    plain = bg_slice_plain(gf, imgs, cfg)
+    torch.cuda.synchronize()
+    assert bg_slice.launches == before + 1
+    assert torch.equal(out, plain), float((out - plain).abs().max())
+    smod = importlib.import_module("repro_torch.kernels.bg_slice")
+    for knobs in SLICE_GEOMETRIES:
+        got = torch.full_like(imgs, float("nan"))
+        geo = smod._launch(gf, imgs, got, cfg, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, out), (knobs, geo)
 
 
 @pytest.mark.gpu

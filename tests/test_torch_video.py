@@ -199,6 +199,30 @@ def test_temporal_denoise_reference_matches_jax_staged(jx):
         quantized_contract(quantize_intensity(o_fused, CFG), quantize_intensity(t(np.asarray(jo)), CFG))
 
 
+@pytest.mark.parametrize("lo,hi", [(-60.0, 0.0), (-60.0, -50.0), (255.0, 330.0)])
+@pytest.mark.parametrize("args", [(4, 2.0, 30.0), (12, 8.0, 70.0)])
+def test_temporal_reference_matches_jax_out_of_range(jx, args, lo, hi):
+    """Frames outside [0, 255] (the validity guard admits any finite frame)
+    through the port's staged oracle and the JAX package's, chained at
+    alpha 0.5: jnp turns a negative grid index into index + size before its
+    scatter drops, or its gather clamps, what is still out of range."""
+    from repro.core import BGConfig as JBGConfig
+
+    cfg, jcfg = BGConfig(*args), JBGConfig(*args)
+    alpha = np.full(2, 0.5, np.float32)
+    plan = BGPlan(cfg, backend="reference", quantize_output=False, device="cpu")
+    rng = np.random.default_rng(5)
+    carry = jc = None
+    for _ in range(2):
+        frames = rng.uniform(lo, hi, (2, 37, 53)).astype(np.float32)
+        out, carry = temporal_denoise(frames, carry=carry, alpha=alpha, plan=plan)
+        jo, jc = jx.temporal(
+            jx.np(frames), jcfg, carry=jc, alpha=alpha, staged=True, quantize_output=False
+        )
+        np.testing.assert_allclose(out.numpy(), np.asarray(jo), atol=IMG_ATOL, rtol=0)
+        np.testing.assert_allclose(carry.numpy(), np.asarray(jc), **CARRY_TOL)
+
+
 def test_temporal_denoise_cold_and_warm_up_packs():
     frames = noisy_stack(3, 45, 55)
     per_frame = BGPlan(CFG, device="cpu")(frames)
