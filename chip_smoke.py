@@ -7,7 +7,9 @@ Builds every CUDA kernel of the port from this checkout's sources (the
 per-frame kernel B1 and the temporal kernel B2, one source; the streamed
 kernel B3; the staged kernels B4, B5 and B6), holds each against its plain
 PyTorch version at full-HD shapes (B3 against B1, also at r=2, and B5
-against B1's blurred grid, bit for bit), serves
+against B1's blurred grid, bit for bit), holds the bf16 storage form of B1,
+B2 and B3 against its bf16 plain version bit for bit (phase
+``bf16_vs_plain``) and its quality against fp32's (``bf16_quality``), serves
 full-HD frames through ``repro_torch.serving.FrameDenoiseEngine`` on the
 fused and the streamed backend, runs the staged backend through
 ``denoise_batch``, serves full-HD video streams through ``AsyncFrameEngine``
@@ -18,7 +20,10 @@ replayed from a CUDA graph, the device alone), their plain versions and
 the PyTorch calls that compute the same functions, sweeps the split knobs
 of B1, B3, B5 and B6 (every variant checked bit for bit against the
 default),
-and serves the paths through the launcher. Prints one JSON object per
+times the bf16 forms beside fp32 (``bf16_times``), serves full-HD frames
+and video on bf16 plans with only the bf16 entry points counted
+(``bf16_slice``), and serves the paths through the launcher, in fp32 and
+bf16. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
 power limit, the last ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero. It needs a CUDA card and fails
@@ -47,11 +52,18 @@ TOL_CARRY_ABS, TOL_CARRY_REL = 2e-2, 1e-3
 # tests/test_kernels.py:43,53,64: GC, GF (rtol and atol), TI
 TOL_GC, TOL_GF, TOL_TI = 1e-4, (1e-4, 1e-2), 1e-3
 ALPHAS = (0.0, 0.4, 0.6, 0.8)
+# bf16 storage: its quantized output against fp32's, at most 2 LSB apart
+# (the JAX package's bf16 tolerance, tests/test_plan.py:685-690: atol 2.0),
+# and its MSSIM against the clean scene at least 0.98 of fp32's
+TOL_BF16_LSB = 2.0
+BF16_MSSIM_RATIO = 0.98
+BF16_ALPHAS = (0.0, 0.6, 0.8, 0.3)
 SOURCES = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur", "bg_slice")
 # every launch counter of the port: (wrapper, attribute)
 COUNTERS = (("bg_fused", "launches"), ("bg_fused", "temporal_launches"),
-            ("bg_fused", "streamed_launches"), ("bg_create", "launches"),
-            ("bg_blur", "launches"), ("bg_slice", "launches"))
+            ("bg_fused", "streamed_launches"), ("bg_fused", "bf16_launches"),
+            ("bg_fused", "bf16_temporal_launches"), ("bg_fused", "bf16_streamed_launches"),
+            ("bg_create", "launches"), ("bg_blur", "launches"), ("bg_slice", "launches"))
 
 
 def emit(obj) -> None:
@@ -128,25 +140,26 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bg_fused_bound(b: int, h: int, w: int, cfg, grid_shape):
+def bg_fused_bound(b: int, h: int, w: int, cfg, grid_shape, esize: int = 4):
     """(bound_ms, bound_by, bytes, flops) of the fused filter on b frames
-    (B1 and B3): each input read once and each output written once, against
+    (B1 and B3) of ``esize``-byte pixels (4 fp32, 2 bf16): each input read
+    once and each output written once (the TI fractions are fp32), against
     the operations of separable GC / GF / TI (32 FLOP per pixel: 5 in GC, 27
     in TI; 33 per grid cell in GF and normalization)."""
     gx, gy, gz = grid_shape(h, w, cfg)
-    nbytes = b * h * w * 4 * 2 + (w + cfg.r) * 4
+    nbytes = b * h * w * esize * 2 + (w + cfg.r) * 4
     flops = b * (32 * h * w + 33 * gx * gy * gz)
     return (*bound(nbytes, flops), nbytes, flops)
 
 
-def bg_fused_temporal_bound(b: int, h: int, w: int, cfg, grid_shape):
+def bg_fused_temporal_bound(b: int, h: int, w: int, cfg, grid_shape, esize: int = 4):
     """(bound_ms, bound_by, bytes, flops) of the temporal kernel on b
     frames: the per-frame bound plus the carry read once and written once
-    (2 x 4 B per cell and channel) and alpha, and 6 FLOP per grid cell for
-    the blend of both channels."""
-    _, _, nbytes, flops = bg_fused_bound(b, h, w, cfg, grid_shape)
+    (2 x esize B per cell and channel) and the fp32 alpha, and 6 FLOP per
+    grid cell for the blend of both channels."""
+    _, _, nbytes, flops = bg_fused_bound(b, h, w, cfg, grid_shape, esize)
     gx, gy, gz = grid_shape(h, w, cfg)
-    nbytes += b * (2 * gx * gy * gz * 2 * 4 + 4)
+    nbytes += b * (2 * gx * gy * gz * 2 * esize + 4)
     flops += b * 6 * gx * gy * gz
     return (*bound(nbytes, flops), nbytes, flops)
 
@@ -247,7 +260,6 @@ def video_slice(torch, cfg, smi, dev):
     from repro_torch.data import synthetic_video_np
     from repro_torch.kernels import bg_fused
     from repro_torch.plan import BGPlan
-    from repro_torch.serving import AsyncFrameEngine
     from repro_torch.video import MultiStreamPacker
 
     n_streams, n_frames = 4, 8
@@ -265,42 +277,11 @@ def video_slice(torch, cfg, smi, dev):
             packer.open(s, alpha=alphas[s])
         return packer
 
-    packer = fresh()
-    packs = []  # the stream ids of each pack, in dispatch order
-    real = packer.pack_guarded
-
-    def recording(frames, **kw):
-        packs.append((sorted(frames), any(packer.sessions[s].alpha > 0.0 for s in frames)))
-        return real(frames, **kw)
-
-    packer.pack_guarded = recording
-    done = {s: [] for s in range(n_streams)}
-    eng = AsyncFrameEngine(max_batch=n_streams, batch_window_ms=5.0, packer=packer)
     zero_counts()
-    futs = {}
-
-    def submit(s, t):
-        futs[(s, t)] = eng.submit(noisy[s][t], stream_id=s)
-        futs[(s, t)].add_done_callback(lambda _f: done[s].append(t))
-
-    # stream 0 (alpha 0) alone first: an all-cold pack, the per-frame kernel
-    submit(0, 0)
-    futs[(0, 0)].result()
-    for t in range(n_frames):
-        for s in range(n_streams):
-            if (s, t) != (0, 0):
-                submit(s, t)
-    eng.flush()
-    sync(torch, dev)
+    outs, packs, packer, st, _ = run_video(torch, plan, noisy, ALPHAS)
     b1_launches, b2_launches = bg_fused.launches, bg_fused.temporal_launches
     counts = kernel_counts()
-    st = eng.stats()
-    eng.close()
-    outs = {k: f.result() for k, f in futs.items()}
     cold = sum(1 for _, warm in packs if not warm)
-    check(all(f.done() and f.exception() is None for f in futs.values()), "every future resolved")
-    check(all(done[s] == sorted(done[s]) and len(done[s]) == n_frames for s in done), f"per-stream order {done}")
-    check(st.dispatches == len(packs), f"{st.dispatches} dispatches for {len(packs)} packs")
     check_counts(counts, {"bg_fused.launches": cold, "bg_fused.temporal_launches": len(packs) - cold},
                  f"video slice, {len(packs)} packs, {cold} cold")
     check(st.shed == st.failed == st.carry_resets == 0 and packer.carry_resets == 0,
@@ -349,6 +330,259 @@ def video_slice(torch, cfg, smi, dev):
            "quarantined": st.carry_resets, "card": smi}
     emit(row)
     return row
+
+
+def bf16_vs_plain(torch, x8, checks, smi):
+    """B1, B2 and B3 in bf16 against their bf16 plain version, bit for bit,
+    on full-HD frames of every config in ``checks`` ((label, cfg, width)),
+    at b = 1 and 4: B3 equals B1; B2 after one cold pack (alpha 0 on a zero
+    carry), then at BF16_ALPHAS on the carry it returned, image and carry,
+    its alpha-0 rows equal to B1's output. Returns the number of values
+    compared and the largest |kernel - plain| (0 when bit for bit)."""
+    from repro_torch.core import grid_shape
+    from repro_torch.kernels import bg_fused, bg_fused_plain
+
+    bf, dev = torch.bfloat16, x8.device
+    values, worst = 0, 0.0
+    for label, cfg, w in checks:
+        gx, gy, gz = grid_shape(H, w, cfg)
+        for b in (1, 4):
+            x = x8[:b, :, :w].contiguous().to(bf)
+            x2 = x8[4:4 + b, :, :w].contiguous().to(bf)
+            k = bg_fused(x, cfg, precision="bf16")
+            s = bg_fused(x, cfg, precision="bf16", stream_input=True)
+            p = bg_fused_plain(x, cfg, precision="bf16")
+            zero = torch.zeros((b, gx, gy, gz, 2), device=dev, dtype=bf)
+            a0 = torch.zeros(b, device=dev)
+            o0, c0 = bg_fused(x, cfg, carry=zero, alpha=a0, precision="bf16")
+            po0, pc0 = bg_fused_plain(x, cfg, carry=zero, alpha=a0, precision="bf16")
+            alpha = torch.tensor(BF16_ALPHAS[:b], device=dev)
+            o1, c1 = bg_fused(x2, cfg, carry=c0, alpha=alpha, precision="bf16")
+            po1, pc1 = bg_fused_plain(x2, cfg, carry=pc0, alpha=alpha, precision="bf16")
+            b1_2 = bg_fused(x2, cfg, precision="bf16")
+            sync(torch, dev)
+            zero_rows = [i for i in range(b) if BF16_ALPHAS[i] == 0.0]
+            err = max(float((u.float() - v.float()).abs().max())
+                      for u, v in ((k, p), (o0, po0), (c0, pc0), (o1, po1), (c1, pc1)))
+            row = {"phase": "bf16_vs_plain", "config": label, "shape": [b, H, w],
+                   "dtypes": sorted({str(t.dtype) for t in (k, s, o1, c1)}),
+                   "b1_bitwise_plain": bool(torch.equal(k, p)), "b3_bitwise_b1": bool(torch.equal(s, k)),
+                   "b2_cold_bitwise_plain": bool(torch.equal(o0, po0) and torch.equal(c0, pc0)),
+                   "b2_cold_bitwise_b1": bool(torch.equal(o0, k)),
+                   "b2_bitwise_plain": bool(torch.equal(o1, po1)),
+                   "b2_carry_bitwise_plain": bool(torch.equal(c1, pc1)),
+                   "b2_alpha0_rows_bitwise_b1": all(torch.equal(o1[i], b1_2[i]) for i in zero_rows),
+                   "alpha": list(BF16_ALPHAS[:b]), "max_abs_err": err, "card": smi}
+            emit(row)
+            check(row["dtypes"] == ["torch.bfloat16"], f"bf16 {label} b={b}: dtypes {row['dtypes']}")
+            check(all(v for v in row.values() if isinstance(v, bool)), f"bf16 {label} b={b}: {row}")
+            check(bool(torch.isfinite(k.float()).all() and torch.isfinite(c1.float()).all()),
+                  f"bf16 {label} b={b}: finite")
+            values += sum(t.numel() for t in (k, s, o0, c0, o1, c1))
+            worst = max(worst, err)
+    return values, worst
+
+
+def bf16_quality(torch, cfgs, smi, dev):
+    """MSSIM(bf16) / MSSIM(fp32) against the clean scenes, on the kernels
+    (B1 in both storage types), 4 full-HD frames per config, each output
+    quantized; and the share of quantized pixels equal to fp32's and their
+    largest difference. Returns the rows."""
+    from repro_torch.core import add_gaussian_noise, mssim, quantize_intensity, synthetic_batch
+    from repro_torch.kernels import bg_fused
+
+    clean = synthetic_batch(4, H, W, seed=300, device=dev)
+    x = add_gaussian_noise(clean, 30.0, generator=torch.Generator(device=dev).manual_seed(3)).contiguous()
+    rows = []
+    for label, cfg in cfgs:
+        q32 = quantize_intensity(bg_fused(x, cfg), cfg)
+        q16 = quantize_intensity(bg_fused(x.to(torch.bfloat16), cfg, precision="bf16").float(), cfg)
+        m32 = [float(mssim(c, o)) for c, o in zip(clean, q32)]
+        m16 = [float(mssim(c, o)) for c, o in zip(clean, q16)]
+        exact, lsb = quantized_agreement(q16, q32)
+        ratio = min(a / b for a, b in zip(m16, m32))
+        row = {"phase": "bf16_quality", "config": label, "shape": list(x.shape),
+               "mssim_fp32": sum(m32) / 4, "mssim_bf16": sum(m16) / 4, "mssim_ratio_min": ratio,
+               "quantized_exact_vs_fp32": exact, "quantized_max_diff_vs_fp32": lsb,
+               "limits": {"mssim_ratio": BF16_MSSIM_RATIO, "lsb": TOL_BF16_LSB}, "card": smi}
+        emit(row)
+        check(ratio >= BF16_MSSIM_RATIO, f"bf16 quality {label}: MSSIM ratio {ratio}")
+        check(lsb <= TOL_BF16_LSB, f"bf16 quality {label}: {lsb} LSB from fp32")
+        rows.append(row)
+    return rows
+
+
+def run_video(torch, plan, noisy, alphas):
+    """``noisy`` (one (frames, h, w) array per stream) through a fresh
+    ``MultiStreamPacker`` on ``plan`` behind an ``AsyncFrameEngine``, stream
+    0 (alpha 0) alone first: an all-cold pack, the per-frame kernel. Checks
+    that every future resolved, in order per stream, one dispatch per pack.
+    Returns (results {(stream, t): frame}, packs [(stream ids, warm)] in
+    dispatch order, the packer, engine stats, wall seconds)."""
+    from repro_torch.serving import AsyncFrameEngine
+    from repro_torch.video import MultiStreamPacker
+
+    n_streams, n_frames = len(noisy), len(noisy[0])
+    packer = MultiStreamPacker(plan=plan)
+    for s in range(n_streams):
+        packer.open(s, alpha=alphas[s])
+    packs = []
+    real = packer.pack_guarded
+
+    def recording(frames, **kw):
+        packs.append((sorted(frames), any(packer.sessions[s].alpha > 0.0 for s in frames)))
+        return real(frames, **kw)
+
+    packer.pack_guarded = recording
+    eng = AsyncFrameEngine(max_batch=n_streams, batch_window_ms=5.0, packer=packer)
+    futs, done = {}, {s: [] for s in range(n_streams)}
+
+    def submit(s, t):
+        futs[(s, t)] = eng.submit(noisy[s][t], stream_id=s)
+        futs[(s, t)].add_done_callback(lambda _f: done[s].append(t))
+
+    t0 = time.perf_counter()
+    submit(0, 0)
+    futs[(0, 0)].result()
+    for t in range(n_frames):
+        for s in range(n_streams):
+            if (s, t) not in futs:
+                submit(s, t)
+    eng.flush()
+    sync(torch, plan.device)
+    seconds = time.perf_counter() - t0
+    st = eng.stats()
+    eng.close()
+    check(all(f.done() and f.exception() is None for f in futs.values()), "every future resolved")
+    check(all(done[s] == sorted(done[s]) and len(done[s]) == n_frames for s in done), f"per-stream order {done}")
+    check(st.dispatches == len(packs), f"{st.dispatches} dispatches for {len(packs)} packs")
+    return {k: f.result() for k, f in futs.items()}, packs, packer, st, seconds
+
+
+def bf16_slice(torch, cfg, smi, dev):
+    """The bf16 plans through the engines a user calls: 32 full-HD frames
+    through ``FrameDenoiseEngine`` on a bf16 ``"fused"`` and a bf16
+    ``"fused_streamed"`` plan, then 4 full-HD streams x 8 frames through
+    ``AsyncFrameEngine`` + ``MultiStreamPacker`` on a bf16 plan. The launch
+    counters are zeroed before each run and must show only bf16 entry
+    points after it; each quantized output is held within TOL_BF16_LSB of
+    the fp32 engine's on the same frames. Returns the phase rows."""
+    import numpy as np
+
+    from repro_torch.core import add_gaussian_noise, synthetic_batch
+    from repro_torch.data import synthetic_video_np
+    from repro_torch.plan import BGPlan
+    from repro_torch.serving import FrameDenoiseEngine, FrameRequest
+
+    n, mb = 32, 8
+    frames = add_gaussian_noise(synthetic_batch(n, H, W, seed=400, device="cpu"), 30.0,
+                                generator=torch.Generator().manual_seed(4)).numpy()
+    rows = {}
+
+    def serve(plan):
+        eng = FrameDenoiseEngine(plan=plan, max_batch=mb)
+        t0 = time.perf_counter()
+        for i in range(n):
+            eng.submit(FrameRequest(uid=i, frame=frames[i]))
+        done, dispatches = [], 0
+        while eng.pending():
+            done.extend(eng.step())
+            dispatches += 1
+        sync(torch, dev)
+        seconds = time.perf_counter() - t0
+        check([r.uid for r in done] == list(range(n)), "every request answered in order")
+        return torch.stack([r.result for r in done]), dispatches, seconds
+
+    for backend, counter in (("fused", "bg_fused.bf16_launches"),
+                             ("fused_streamed", "bg_fused.bf16_streamed_launches")):
+        plan16 = BGPlan(cfg, backend=backend, precision="bf16", device=dev)
+        serve(plan16)  # warm-up: the shapes' launch structs and first launches
+        zero_counts()
+        out16, dispatches, seconds = serve(plan16)
+        counts = kernel_counts()
+        check_counts(counts, {counter: dispatches}, f"bf16 {backend} slice")
+        out32 = serve(BGPlan(cfg, backend=backend, device=dev))[0]
+        exact, lsb = quantized_agreement(out16, out32)
+        check(out16.dtype == torch.float32 and bool(torch.isfinite(out16).all()), f"bf16 {backend} output")
+        check(lsb <= TOL_BF16_LSB, f"bf16 {backend} slice: {lsb} LSB from the fp32 engine")
+        rows[backend] = {"phase": "bf16_slice", "engine": "FrameDenoiseEngine", "backend": backend,
+                         "precision": "bf16", "frames": n, "max_batch": mb, "dispatches": dispatches,
+                         "seconds": seconds, "frames_per_s": n / seconds, "launches": counts,
+                         "vs_fp32_exact": exact, "vs_fp32_max_diff": lsb, "card": smi}
+        emit(rows[backend])
+
+    n_streams, n_frames = 4, 8
+    rng = np.random.default_rng(17)
+    noisy = []
+    for s in range(n_streams):
+        vid = synthetic_video_np(s, n_frames, H, W, motion=0.0 if s == 3 else 1.5)
+        noisy.append(np.clip(np.floor(vid + rng.normal(0.0, 30.0, vid.shape) + 0.5), 0, 255).astype(np.float32))
+    plan16 = BGPlan(cfg, precision="bf16", device=dev)
+    zero_counts()
+    outs16, packs, _, st, seconds = run_video(torch, plan16, noisy, ALPHAS)
+    counts = kernel_counts()
+    cold = sum(1 for _, warm in packs if not warm)
+    check_counts(counts, {"bg_fused.bf16_launches": cold, "bg_fused.bf16_temporal_launches": len(packs) - cold},
+                 f"bf16 video slice, {len(packs)} packs, {cold} cold")
+    check(st.shed == st.failed == st.carry_resets == 0, f"bf16 video: shed {st.shed} failed {st.failed}")
+    outs32 = run_video(torch, BGPlan(cfg, device=dev), noisy, ALPHAS)[0]
+    worst_exact, worst_lsb = 1.0, 0.0
+    for key, o in outs16.items():
+        exact, lsb = quantized_agreement(o, outs32[key])
+        worst_exact, worst_lsb = min(worst_exact, exact), max(worst_lsb, lsb)
+    check(worst_lsb <= TOL_BF16_LSB, f"bf16 video: {worst_lsb} LSB from the fp32 engine")
+    rows["video"] = {"phase": "bf16_slice", "engine": "AsyncFrameEngine+MultiStreamPacker",
+                     "precision": "bf16", "streams": n_streams, "frames": n_streams * n_frames,
+                     "alphas": list(ALPHAS), "packs": len(packs), "cold_packs": cold,
+                     "dispatches": st.dispatches, "mean_batch": st.mean_batch, "seconds": seconds,
+                     "frames_per_s": n_streams * n_frames / seconds,
+                     "latency_ms_p50": st.latency_ms_p50, "latency_ms_p99": st.latency_ms_p99,
+                     "launches": counts, "vs_fp32_worst_exact": worst_exact,
+                     "vs_fp32_max_diff": worst_lsb, "card": smi}
+    emit(rows["video"])
+    return rows
+
+
+def bf16_times(torch, x8, cfg, smi):
+    """B1, B2 and B3 in bf16 beside fp32 at b = 8, 4 and 1 on the same
+    frames (the carry from the frames themselves, alpha mixed), both ways
+    (``kernel_ms``), in turns fp32, bf16, bf16, fp32, each the mean of its
+    two passes, with each storage type's bytes bound. Returns {batch:
+    {"ms": {...}, "device_ms": {...}, "bound_ms": {...}}} per frame."""
+    from repro_torch.core import grid_shape
+    from repro_torch.kernels import bg_fused
+
+    dev = x8.device
+    gx, gy, gz = grid_shape(H, W, cfg)
+    out = {}
+    for bb in (8, 4, 1):
+        alpha = torch.tensor((ALPHAS * 2)[:bb], device=dev)
+        calls, bounds = {}, {}
+        for prec, esize, sdt, tag in (("fp32", 4, torch.float32, ""), ("bf16", 2, torch.bfloat16, "-bf16")):
+            xs = x8[:bb].contiguous().to(sdt)
+            zero = torch.zeros((bb, gx, gy, gz, 2), device=dev, dtype=sdt)
+            carry = bg_fused(xs, cfg, carry=zero, alpha=torch.zeros_like(alpha), precision=prec)[1]
+            calls[tag] = {
+                "B1": lambda xs=xs, prec=prec: bg_fused(xs, cfg, precision=prec),
+                "B2": lambda xs=xs, c=carry, prec=prec: bg_fused(xs, cfg, carry=c, alpha=alpha, precision=prec),
+                "B3": lambda xs=xs, prec=prec: bg_fused(xs, cfg, stream_input=True, precision=prec),
+            }
+            bounds.update({"B1" + tag: bg_fused_bound(bb, H, W, cfg, grid_shape, esize)[0] / bb,
+                           "B2" + tag: bg_fused_temporal_bound(bb, H, W, cfg, grid_shape, esize)[0] / bb,
+                           "B3" + tag: bg_fused_bound(bb, H, W, cfg, grid_shape, esize)[0] / bb})
+        t, td = {}, {}
+        for tag in ("", "-bf16", "-bf16", ""):
+            for k, fn in calls[tag].items():
+                ms, dms = kernel_ms(torch, fn, reps=50)
+                t[k + tag] = t.get(k + tag, 0.0) + ms / bb / 2
+                td[k + tag] = td.get(k + tag, 0.0) + dms / bb / 2
+        out[bb] = {"ms": t, "device_ms": td, "bound_ms": bounds}
+        emit({"phase": "bf16_times", "config": "PAPER_DEFAULT", "batch": bb, "ms_per_frame": t,
+              "device_ms_per_frame": td, "bound_ms_per_frame": bounds,
+              "bf16_over_fp32": {k: t[k + "-bf16"] / t[k] for k in ("B1", "B2", "B3")},
+              "device_bf16_over_fp32": {k: td[k + "-bf16"] / td[k] for k in ("B1", "B2", "B3")},
+              "order": "fp32, bf16, bf16, fp32; each the mean of its two passes", "card": smi})
+    return out
 
 
 def kernel_counts() -> dict:
@@ -789,6 +1023,13 @@ def main() -> None:
         check(torch.equal(s2, k) and s_err <= TOL_ABS, f"{label}: B3 differs from B1 ({s_err} from plain)")
         max_err, b3_err = max(max_err, err), max(b3_err, s_err)
 
+    # ---- phase 2b: the bf16 storage form of B1, B2 and B3 against its plain
+    # version, bit for bit, at every full-HD config above and at widths
+    # 1918 and 1917 (rows of 3836 and 3834 bytes)
+    bf16_checks = [(label, c, W) for label, c in cfgs] + [
+        ("PAPER_DEFAULT w=1918", PAPER_DEFAULT.bg, W - 2), ("PAPER_DEFAULT w=1917", PAPER_DEFAULT.bg, W - 3)]
+    bf16_values, bf16_err = bf16_vs_plain(torch, x8, bf16_checks, smi)
+
     # ---- phase 3: the slice, through the engine a user calls
     n_req, max_batch = 19, 8
     cfg = PAPER_DEFAULT.bg
@@ -831,6 +1072,10 @@ def main() -> None:
 
     # ---- phase 3d: the video slice, through the async engine and packer
     video = video_slice(torch, cfg, smi, dev)
+
+    # ---- phase 3e: the bf16 slice: frames on bf16 fused and streamed plans,
+    # video on a bf16 packer, only the bf16 entry points counted
+    bf16 = bf16_slice(torch, cfg, smi, dev)
 
     # ---- phase 4: times at b=8, PAPER_DEFAULT, CUDA events: a kernel's
     # `ms` is the mean of back-to-back wrapper calls (the method since the
@@ -966,6 +1211,16 @@ def main() -> None:
               "b3_geometry": kmod.stream_geometry(bb, H, W, cfg, *limits)._asdict(),
               "b6_geometry": smod.slice_geometry(H, W, cfg, limits[1])._asdict(),
               "card": smi})
+    # the bf16 forms beside fp32, and their quality against fp32's
+    bf16_t = bf16_times(torch, x8, cfg, smi)
+    bf16_plain_ms = {
+        "B1": cuda_ms(torch, lambda: bg_fused_plain(x8.to(torch.bfloat16), cfg, precision="bf16"),
+                      reps=3, warmup=1),
+        "B2": cuda_ms(torch, lambda: bg_fused_plain(
+            x8.to(torch.bfloat16), cfg, carry=torch.zeros((b, gx, gy, gz, 2), device=dev, dtype=torch.bfloat16),
+            alpha=torch.tensor(ALPHAS * 2, device=dev), precision="bf16"), reps=3, warmup=1)}
+    bf16_quality(torch, [("PAPER_DEFAULT", cfg), ("quality r=6", BGConfig(6, 4.0, 60.0)),
+                         ("quality r=12 sigma_s=6", BGConfig(12, 6.0, 80.0))], smi, dev)
     # the split knobs of B1 and B5 at b = 1, 4, 8 (and at the serve grid at
     # b=8), each variant checked bit for bit against the default launch
     for label, sweep_cfg, bb in (("PAPER_DEFAULT", cfg, 1), ("PAPER_DEFAULT", cfg, 4),
@@ -1024,6 +1279,32 @@ def main() -> None:
         "bytes": nbytes, "flops": flops, "timed_shape": [b, H, W], "config": "PAPER_DEFAULT",
         "card": smi,
     }] + [{
+        "name": kname, "route": "cuda", "precision": "bf16",
+        "source": f"src/repro_torch/kernels/csrc/{src}.cu", "replaces": replaces,
+        "entry_point": entry,
+        "launches": bf16[run]["launches"][counter], "dispatches": bf16[run]["dispatches"],
+        "launches_per_dispatch": bf16[run]["launches"][counter] / bf16[run]["dispatches"],
+        "max_abs_err": bf16_err, "tolerance": 0.0, "values_compared_bitwise": bf16_values,
+        "ms": bf16_t[8]["ms"][kid + "-bf16"] * 8, "device_ms": bf16_t[8]["device_ms"][kid + "-bf16"] * 8,
+        "plain_ms": bf16_plain_ms["B2" if kid == "B2" else "B1"],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "ms_per_frame": bf16_t[8]["ms"][kid + "-bf16"],
+        "plain_ms_per_frame": bf16_plain_ms["B2" if kid == "B2" else "B1"] / 8, "bound_ms_per_frame": bnd[0] / 8,
+        "ms_per_frame_by_batch": {bb: v["ms"][kid + "-bf16"] for bb, v in bf16_t.items()},
+        "device_ms_per_frame_by_batch": {bb: v["device_ms"][kid + "-bf16"] for bb, v in bf16_t.items()},
+        "fp32_ms_per_frame_by_batch": {bb: v["ms"][kid] for bb, v in bf16_t.items()},
+        "fp32_device_ms_per_frame_by_batch": {bb: v["device_ms"][kid] for bb, v in bf16_t.items()},
+        "bytes": bnd[2], "flops": bnd[3], "timed_shape": [8, H, W], "config": "PAPER_DEFAULT", "card": smi,
+    } for kid, kname, src, replaces, entry, run, counter, bnd in (
+        ("B1", "bg_fused_bf16", "bg_fused", "src/repro/kernels/bg_fused.py:645", "bg_fused_bf16_launch",
+         "fused", "bg_fused.bf16_launches", bg_fused_bound(8, H, W, cfg, grid_shape, 2)),
+        ("B2", "bg_fused_temporal_bf16", "bg_fused", "src/repro/kernels/bg_fused.py:569",
+         "bg_fused_temporal_bf16_launch", "video", "bg_fused.bf16_temporal_launches",
+         bg_fused_temporal_bound(8, H, W, cfg, grid_shape, 2)),
+        ("B3", "bg_fused_streamed_bf16", "bg_fused_streamed", "src/repro/kernels/bg_fused.py:620",
+         "bg_fused_streamed_bf16_launch", "fused_streamed", "bg_fused.bf16_streamed_launches",
+         bg_fused_bound(8, H, W, cfg, grid_shape, 2)),
+    )] + [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
         "replaces": replaces,
@@ -1075,6 +1356,17 @@ def main() -> None:
     vstats = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda")
     check(vstats["failed"] == vstats["shed"] == 0, f"serve_video: {vstats}")
     emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})
+    # the same three through bf16 plans: only the bf16 entry points launch
+    for stream_input, key in ((False, "bf16_launches"), (True, "bf16_streamed_launches")):
+        st16 = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda",
+                            stream_input=stream_input, precision="bf16")
+        counted = {k: v for k, v in st16.items() if k.startswith("bg_fused_") and v}
+        check(counted == {f"bg_fused_{key}": st16["dispatches"]}, f"serve_frames bf16: {st16}")
+        emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **st16})
+    v16 = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda", precision="bf16")
+    check(v16["failed"] == v16["shed"] == 0 and v16["bg_fused_launches"] == v16["bg_fused_temporal_launches"] == 0
+          and v16["bg_fused_bf16_temporal_launches"] > 0, f"serve_video bf16: {v16}")
+    emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **v16})
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -14,10 +14,12 @@ Ported (the frame- and video-serving paths at full width):
     temporal grid EMA (B2); the streamed fused filter
     (``csrc/bg_fused_streamed.cu``, B3, equal to B1 bit for bit); the
     staged GC, GF and TI (``csrc/bg_create.cu``, ``bg_blur.cu``,
-    ``bg_slice.cu``, B4-B6); and ``bilateral_grid_filter_pallas``;
+    ``bg_slice.cu``, B4-B6); and ``bilateral_grid_filter_pallas``; B1, B2
+    and B3 in both storage forms, fp32 and bf16;
   * ``plan``: ``BGPlan`` with the ``"reference"``, ``"fused"``,
     ``"fused_streamed"`` and ``"staged"`` backends, per frame and temporal,
-    fp32, one device, JSON payloads shared with the JAX package;
+    fp32 and (but ``"staged"``, as in the JAX package) bf16 storage, one
+    device, JSON payloads shared with the JAX package;
   * ``video``: ``temporal_denoise``, ``blurred_grid_batch``,
     ``StreamSession`` and ``MultiStreamPacker`` (carry snapshots shared
     with the JAX package);
@@ -28,8 +30,7 @@ Ported (the frame- and video-serving paths at full width):
     ``configs.bg_denoise`` and ``launch.serve --frames`` (``--stream-input``)
     / ``--video``.
 
-Not ported yet: the ``"streaming"`` backend (no kernel), bf16 storage,
-plan tuning and the plan cache, mesh sharding, the rest of reliability
+Not ported yet: the ``"streaming"`` backend (no kernel), plan tuning and the plan cache, mesh sharding, the rest of reliability
 (retries, the fallback ladder, the watchdog, fault injection), the fleet,
 and the LM substrate.
 """

@@ -13,13 +13,16 @@ from .common import ti_col_fracs
 __all__ = ["frames", "on_card", "contiguous", "stream", "ti_fracs"]
 
 
-def frames(image, kernel: str) -> torch.Tensor:
-    """``image`` as float32 ``(b, h, w)`` frames (an ``(h, w)`` frame gains a
-    leading axis), or ``TypeError`` / ``ValueError`` naming ``kernel``."""
+def frames(image, kernel: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``image`` as ``(b, h, w)`` frames of ``dtype`` (an ``(h, w)`` frame
+    gains a leading axis), or ``TypeError`` / ``ValueError`` naming
+    ``kernel``. A bf16 entry point takes ``dtype=torch.bfloat16`` and
+    refuses float32 frames, and an fp32 one the other way round."""
     if not isinstance(image, torch.Tensor):
         raise TypeError(f"{kernel} takes a torch.Tensor, got {type(image).__name__}")
-    if image.dtype != torch.float32:
-        raise TypeError(f"{kernel} takes float32 frames, got {image.dtype}")
+    if image.dtype != dtype:
+        name = str(dtype).replace("torch.", "")
+        raise TypeError(f"{kernel} takes {name} frames, got {image.dtype}")
     if image.dim() == 2:
         image = image[None]
     if image.dim() != 3 or min(image.shape) < 1:

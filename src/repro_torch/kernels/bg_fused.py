@@ -15,6 +15,39 @@ once, streamed through a ring of rows in shared memory that TI reads too,
 equal to B1 bit for bit.
 See the sources for the designs.
 
+Storage precision. ``precision="fp32"`` (the default) stores everything in
+float32. ``precision="bf16"`` is the JAX package's bf16 storage form
+(``bg_fused_impl(precision="bf16")``): the frames, the carry and the output
+are ``torch.bfloat16`` tensors, and every contraction accumulates in fp32.
+The port's bf16 contract, which the kernels and :func:`bg_fused_plain` both
+follow, rounding to nearest even (``tensor.to(torch.bfloat16)``,
+``__float2bfloat16_rn``):
+
+  1. Frame: the kernel reads bf16 frames from HBM (8-bit frames are exact).
+  2. Raw grid: GC sums each cell in fp32, in ``bg::gc_cell``'s order with
+     no atomics; the complete cell (count and sum) is rounded to bf16.
+  3. Blur: GF reads the rounded raw planes and blurs in fp32 (``bg::tap3``).
+  4. Temporal only: the blend reads the bf16 carry, upcast, keeps B2's
+     rounding (each product and the sum on its own) and writes the carry
+     out as bf16.
+  5. Normalize: fp32, from the unrounded blurred (blended) value; the
+     normalized plane is rounded to bf16.
+  6. TI reads the rounded normalized planes. Its z lerp takes the two
+     weights ``1 - zf`` and ``zf`` each rounded to bf16 (``bg::zlerp``; the
+     TPU kernel stores its z weights in bf16); the y and x lerps stay fp32.
+  7. Output: stored as bf16; the plan upcasts it to float32 before
+     ``quantize_intensity``.
+
+It differs from the TPU kernel's in two places, because the port's GC sums
+a cell whole: the TPU kernel rounds a partial plane at each stripe boundary
+(``_pipeline_step``, ``:267`` then ``:197``), and it uses the current raw
+plane unrounded once, in GF of the plane before it (``r0``, ``:197-200``).
+The port does neither. The tests hold the two to the JAX package's own bf16
+tolerances, not bit for bit; inside the port the kernels equal
+:func:`bg_fused_plain` bit for bit in both precisions. Each storage type has
+its own C entry points and launch counters; a tensor of the other type
+raises.
+
 Dispatch follows the tensor's device and nothing else:
 
   * a CPU tensor goes to :func:`bg_fused_plain`;
@@ -45,7 +78,7 @@ from . import _build, _wrap
 from .bg_blur import bg_blur_plain
 from .bg_create import bg_create_plain
 from .bg_slice import bg_slice_plain
-from .common import BGConfig, gc_row_split, grid_shape, taps_np
+from .common import BGConfig, gc_row_split, grid_shape, round_storage, storage_dtype, taps_np
 
 __all__ = [
     "bg_fused",
@@ -125,6 +158,7 @@ def bg_fused_plain(
     batch_tile: Optional[int] = None,
     carry: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
+    precision: str = "fp32",
 ):
     """Plain PyTorch version of the fused kernels, on any device.
 
@@ -138,16 +172,19 @@ def bg_fused_plain(
     result does not depend on it). With ``carry`` and ``alpha`` it is the
     temporal version and returns ``(out, new_carry)`` (see :func:`bg_fused`).
     It is the plain version of the streamed kernel too, which equals B1.
+    ``precision="bf16"`` takes and returns bf16 tensors and rounds where the
+    module docstring's contract says.
     """
     _check_batch_tile(batch_tile)
-    x, carry, alpha = _operands(image, cfg, carry, alpha)
+    x, carry, alpha = _operands(image, cfg, carry, alpha, precision)
     b = x.shape[0]
     bt = b if batch_tile is None else min(batch_tile, b)
     if carry is None:
-        out = torch.cat([_plain_frames(x[i:i + bt], cfg) for i in range(0, b, bt)])
+        out = torch.cat([_plain_frames(x[i:i + bt], cfg, precision=precision)
+                         for i in range(0, b, bt)])
         return out[0] if image.dim() == 2 else out
     parts = [
-        _plain_frames(x[i:i + bt], cfg, carry[i:i + bt], alpha[i:i + bt])
+        _plain_frames(x[i:i + bt], cfg, carry[i:i + bt], alpha[i:i + bt], precision)
         for i in range(0, b, bt)
     ]
     out = torch.cat([p[0] for p in parts])
@@ -155,29 +192,43 @@ def bg_fused_plain(
     return (out[0], new_carry[0]) if image.dim() == 2 else (out, new_carry)
 
 
-def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None):
-    blurred = bg_blur_plain(bg_create_plain(x, cfg), cfg)  # (b, gx, gy, gz, 2)
+def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None, precision="fp32"):
+    # every step in fp32; the round_storage calls are the bf16 contract's
+    # rounding points (the identity for fp32)
+    sdt = storage_dtype(precision)
+    x = x.to(torch.float32)
+    raw = round_storage(bg_create_plain(x, cfg), precision)  # (b, gx, gy, gz, 2)
+    blurred = bg_blur_plain(raw, cfg)
     if carry is not None:
         # ---- temporal EMA of the blurred homogeneous grid, the kernel's
         # rounding: each product and the sum rounded on its own
         a = alpha.reshape(-1, 1, 1, 1, 1)
-        blurred = (1.0 - a) * blurred + a * carry
-    out = bg_slice_plain(grid_normalize(blurred), x, cfg)
-    return out if carry is None else (out, blurred)
+        blurred = (1.0 - a) * blurred + a * carry.to(torch.float32)
+    norm = round_storage(grid_normalize(blurred), precision)
+    out = bg_slice_plain(norm, x, cfg, zweight_dtype=sdt).to(sdt)
+    return out if carry is None else (out, blurred.to(sdt))
 
 
 # ---------------------------------------------------------------- kernel
-def smem_bytes(band: int, tile: int, rows: int, r: int, gz: int, temporal: bool = False) -> int:
+def smem_bytes(band: int, tile: int, rows: int, r: int, gz: int, temporal: bool = False,
+               esize: int = 4) -> int:
     """Dynamic shared memory of one block that owns ``band`` stripes and
     ``tile`` column cells: raw planes (count, sum) k0-1 .. k1+1 over raw
     cells c0-1 .. c1+1 (a temporal launch one more plane, for the drain
     when ``h % r == 0``), normalized planes k0 .. k1 over cells c0 .. c1,
     and two GC slots of ``rows`` rows of every raw plane that has rows,
-    ``r`` columns per raw cell, the cell stride made odd, which TI reuses
-    for each thread's y-lerped corners (two planes, every z)."""
+    which TI reuses for each thread's y-lerped corners (two planes, every
+    z). Frames of ``esize`` bytes: fp32 slots hold ``r`` columns per raw
+    cell, transposed, the cell stride made odd; bf16 slots (``esize=2``)
+    hold each row as it lies in HBM, ``(tile + 3) * r + 2`` pixels made
+    even, each slot to 16 bytes. The planes are fp32 either way."""
     t = int(temporal)
     nr = tile + 3
-    slots = max(2 * (band + 3) * rows * r * (nr | 1), 2 * gz * THREADS)
+    if esize == 4:
+        slot = (band + 3) * rows * r * (nr | 1)
+    else:
+        slot = -(-(band + 3) * rows * ((nr * r + 3) & ~1) * esize // 16) * 4
+    slots = max(2 * slot, 2 * gz * THREADS)
     return 4 * ((band + 3 + t) * 2 * gz * nr + gz * (tile + 1) * (band + 1) + slots)
 
 
@@ -192,9 +243,10 @@ def launch_geometry(
     temporal: bool = False,
     tile: Optional[int] = None,
     rows: Optional[int] = None,
+    esize: int = 4,
 ) -> Geometry:
     """The :class:`Geometry` of a B1 (or, ``temporal``, B2) launch over
-    ``b`` frames.
+    ``b`` frames of ``esize``-byte elements (4: fp32, 2: bf16).
 
     Defaults: column tiles of ``ceil(_TILE_PX / r)`` cells; ``band`` =
     ``b * n * tiles // (_BLOCKS_PER_SM * num_sms)`` stripes, 1 to
@@ -209,7 +261,7 @@ def launch_geometry(
     r = cfg.r
     n = -(-h // r)
     nc = -(-w // r)
-    need = smem_bytes(1, 1, 1, r, gz, temporal)
+    need = smem_bytes(1, 1, 1, r, gz, temporal, esize)
     if need > smem_limit:
         raise ValueError(
             f"bg_fused: one stripe and one column cell of a {h}x{w} frame at "
@@ -224,10 +276,11 @@ def launch_geometry(
     if rows is None:
         blocks = b * -(-n // band) * tiles
         rows = next((k for k in range(min(_MAX_ROWS, r), 1, -1)
-                     if smem_limit // (smem_bytes(band, tile, k, r, gz, temporal) + _SMEM_PER_BLOCK)
+                     if smem_limit // (smem_bytes(band, tile, k, r, gz, temporal, esize)
+                                       + _SMEM_PER_BLOCK)
                      * num_sms >= blocks), 1)
     rows = max(1, min(rows, r))
-    while smem_bytes(band, tile, rows, r, gz, temporal) > smem_limit:
+    while smem_bytes(band, tile, rows, r, gz, temporal, esize) > smem_limit:
         if rows > 1:
             rows -= 1
         elif band > 1:
@@ -235,33 +288,39 @@ def launch_geometry(
         else:
             tile = -(-tile // 2)
     return Geometry(band, -(-n // band), tile, -(-nc // tile), rows,
-                    smem_bytes(band, tile, rows, r, gz, temporal))
+                    smem_bytes(band, tile, rows, r, gz, temporal, esize))
 
 
-def ring_rows(r: int, chunk: int) -> int:
+def ring_rows(r: int, chunk: int, esize: int = 4) -> int:
     """Rows of B3's ring: TI of stripe k reads its r rows once raw plane
     k+2 is complete, with the next chunk in flight: 2r + split + chunk,
-    rounded up to a multiple of 4 (so that every ring row keeps its HBM
-    row's 16-byte alignment)."""
-    return -(-(2 * r + gc_row_split(r) + chunk) // 4) * 4
+    rounded up to a multiple of ``16 // esize`` (4 fp32, 8 bf16: so that
+    every ring row keeps its HBM row's 16-byte alignment)."""
+    e = 16 // esize
+    return -(-(2 * r + gc_row_split(r) + chunk) // e) * e
 
 
-def stream_smem_bytes(tile: int, chunk: int, r: int, gz: int) -> int:
+def stream_smem_bytes(tile: int, chunk: int, r: int, gz: int, esize: int = 4) -> int:
     """Dynamic shared memory of one streamed block over ``tile`` column
     cells: a ring of four raw planes (count, sum) over raw cells c0-1 ..
     c1+1, two normalized planes over cells c0 .. c1, each TI thread's table
     of y-lerped corners (two planes, every z), a plane's x-mixed values
     (count, sum over the raw cells) and TI's r x fractions; then, from the
     next
-    16-byte boundary, the ring of :func:`ring_rows` rows of the window
-    (``tile + 3`` cells of ``r`` columns, plus up to three floats of
-    alignment, to a multiple of 4, plus up to three for the frame width)
-    and a chunk's z bin bytes, ``ceil(r / 4)`` words per cell made odd."""
+    16-byte boundary, the ring of :func:`ring_rows` rows of the window in
+    ``esize``-byte elements (fp32: ``tile + 3`` cells of ``r`` columns, plus
+    up to three floats of alignment, to a multiple of 4, plus up to three for
+    the frame width; bf16: plus eight of alignment and a word's half, to a
+    multiple of 8, plus up to seven) and a chunk's z bin bytes, ``ceil(r /
+    4)`` words per cell made odd."""
     nr = tile + 3
     head = -(-(5 * 2 * gz * nr + 2 * gz * (tile + 1) + 2 * gz * THREADS + r) // 4) * 4
-    row = -(-(nr * r + 3) // 4) * 4 + 3
+    if esize == 4:
+        row = -(-(nr * r + 3) // 4) * 4 + 3
+    else:
+        row = (nr * r + 15) // 8 * 8 + 7
     zbins = chunk * nr * ((-(-r // 4)) | 1)
-    return 4 * (head + ring_rows(r, chunk) * row + zbins)
+    return 4 * (head + zbins) + ring_rows(r, chunk, esize) * row * esize
 
 
 def _one_wave_band(b: int, n: int, tiles: int, slots: int) -> int:
@@ -282,9 +341,10 @@ def stream_geometry(
     tile: Optional[int] = None,
     chunk: Optional[int] = None,
     zgroup: Optional[int] = None,
+    esize: int = 4,
 ) -> StreamGeometry:
     """The :class:`StreamGeometry` of a streamed (B3) launch over ``b``
-    frames.
+    frames of ``esize``-byte elements (4: fp32, 2: bf16).
 
     Defaults: column tiles of ``ceil(_TILE_PX / r)`` cells, halved once
     when ``b`` frames of single-stripe blocks would fill fewer than two
@@ -303,7 +363,7 @@ def stream_geometry(
     r = cfg.r
     n = -(-h // r)
     nc = -(-w // r)
-    need = stream_smem_bytes(1, 1, r, gz)
+    need = stream_smem_bytes(1, 1, r, gz, esize)
     if need > smem_limit:
         raise ValueError(
             f"bg_fused(stream_input=True): one column cell of a {h}x{w} frame at "
@@ -317,15 +377,16 @@ def stream_geometry(
         if b * n * -(-nc // tile) < 2 * _STREAM_BLOCKS_PER_SM * num_sms:  # small batch: narrower tiles
             tile = -(-tile // 2)
     tile = max(1, min(tile, nc))
-    while stream_smem_bytes(tile, 1, r, gz) > smem_limit:
+    while stream_smem_bytes(tile, 1, r, gz, esize) > smem_limit:
         tile = -(-tile // 2)
     per_sm = lambda c: max(1, min(_MAX_BLOCKS_PER_SM,
-                                  smem_limit // (stream_smem_bytes(tile, c, r, gz) + _SMEM_PER_BLOCK)))
+                                  smem_limit // (stream_smem_bytes(tile, c, r, gz, esize)
+                                                 + _SMEM_PER_BLOCK)))
     if chunk is None:
         keep = min(_STREAM_BLOCKS_PER_SM, per_sm(1))
         chunk = max(c for c in range(1, r + 1) if per_sm(c) >= keep)
     chunk = max(1, min(chunk, r))
-    while stream_smem_bytes(tile, chunk, r, gz) > smem_limit:
+    while stream_smem_bytes(tile, chunk, r, gz, esize) > smem_limit:
         chunk -= 1
     tiles = -(-nc // tile)
     if zgroup is None:
@@ -335,8 +396,8 @@ def stream_geometry(
     if band is None:
         band = _one_wave_band(b, n, tiles, per_sm(chunk) * num_sms)
     band = max(1, min(band, n))
-    return StreamGeometry(band, -(-n // band), tile, tiles, chunk, zgroup, ring_rows(r, chunk),
-                          stream_smem_bytes(tile, chunk, r, gz))
+    return StreamGeometry(band, -(-n // band), tile, tiles, chunk, zgroup,
+                          ring_rows(r, chunk, esize), stream_smem_bytes(tile, chunk, r, gz, esize))
 
 
 class LaunchShape(ctypes.Structure):
@@ -357,6 +418,10 @@ def _lib() -> ctypes.CDLL:
     lib.bg_fused_launch.restype = i
     lib.bg_fused_temporal_launch.argtypes = [p] * 9
     lib.bg_fused_temporal_launch.restype = i
+    lib.bg_fused_bf16_launch.argtypes = [p] * 6
+    lib.bg_fused_bf16_launch.restype = i
+    lib.bg_fused_temporal_bf16_launch.argtypes = [p] * 9
+    lib.bg_fused_temporal_bf16_launch.restype = i
     lib.bg_fused_smem_optin.argtypes = [i]
     lib.bg_fused_smem_optin.restype = i
     return lib
@@ -375,8 +440,9 @@ class StreamShape(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def _stream_lib() -> ctypes.CDLL:
     lib = _build.load(STREAM_KERNEL)
-    lib.bg_fused_streamed_launch.argtypes = [ctypes.c_void_p] * 6
-    lib.bg_fused_streamed_launch.restype = ctypes.c_int
+    for fn in (lib.bg_fused_streamed_launch, lib.bg_fused_streamed_bf16_launch):
+        fn.argtypes = [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -390,13 +456,15 @@ def _device_limits(index: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, temporal: bool, band, knobs) -> tuple:
+def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, temporal: bool, band, knobs,
+                 esize: int = 4) -> tuple:
     """``(geometry, shape, address)``: the launch's :class:`Geometry`, its
     :class:`LaunchShape` (kept alive by the cache) and that struct's
-    address, cached per shape, config and knobs (a launch's host work is a
-    visible share of a launch)."""
+    address, cached per shape, config, knobs and element size (a launch's
+    host work is a visible share of a launch)."""
     num_sms, smem_limit = _device_limits(index)
-    geo = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal, **dict(knobs))
+    geo = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal, esize=esize,
+                          **dict(knobs))
     gx, gy, gz = grid_shape(h, w, cfg)
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     shape = LaunchShape(b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile,
@@ -416,39 +484,46 @@ def _launch(
     **knobs,
 ) -> Geometry:
     """One kernel launch over the contiguous (b, h, w) CUDA frames ``x``:
-    B1, or B2 when ``carry`` is given (with ``carry_out`` and ``alpha``).
-    ``band`` and ``knobs`` (``tile``, ``rows``) override
-    :func:`launch_geometry`'s rule (for sweeps); returns the geometry
-    launched."""
+    B1, or B2 when ``carry`` is given (with ``carry_out`` and ``alpha``),
+    the fp32 or the bf16 entry point by ``x``'s dtype (the carries and
+    ``out`` are of that dtype too). ``band`` and ``knobs`` (``tile``,
+    ``rows``) override :func:`launch_geometry`'s rule (for sweeps); returns
+    the geometry launched."""
     b, h, w = x.shape
     dev = x.device
     temporal = carry is not None
-    geo, _, shape = _launch_args(b, h, w, cfg, dev.index, temporal, band, tuple(sorted(knobs.items())))
+    bf16 = x.dtype == torch.bfloat16
+    geo, _, shape = _launch_args(b, h, w, cfg, dev.index, temporal, band,
+                                 tuple(sorted(knobs.items())), x.element_size())
     yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
     lib = _lib()
     if temporal:
-        err = lib.bg_fused_temporal_launch(
+        fn = lib.bg_fused_temporal_bf16_launch if bf16 else lib.bg_fused_temporal_launch
+        err = fn(
             x.data_ptr(), out.data_ptr(), carry.data_ptr(), carry_out.data_ptr(),
             alpha.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev),
         )
     else:
-        err = lib.bg_fused_launch(
-            x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev)
-        )
+        fn = lib.bg_fused_bf16_launch if bf16 else lib.bg_fused_launch
+        err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev))
     _build.check(KERNEL, err)
-    if temporal:
+    if temporal and bf16:
+        bg_fused.bf16_temporal_launches += 1
+    elif temporal:
         bg_fused.temporal_launches += 1
+    elif bf16:
+        bg_fused.bf16_launches += 1
     else:
         bg_fused.launches += 1
     return geo
 
 
 @functools.lru_cache(maxsize=256)
-def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs) -> tuple:
+def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs, esize: int = 4) -> tuple:
     """``(geometry, shape, address)`` of a B3 launch, cached per shape,
-    config and knobs, as :func:`_launch_args` is for B1."""
+    config, knobs and element size, as :func:`_launch_args` is for B1."""
     num_sms, smem_limit = _device_limits(index)
-    geo = stream_geometry(b, h, w, cfg, num_sms, smem_limit, **dict(knobs))
+    geo = stream_geometry(b, h, w, cfg, num_sms, smem_limit, esize=esize, **dict(knobs))
     _, gy, gz = grid_shape(h, w, cfg)
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     shape = StreamShape(b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile, geo.chunk,
@@ -459,18 +534,24 @@ def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs) -> tu
 
 def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -> StreamGeometry:
     """One streamed kernel launch (B3) over the contiguous (b, h, w) CUDA
-    frames ``x``; ``knobs`` (``band``, ``tile``, ``chunk``, ``zgroup``)
-    override :func:`stream_geometry`'s rule (for sweeps); returns the
-    geometry launched."""
+    frames ``x``, the fp32 or the bf16 entry point by ``x``'s dtype;
+    ``knobs`` (``band``, ``tile``, ``chunk``, ``zgroup``) override
+    :func:`stream_geometry`'s rule (for sweeps); returns the geometry
+    launched."""
     b, h, w = x.shape
     dev = x.device
-    geo, _, shape = _stream_args(b, h, w, cfg, dev.index, tuple(sorted(knobs.items())))
+    bf16 = x.dtype == torch.bfloat16
+    geo, _, shape = _stream_args(b, h, w, cfg, dev.index, tuple(sorted(knobs.items())),
+                                 x.element_size())
     yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
-    err = _stream_lib().bg_fused_streamed_launch(
-        x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev)
-    )
+    lib = _stream_lib()
+    fn = lib.bg_fused_streamed_bf16_launch if bf16 else lib.bg_fused_streamed_launch
+    err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev))
     _build.check(STREAM_KERNEL, err)
-    bg_fused.streamed_launches += 1
+    if bf16:
+        bg_fused.bf16_streamed_launches += 1
+    else:
+        bg_fused.streamed_launches += 1
     return geo
 
 
@@ -481,9 +562,10 @@ def bg_fused(
     carry: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
     stream_input: bool = False,
+    precision: str = "fp32",
 ):
-    """Fused BG filter, (h, w) -> (h, w) or (b, h, w) -> (b, h, w), float32,
-    unquantized, paper normalization.
+    """Fused BG filter, (h, w) -> (h, w) or (b, h, w) -> (b, h, w), in the
+    storage type, unquantized, paper normalization.
 
     ``carry`` + ``alpha`` select the temporal path (the JAX package's
     ``bg_fused_impl(carry=, alpha=)``): ``carry`` is the ``(b, gx, gy, gz,
@@ -497,11 +579,18 @@ def bg_fused(
     streamed kernel B3, equal to the default kernel bit for bit; it does not
     take a carry.
 
+    ``precision="bf16"`` (module docstring) takes bf16 frames and a bf16
+    carry and returns bf16 output and carry; alpha stays float32. Frames or
+    a carry of the other storage type raise ``TypeError``: nothing is cast
+    here.
+
     CPU tensors run :func:`bg_fused_plain`; CUDA tensors run the kernel, one
     launch per ``batch_tile`` frames (``None``: all frames in one launch), on
-    the current stream. ``bg_fused.launches`` counts per-frame launches,
-    ``bg_fused.temporal_launches`` temporal ones and
-    ``bg_fused.streamed_launches`` streamed ones.
+    the current stream. ``bg_fused.launches`` counts fp32 per-frame
+    launches, ``bg_fused.temporal_launches`` temporal ones and
+    ``bg_fused.streamed_launches`` streamed ones; ``bf16_launches``,
+    ``bf16_temporal_launches`` and ``bf16_streamed_launches`` count the
+    bf16 entry points.
     """
     _check_batch_tile(batch_tile)
     if cfg.normalize_mode != "paper":
@@ -511,9 +600,9 @@ def bg_fused(
         )
     if stream_input and carry is not None:
         raise ValueError("stream_input does not compose with a temporal carry")
-    x, carry_b, alpha_b = _operands(image, cfg, carry, alpha)
+    x, carry_b, alpha_b = _operands(image, cfg, carry, alpha, precision)
     if not _wrap.on_card(x, KERNEL):
-        return bg_fused_plain(image, cfg, batch_tile, carry, alpha)
+        return bg_fused_plain(image, cfg, batch_tile, carry, alpha, precision)
     _wrap.contiguous(x, "frames", KERNEL)
     b, h, w = x.shape
     if b > 65535 or h * w >= 2**31:
@@ -539,22 +628,28 @@ def bg_fused(
 bg_fused.launches = 0
 bg_fused.temporal_launches = 0
 bg_fused.streamed_launches = 0
+bg_fused.bf16_launches = 0
+bg_fused.bf16_temporal_launches = 0
+bg_fused.bf16_streamed_launches = 0
 
 
-def _operands(image, cfg: BGConfig, carry, alpha):
+def _operands(image, cfg: BGConfig, carry, alpha, precision: str = "fp32"):
     """``(frames, carry, alpha)`` with a leading frame axis, checked as the
-    JAX package's ``bg_fused_impl`` checks them; carry and alpha are
-    ``None`` for a per-frame call."""
-    x = _wrap.frames(image, KERNEL)
+    JAX package's ``bg_fused_impl`` checks them, frames and carry in the
+    storage type of ``precision``; carry and alpha are ``None`` for a
+    per-frame call."""
+    sdt = storage_dtype(precision)
+    x = _wrap.frames(image, KERNEL, sdt)
     if (carry is None) != (alpha is None):
         raise ValueError("temporal path needs both carry= and alpha= (or neither)")
     if carry is None:
         return x, None, None
-    for t, name in ((carry, "carry"), (alpha, "alpha")):
+    for t, name, dtype in ((carry, "carry", sdt), (alpha, "alpha", torch.float32)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"bg_fused takes a torch.Tensor {name}, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"bg_fused takes a float32 {name}, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"bg_fused takes a {str(dtype).replace('torch.', '')} {name}, "
+                            f"got {t.dtype}")
     if image.dim() == 2:
         carry, alpha = carry[None], alpha.reshape(1)
     b, h, w = x.shape

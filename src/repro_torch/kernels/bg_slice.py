@@ -111,9 +111,15 @@ def _check_grid(g: torch.Tensor, h: int, w: int, cfg: BGConfig) -> None:
         )
 
 
-def bg_slice_plain(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
+def bg_slice_plain(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig,
+                   zweight_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch TI on any device, with the kernel's corners, fractions
-    and lerp order: ``(gx, gy, gz)`` + ``(h, w)`` -> ``(h, w)``, or batched."""
+    and lerp order: ``(gx, gy, gz)`` + ``(h, w)`` -> ``(h, w)``, or batched.
+
+    ``zweight_dtype=torch.bfloat16`` rounds the two z weights ``1 - zf`` and
+    ``zf`` to bf16 before they weigh the z corners, as the fused kernels'
+    bf16 form does (``bg::zlerp``); the staged kernel B6 and its callers
+    keep the float32 default, under which this is the kernel's lerp."""
     g, x = _operands(grid_f, image)
     b, h, w = x.shape
     _check_grid(g, h, w, cfg)
@@ -147,7 +153,10 @@ def bg_slice_plain(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> 
         a1 = at(x1, zc, y0) * (1.0 - wy) + at(x1, zc, y1) * wy
         return (a0 * (1.0 - wx) + a1 * wx) * ok
 
-    out = (1.0 - zf) * ti_bin(z0) + zf * ti_bin(z0 + 1)
+    w0, w1 = 1.0 - zf, zf
+    if zweight_dtype != torch.float32:
+        w0, w1 = (t.to(zweight_dtype).to(torch.float32) for t in (w0, w1))
+    out = w0 * ti_bin(z0) + w1 * ti_bin(z0 + 1)
     return out[0] if image.dim() == 2 else out
 
 

@@ -1,13 +1,16 @@
 """Shared helpers for the bilateral-grid kernels: the port's own copy of the
 grid-index arithmetic the JAX kernels use (``repro/kernels/common.py``).
 
-Every helper is numpy on the host. The one-hot matrices are kept because the
-plain versions and the tests use them to state the column maps; the CUDA
+Every grid helper is numpy on the host. The one-hot matrices are kept because
+the plain versions and the tests use them to state the column maps; the CUDA
 kernel computes the same cells with integer arithmetic instead of a matmul.
+The storage helpers name the fused kernels' two storage types (the JAX
+package's ``repro/plan.py`` ``PRECISIONS``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.bilateral_grid import BGConfig, _taps, conv3_axis, grid_shape
 
@@ -21,7 +24,42 @@ __all__ = [
     "ti_col_fracs",
     "gc_row_split",
     "taps_np",
+    "PRECISIONS",
+    "precision_bytes",
+    "storage_dtype",
+    "round_storage",
 ]
+
+PRECISIONS = ("fp32", "bf16")
+_STORAGE = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _check_precision(precision: str) -> str:
+    """``precision`` if it is ``"fp32"`` or ``"bf16"``, else ``ValueError``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
+    return precision
+
+
+def storage_dtype(precision: str) -> torch.dtype:
+    """The dtype frames, the carry and the stored grid planes are held in:
+    ``torch.float32`` for ``"fp32"``, ``torch.bfloat16`` for ``"bf16"``."""
+    return _STORAGE[_check_precision(precision)]
+
+
+def precision_bytes(precision: str) -> int:
+    """Storage element size in bytes for a precision name (JAX
+    ``repro/plan.py::precision_bytes``)."""
+    return storage_dtype(precision).itemsize
+
+
+def round_storage(t: torch.Tensor, precision: str) -> torch.Tensor:
+    """``t`` (float32) rounded to the storage type and back to float32: to
+    nearest even for bf16 (what the kernels' ``__float2bfloat16_rn`` does),
+    ``t`` itself for fp32."""
+    if _check_precision(precision) == "fp32":
+        return t
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def taps_np(cfg: BGConfig) -> np.ndarray:

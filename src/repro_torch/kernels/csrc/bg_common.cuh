@@ -17,11 +17,66 @@
 // GF applies the x taps, then z, then y, each (t0*lo + t1*mid) + t2*hi with
 // every product and sum rounded on its own (no FMA contraction) and zeros
 // outside the grid: the reference order, and the plain version's rounding.
+//
+// Storage type. The fused kernels hold frames, the carry and the grid they
+// store in T, float (fp32) or __nv_bfloat16 (bf16), and compute in fp32
+// either way: ld/ldg upcast, st and round_to round to nearest even
+// (__float2bfloat16_rn, what torch's .to(torch.bfloat16) does). For float
+// every one of them is the identity, so a float instantiation compiles the
+// fp32 kernel's instructions. The rounding points of the bf16 form are in
+// the module docstring of kernels/bg_fused.py.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace bg {
+
+template <class T>
+constexpr bool kIsFloat = std::is_same_v<T, float>;
+
+// a T value as fp32 (shared or global memory)
+template <class T>
+__device__ __forceinline__ float ld(const T* p) {
+  if constexpr (kIsFloat<T>) {
+    return *p;
+  } else {
+    return __bfloat162float(*p);
+  }
+}
+
+// the same through the read-only cache (global memory)
+template <class T>
+__device__ __forceinline__ float ldg(const T* p) {
+  if constexpr (kIsFloat<T>) {
+    return __ldg(p);
+  } else {
+    return __bfloat162float(
+        __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+}
+
+// v stored as T, rounded to nearest even
+template <class T>
+__device__ __forceinline__ void st(T* p, float v) {
+  if constexpr (kIsFloat<T>) {
+    *p = v;
+  } else {
+    *p = __float2bfloat16_rn(v);
+  }
+}
+
+// v rounded to T and back: the value a T store would keep
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (kIsFloat<T>) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+}
 
 __device__ __forceinline__ int gc_bin(float px, float inv_rs) {
   return static_cast<int>(floorf(__fadd_rn(__fmul_rn(px, inv_rs), 0.5f)));
@@ -56,11 +111,14 @@ __device__ __forceinline__ float tap3(float lo, float mid, float hi, float t0,
   return __fadd_rn(__fadd_rn(__fmul_rn(t0, lo), __fmul_rn(t1, mid)), __fmul_rn(t2, hi));
 }
 
-// x taps over the three raw planes of one channel at flat (z, y) index idx
+// x taps over the three raw planes of one channel at flat (z, y) index idx,
+// each raw value rounded to the storage type T first (a raw plane is
+// summed in fp32 and stored as T once complete)
+template <class T = float>
 __device__ __forceinline__ float xmix(const float* rm, const float* rc,
                                       const float* rp, int idx, float t0,
                                       float t1, float t2) {
-  return tap3(rm[idx], rc[idx], rp[idx], t0, t1, t2);
+  return tap3(round_to<T>(rm[idx]), round_to<T>(rc[idx]), round_to<T>(rp[idx]), t0, t1, t2);
 }
 
 // z, then y taps at (z, y) over x-mixed values xm(z', y'), zeros outside
@@ -100,11 +158,19 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
   return __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, t)), __fmul_rn(b, t));
 }
 
+// TI's z lerp: a w0 + b w1 with the weights w0 = 1-t and w1 = t each
+// rounded to the storage type T, as the TPU kernel stores its z weights;
+// for float it is lerp(a, b, t), the same operations
+template <class T>
+__device__ __forceinline__ float zlerp(float a, float b, float t) {
+  return __fadd_rn(__fmul_rn(a, round_to<T>(__fsub_rn(1.f, t))), __fmul_rn(b, round_to<T>(t)));
+}
+
 // TI of one pixel of intensity px from its y-lerped corners: pair(z) is
 // (plane 0, plane 1) at bin z, each lerp(corner at column cell y0, corner
 // at y1, wy) of normalized plane p (0: the stripe's floor plane, 1: the
-// next). Then x, then z.
-template <class Pair>
+// next). Then x, then z (bg::zlerp, its weights rounded to T).
+template <class T = float, class Pair>
 __device__ __forceinline__ float ti_pixel_pairs(const Pair& pair, float px, float inv_rs, int gz,
                                                 float wx) {
   const float fz = __fmul_rn(px, inv_rs);
@@ -122,15 +188,15 @@ __device__ __forceinline__ float ti_pixel_pairs(const Pair& pair, float px, floa
       q[d] = lerp(v.x, v.y, wx);
     }
   }
-  return lerp(q[0], q[1], zf);
+  return zlerp<T>(q[0], q[1], zf);
 }
 
 // The same from ylerp(p, z), the value of plane p at bin z
-template <class YLerp>
+template <class T = float, class YLerp>
 __device__ __forceinline__ float ti_pixel_y(const YLerp& ylerp, float px, float inv_rs,
                                             int gz, float wx) {
-  return ti_pixel_pairs([&](int z) { return make_float2(ylerp(0, z), ylerp(1, z)); }, px,
-                        inv_rs, gz, wx);
+  return ti_pixel_pairs<T>([&](int z) { return make_float2(ylerp(0, z), ylerp(1, z)); }, px,
+                           inv_rs, gz, wx);
 }
 
 // y lerp of the corners read through planes(p, z, y)

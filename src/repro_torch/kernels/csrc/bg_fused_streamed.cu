@@ -6,11 +6,13 @@
 // (pallas_call at bg_fused.py:620): the image stays in HBM and the kernel
 // copies stripe s+1 into VMEM while stripe s computes; the validity mask is
 // made from counters. Its contract is the TPU kernel's: bit for bit the
-// output of the fused kernel (B1).
+// output of the fused kernel (B1), in both storage types (fp32 and bf16,
+// the template parameter T, with B1's rounding points; bg_common.cuh).
 //
 // What bounds it on this card: HBM bytes, as for B1. A frame is read once
 // and written once, 8 B per pixel: 16.6 MB for a 1080x1920 frame, 4.95 us at
-// 3.35 TB/s; about 10^2 FLOP per pixel, far below the fp32 rate.
+// 3.35 TB/s; about 10^2 FLOP per pixel, far below the fp32 rate. bf16
+// storage halves the bytes (2.48 us).
 // What the design does about it: the grid never touches HBM, and each pixel
 // of the block's window is copied from HBM once (cp.async, in flight while
 // the block bins the rows before it) and stays in shared memory until TI
@@ -34,7 +36,10 @@
 // unaligned head and tail, so any width and any frame offset work). A ring
 // row holds the window's columns as they lie in HBM; its stride is w mod 4
 // and the ring's rows a multiple of 4, so every row's columns sit at the
-// same offset in it. TI of stripe k reads its rows when raw plane k+2 is
+// same offset in it. In bf16 a copy moves whole 4-byte words, 8 or 2
+// pixels, with w mod 8, rows a multiple of 8: a row whose first or last
+// pixel is the odd half of a word copies the word, and its other half
+// lands in the row's padding, where nothing reads it. TI of stripe k reads its rows when raw plane k+2 is
 // complete, with the first chunk of plane k+3 in flight, so the ring holds
 // 2r + split + chunk rows, rounded up to a multiple of 4.
 //
@@ -86,9 +91,10 @@ struct MixedTile {
   }
 };
 
+template <class T>
 struct Args {
-  const float* img;
-  float* out;
+  const T* img;
+  T* out;
   const float* yf;
   const float* xf;
   int h, w, r, gy, gz, split;
@@ -98,26 +104,30 @@ struct Args {
 };
 
 // grid: (bands, tiles, frames). Shared memory, with NR = tile + 3 raw cells,
-// NN = tile + 1 normalized cells, RR = ring_rows (a multiple of 4), RW =
-// the ring's row stride (NR*r + 3 floats to a multiple of 4, plus w mod 4)
-// and CB = ceil(r/4) | 1:
+// NN = tile + 1 normalized cells, RR = ring_rows (a multiple of E, the T
+// elements of 16 bytes: 4 fp32, 8 bf16), RW = the ring's row stride in T
+// (fp32: NR*r + 3 to a multiple of 4, plus w mod 4; bf16: NR*r + 8 to a
+// multiple of 8, plus w mod 8) and CB = ceil(r/4) | 1:
 //   raw   [4][2][gz][NR]        count, sum of raw plane p in slot p & 3
 //   norm  [2][gz][NN]           normalized plane q in slot q & 1
 //   table [gz][kThreads][2]     each TI thread's y-lerped corners, both
 //                               planes of a bin together
 //   xmix  [2][gz][NR]           a plane's x-mixed values, for GF
 //   xf    [r]                   TI's x lerp fractions
-//   ring  [RR][RW]              from the next 16-byte boundary: the window's
+//   ring  [RR][RW] of T         from the next 16-byte boundary: the window's
 //                               rows, row i in slot (i - row0) mod RR
 //   bins  [chunk][NR][4 CB]     z bin bytes of the chunk's pixels
-template <int kZ>
-__global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args a) {
+template <int kZ, class T>
+__global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int kE = 16 / sizeof(T);   // elements of a 16-byte copy
+  constexpr int kW = 4 / sizeof(T);    // elements of a 4-byte word
   const int r = a.r, gz = a.gz, gy = a.gy, w = a.w, h = a.h;
   const int NR = a.tile + 3;
   const int NN = a.tile + 1;
   const int RR = a.ring_rows;
-  const int RW = ((NR * r + 6) & ~3) + (w & 3);
+  const int RW =
+      bg::kIsFloat<T> ? ((NR * r + 6) & ~3) + (w & 3) : ((NR * r + 15) & ~7) + (w & 7);
   const int CB = ((r + 3) >> 2) | 1;
   const int plane = 2 * gz * NR;  // one raw plane, both channels
   float* raw = smem;
@@ -125,7 +135,8 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
   float* table = norm + 2 * gz * NN;
   float* xmix = table + 2 * gz * kThreads;
   float* xfs = xmix + plane;
-  float* ring = smem + ((5 * plane + 2 * gz * NN + 2 * gz * kThreads + r + 3) & ~3);
+  T* ring =
+      reinterpret_cast<T*>(smem + ((5 * plane + 2 * gz * NN + 2 * gz * kThreads + r + 3) & ~3));
   unsigned* zwords = reinterpret_cast<unsigned*>(ring + RR * RW);
   float2* tab = reinterpret_cast<float2*>(table) + threadIdx.x;
 
@@ -136,15 +147,15 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
   const int nn_y = c1 - c0 + 1;
   const int nr_y = nn_y + 2;
   const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
-  const float* im = a.img + frame;
-  float* o = a.out + frame;
+  const T* im = a.img + frame;
+  T* o = a.out + frame;
 
   // The window: column jw + q is column q % r of window cell q / r (raw
   // cell c0-1 + q / r), q in [0, nr_y * r); the frame holds columns
   // [ja, jb) of it. Its rows start at row0, the first row of raw plane
   // k0-1, uncut. Row i lies in ring slot (i - row0) mod RR with column ja
-  // at offset off0, the float address mod 4 of column ja of row0 (the
-  // same for every row, as RW = w and RR = 0 mod 4), so column jw + q of
+  // at offset off0, the element address mod E of column ja of row0 (the
+  // same for every row, as RW = w and RR = 0 mod E), so column jw + q of
   // the row in slot s is at ring[s * RW + q + lead].
   const int jw = (c0 - 2) * r + a.split;
   const int ja = max(jw, 0);
@@ -152,7 +163,8 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
   const int nw = jb - ja;
   const int row0 = (k0 - 2) * r + a.split;
   const int off0 = static_cast<int>(
-      ((reinterpret_cast<uintptr_t>(im) >> 2) + static_cast<long long>(row0) * w + ja) & 3);
+      ((reinterpret_cast<uintptr_t>(im) / sizeof(T)) + static_cast<long long>(row0) * w + ja) &
+      (kE - 1));
   const int lead = off0 - (ja - jw);
 
   for (int t = threadIdx.x; t < 4 * plane; t += kThreads) raw[t] = 0.f;
@@ -175,28 +187,32 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
     }
     return false;
   };
-  // A row is `items` copies: its 16-byte body, then up to three 4-byte
-  // copies before it and three after it; thread t takes item t of the
-  // chunk's rows laid end to end, `items` apart.
-  const int items = (nw >> 2) + 6;
+  // A row is `items` copies of the 4-byte words that hold its pixels: its
+  // 16-byte body, then up to three words before it and three after it;
+  // thread t takes item t of the chunk's rows laid end to end, `items`
+  // apart. In bf16 a row starts at the word of its first pixel, `lag` = 0
+  // or 1 pixels before it.
+  const int items = ((nw + 2 * (kW - 1)) / kW >> 2) + 6;
   const int item_m = threadIdx.x / items, item_q = threadIdx.x - item_m * items;
   const auto issue = [&](int lo, int n) {
     const int s_lo = (lo - row0) % RR;
     for (int m = item_m, q = item_q; m < n;) {
       int slot = s_lo + m;
       if (slot >= RR) slot -= RR;
-      const float* src = im + static_cast<size_t>(lo + m) * w + ja;
-      float* dst = ring + slot * RW + off0;
-      const int head = min(nw, (4 - ((slot * RW + off0) & 3)) & 3);
-      const int quads = (nw - head) >> 2;
+      const int lag = (slot * RW + off0) % kW;
+      const T* src = im + static_cast<size_t>(lo + m) * w + ja - lag;
+      T* dst = ring + slot * RW + off0 - lag;
+      const int words = (nw + lag + kW - 1) / kW;
+      const int head = min(words, (4 - (((slot * RW + off0 - lag) / kW) & 3)) & 3);
+      const int quads = (words - head) >> 2;
       if (q < quads) {
-        bg::cp_async16(dst + head + 4 * q, src + head + 4 * q);
+        bg::cp_async16(dst + kW * (head + 4 * q), src + kW * (head + 4 * q));
       } else if (q < quads + head) {
         const int e = q - quads;
-        bg::cp_async4(dst + e, src + e);
+        bg::cp_async4(dst + kW * e, src + kW * e);
       } else {
         const int e = head + 4 * quads + q - quads - head;
-        if (e < nw) bg::cp_async4(dst + e, src + e);
+        if (e < words) bg::cp_async4(dst + kW * e, src + kW * e);
       }
       for (q += kThreads; q >= items; q -= items) ++m;
     }
@@ -237,12 +253,13 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
         for (int m = 0; m < cur_n; ++m) {
           int slot = s_lo + m;
           if (slot >= RR) slot -= RR;
-          const float* px = ring + slot * RW + lead + yl * r + jj0;
+          const T* px = ring + slot * RW + lead + yl * r + jj0;
           unsigned word = 0;
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int col = col0 + u;
-            const int z = jj0 + u < r && col >= ja && col < jb ? bg::gc_bin(px[u], a.inv_rs) : -1;
+            const int z =
+                jj0 + u < r && col >= ja && col < jb ? bg::gc_bin(bg::ld(px + u), a.inv_rs) : -1;
             word |= static_cast<unsigned>(z >= 0 && z < gz ? z : 255) << (8 * u);
           }
           zwords[(m * NR + yl) * CB + t - yl * CB] = word;
@@ -262,14 +279,14 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
         for (int m = 0; m < cur_n; ++m) {
           int slot = s_lo + m;
           if (slot >= RR) slot -= RR;
-          const float* row = ring + slot * RW + lead + yl * r;
+          const T* row = ring + slot * RW + lead + yl * r;
           const unsigned* zw = zwords + (m * NR + yl) * CB;
           for (int jj = 0; jj < r; jj += 4) {
             const unsigned word = zw[jj >> 2];
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
               const int d = static_cast<int>((word >> (8 * u)) & 255u) - z0;
-              const float px = row[jj + u];  // past the cell's r columns: no bin
+              const float px = bg::ld(row + jj + u);  // past the cell's r columns: no bin
 #pragma unroll
               for (int k = 0; k < kZ; ++k) {
                 if (d == k) {
@@ -297,14 +314,14 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
 
     // ---- GF + normalize of plane q = p-1, cells c0 .. c1, from raw planes
     // q-1 .. q+1 and raw cells c0-1 .. c1+1: the x taps once per value
-    // (bg::xmix, the bits of B1's), then the z and y taps
+    // (bg::xmix<T>, the bits of B1's), then the z and y taps
     const int q = p - 1;
     if (q >= k0 && q <= k1) {
       const float* rm = raw + ((q - 1) & 3) * plane;
       const float* rc = raw + (q & 3) * plane;
       const float* rp = raw + ((q + 1) & 3) * plane;
       for (int t = threadIdx.x; t < plane; t += kThreads)
-        xmix[t] = bg::xmix(rm, rc, rp, t, a.t0, a.t1, a.t2);
+        xmix[t] = bg::xmix<T>(rm, rc, rp, t, a.t0, a.t1, a.t2);
       __syncthreads();
       float* nq = norm + (q & 1) * gz * NN;
       for (int t = threadIdx.x; t < gz * nn_y; t += kThreads) {
@@ -314,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
         const float c = bg::blur_zy(MixedTile{xmix, NR, c0 - 1}, z, y, gz, gy, a.t0, a.t1, a.t2);
         const float s = bg::blur_zy(MixedTile{xmix + gz * NR, NR, c0 - 1}, z, y, gz, gy, a.t0,
                                     a.t1, a.t2);
-        nq[z * NN + yl] = bg::normalize(c, s);
+        nq[z * NN + yl] = bg::round_to<T>(bg::normalize(c, s));
       }
       __syncthreads();
     }
@@ -327,8 +344,8 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
       const bg::SmemPlanes planes{n0, norm + ((k + 1) & 1) * gz * NN, NN};
       const int m_hi = min(r, h - k * r);
       const int s0 = (k * r - row0) % RR;
-      float* dst = o + static_cast<size_t>(k) * r * w;
-      const float* col0 = ring + lead - jw;  // column j of the row in slot s: col0[s * RW + j]
+      T* dst = o + static_cast<size_t>(k) * r * w;
+      const T* col0 = ring + lead - jw;  // column j of the row in slot s: col0[s * RW + j]
       for (int j = col_lo + threadIdx.x; j < col_hi; j += kThreads) {
         const int y0 = r > 1 ? static_cast<int>(__umulhi(j, a.r_magic)) : j;
         const bg::YLerp<bg::SmemPlanes> yl{planes, y0 - c0, min(y0 + 1, gy - 1) - c0,
@@ -341,13 +358,16 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
           for (int u = 0; u < kRows; ++u) {
             int slot = s0 + m0 + u;
             if (slot >= RR) slot -= RR;
-            px[u] = m0 + u < m_hi ? col0[slot * RW + j] : 0.f;
+            px[u] = m0 + u < m_hi ? bg::ld(col0 + slot * RW + j) : 0.f;
           }
 #pragma unroll
           for (int u = 0; u < kRows; ++u) {
-            if (m0 + u < m_hi)
-              dst[static_cast<size_t>(m0 + u) * w + j] =
-                  bg::ti_pixel_pairs(pair, px[u], a.inv_rs, gz, xfs[m0 + u]);
+            if (m0 + u < m_hi) {
+              // the value first, then its address (as `dst[i] = value`
+              // sequences them): fewer registers live across TI
+              const float v = bg::ti_pixel_pairs<T>(pair, px[u], a.inv_rs, gz, xfs[m0 + u]);
+              bg::st(dst + static_cast<size_t>(m0 + u) * w + j, v);
+            }
           }
         }
       }
@@ -360,27 +380,27 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args 
   }
 }
 
-// Opts kernel<kZ> in to `bytes` of dynamic shared memory on `device` once
-// per size (the largest so far), not at every launch.
-template <int kZ>
+// Opts kernel<kZ, T> in to `bytes` of dynamic shared memory on `device`
+// once per size (the largest so far), not at every launch.
+template <int kZ, class T>
 cudaError_t opt_in(int device, int bytes) {
   static std::atomic<int> granted[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (bytes <= granted[device].load()) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      bg_fused_streamed_kernel<kZ>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      bg_fused_streamed_kernel<kZ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) granted[device].store(bytes);
   return e;
 }
 
-template <int kZ>
-int launch(const Args& a, int b, int smem_bytes, int device, void* stream) {
+template <int kZ, class T>
+int launch(const Args<T>& a, int b, int smem_bytes, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = opt_in<kZ>(device, smem_bytes);
+  e = opt_in<kZ, T>(device, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.n_stripes + a.band - 1) / a.band, (a.n_cells + a.tile - 1) / a.tile, b);
-  bg_fused_streamed_kernel<kZ>
+  bg_fused_streamed_kernel<kZ, T>
       <<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -395,6 +415,26 @@ struct StreamShape {
   int smem_bytes, device;
 };
 
+template <class T>
+static int launch_shape(const T* img, T* out, const float* yf, const float* xf,
+                        const StreamShape* s, void* stream) {
+  const int r = s->r;
+  const Args<T> a{img, out, yf, xf, s->h, s->w, r, s->gy, s->gz, s->split, s->band, s->tile,
+                  s->chunk, s->ring_rows, (s->h + r - 1) / r, (s->w + r - 1) / r,
+                  r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s->inv_rs,
+                  s->t0, s->t1, s->t2};
+  switch (s->zgroup) {
+    case 1:
+      return launch<1>(a, s->b, s->smem_bytes, s->device, stream);
+    case 2:
+      return launch<2>(a, s->b, s->smem_bytes, s->device, stream);
+    case 4:
+      return launch<4>(a, s->b, s->smem_bytes, s->device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" {
 
 const char* bg_fused_streamed_error_string(int code) {
@@ -407,21 +447,14 @@ const char* bg_fused_streamed_error_string(int code) {
 // cudaGetLastError() after the launch (0 on success); never synchronizes.
 int bg_fused_streamed_launch(const float* img, float* out, const float* yf, const float* xf,
                              const StreamShape* s, void* stream) {
-  const int r = s->r;
-  const Args a{img, out, yf, xf, s->h, s->w, r, s->gy, s->gz, s->split, s->band, s->tile,
-               s->chunk, s->ring_rows, (s->h + r - 1) / r, (s->w + r - 1) / r,
-               r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s->inv_rs,
-               s->t0, s->t1, s->t2};
-  switch (s->zgroup) {
-    case 1:
-      return launch<1>(a, s->b, s->smem_bytes, s->device, stream);
-    case 2:
-      return launch<2>(a, s->b, s->smem_bytes, s->device, stream);
-    case 4:
-      return launch<4>(a, s->b, s->smem_bytes, s->device, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_shape<float>(img, out, yf, xf, s, stream);
+}
+
+// The same for bf16 frames in and out (ring_rows a multiple of 8, the
+// shape's smem_bytes for a bf16 ring); yf and xf stay fp32.
+int bg_fused_streamed_bf16_launch(const __nv_bfloat16* img, __nv_bfloat16* out, const float* yf,
+                                  const float* xf, const StreamShape* s, void* stream) {
+  return launch_shape<__nv_bfloat16>(img, out, yf, xf, s, stream);
 }
 
 }  // extern "C"

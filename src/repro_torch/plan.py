@@ -25,10 +25,16 @@ alpha=)`` and returns ``(out, new_carry)``; the video packer derives the
 temporal and per-frame variants of one base plan per pack
 (:meth:`BGPlan.as_temporal`).
 
-The JAX package's ``"streaming"`` route, ``precision="bf16"`` and mesh
-sharding are valid plans there and raise ``NotImplementedError`` here until
-they are ported. A plan the JAX package
-rejects is rejected here with the same ``ValueError``.
+``precision="bf16"`` is the bf16 storage form of the JAX package's
+``"reference"``, ``"fused"`` and ``"fused_streamed"`` routes, per frame and
+temporal (``"staged"`` has none there either): the kernel routes cast the
+frames to bf16 on the plan's device, run the bf16 entry points of B1, B2 and
+B3 (the contract is in ``kernels/bg_fused.py``), upcast the output to
+float32 before quantizing and keep the carry in bf16; the reference routes
+round the frames (and store the temporal carry) in bf16 and compute in
+fp32. The JAX package's ``"streaming"`` route and mesh sharding are valid
+plans there and raise ``NotImplementedError`` here until they are ported. A
+plan the JAX package rejects is rejected here with the same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
 raises when there is none; ``device="cpu"`` runs the plain versions.
@@ -48,15 +54,15 @@ from repro_torch.core.bilateral_grid import (
     bilateral_grid_filter,
     quantize_intensity,
 )
+from repro_torch.kernels.common import PRECISIONS, precision_bytes, round_storage, storage_dtype
 
-__all__ = ["BGPlan", "BACKENDS", "PRECISIONS", "PORTED_BACKENDS"]
+__all__ = ["BGPlan", "BACKENDS", "PRECISIONS", "PORTED_BACKENDS", "precision_bytes"]
 
 # the JAX package's names, so its plans validate here the same way
 BACKENDS = ("reference", "streaming", "staged", "fused", "fused_streamed")
 _KERNEL_BACKENDS = ("staged", "fused", "fused_streamed")
 _FUSED_BACKENDS = ("fused", "fused_streamed")
 _TEMPORAL_BACKENDS = ("reference", "fused")
-PRECISIONS = ("fp32", "bf16")
 _BF16_BACKENDS = ("reference", "fused", "fused_streamed")
 PORTED_BACKENDS = ("reference", "fused", "fused_streamed", "staged")
 
@@ -76,7 +82,10 @@ class BGPlan:
                        per pass of the plain version on the CPU. Results do
                        not depend on it. Normalized to ``None`` elsewhere.
       quantize_output: apply the paper's output rounding at the exit.
-      precision:       storage dtype; only ``"fp32"`` is ported.
+      precision:       storage dtype, ``"fp32"`` or ``"bf16"`` (the bf16
+                       storage / fp32 accumulate form of ``"reference"``,
+                       ``"fused"`` and ``"fused_streamed"``; module
+                       docstring).
       device:          where the plan runs; ``None`` resolves to the CUDA
                        card (raising if there is none), ``"cpu"`` runs the
                        plain versions.
@@ -137,22 +146,21 @@ class BGPlan:
         # valid in the JAX package, not ported yet
         if self.backend not in PORTED_BACKENDS:
             raise NotImplementedError(f"backend {self.backend!r} is not yet ported")
-        if self.precision != "fp32":
-            raise NotImplementedError(
-                f"precision={self.precision!r} is not yet ported"
-            )
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ------------------------------------------------------------ utilities
     @property
     def storage_dtype(self) -> torch.dtype:
-        """The dtype frames, scratch and the temporal carry are held in
-        (fp32: bf16 storage is not ported yet)."""
-        return torch.float32
+        """The dtype frames, scratch and the temporal carry are held in:
+        ``torch.float32``, or ``torch.bfloat16`` for ``precision="bf16"``."""
+        return storage_dtype(self.precision)
 
     @property
     def np_storage_dtype(self) -> np.dtype:
-        """Numpy view of :attr:`storage_dtype` (the snapshot side)."""
+        """The numpy dtype of the snapshot side: float32 for both
+        precisions. numpy has no bfloat16, so a bf16 carry leaves the card
+        as float32 values that hold its bf16 values exactly
+        (``MultiStreamPacker.export_carries``)."""
         return np.dtype(np.float32)
 
     def tile_for(self, n_frames: int) -> int:
@@ -235,18 +243,21 @@ class BGPlan:
         """Denoise a (h, w) frame, a (b, h, w) batch or a (b, h, w, c) color
         batch (channels are folded into the batch: each gets its own grid).
         Frames (numpy or tensor) are moved to the plan's device as float32;
-        the result stays there.
+        the result stays there, float32.
 
         A temporal plan takes (h, w) or (n, h, w) frames with ``carry`` (the
-        ``(n, gx, gy, gz, 2)`` carries) and ``alpha`` and returns ``(out,
-        new_carry)``. A host alpha (scalar, list or numpy) is broadcast to
+        ``(n, gx, gy, gz, 2)`` carries, moved to the device in the storage
+        type, as the JAX package's ``carry.astype(sdt)``) and ``alpha`` and
+        returns ``(out, new_carry)``, the carry in the storage type. A host alpha (scalar, list or numpy) is broadcast to
         ``(n,)`` and range-checked here, once; a tensor alpha is trusted, as
         checking a device tensor would wait for the card."""
         frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         if self.temporal:
             if carry is None or alpha is None:
                 raise ValueError("temporal plan dispatch needs both carry= and alpha=")
-            carry = torch.as_tensor(carry, dtype=torch.float32, device=self.device)
+            if not isinstance(carry, torch.Tensor):
+                carry = torch.as_tensor(np.asarray(carry, np.float32))
+            carry = carry.to(device=self.device, dtype=self.storage_dtype)
             squeeze = frames.dim() == 2
             if squeeze:
                 frames, carry = frames[None], carry[None]
@@ -292,24 +303,31 @@ def _variant(plan: BGPlan, field: str, value) -> BGPlan:
 
 @functools.lru_cache(maxsize=256)
 def _plan_executable(plan: BGPlan):
-    """ONE callable per plan: the compute route plus output quantization."""
+    """ONE callable per plan: the compute route plus output quantization.
+    Under ``precision="fp32"`` every storage cast below is the identity."""
     cfg = plan.cfg
     quant = plan.quantize_output
+    prec = plan.precision
+    sdt = plan.storage_dtype
 
     def _maybe_quantize(out):
+        out = out.to(torch.float32)  # the kernels' bf16 output, upcast
         return quantize_intensity(out, cfg) if quant else out
 
     if plan.temporal and plan.backend == "reference":
-        # the staged oracle: the grid is visible between GF and TI
+        # the staged oracle: the grid is visible between GF and TI; under
+        # bf16 it rounds the frames, blends in fp32 and stores the carry in
+        # bf16 (the JAX package's route)
         from repro_torch.core.bilateral_grid import grid_normalize, grid_slice
         from repro_torch.video.temporal import blurred_grid_batch
 
         def fn(frames, carry, alpha):
+            frames = round_storage(frames, prec)
             a = alpha.reshape(-1, 1, 1, 1, 1)
-            new_carry = (1.0 - a) * blurred_grid_batch(frames, cfg) + a * carry
+            new_carry = (1.0 - a) * blurred_grid_batch(frames, cfg) + a * carry.to(torch.float32)
             grid_f = grid_normalize(new_carry)
             out = torch.stack([grid_slice(g, f, cfg) for g, f in zip(grid_f, frames)])
-            return _maybe_quantize(out), new_carry
+            return _maybe_quantize(out), new_carry.to(sdt)
 
         return fn
 
@@ -318,7 +336,8 @@ def _plan_executable(plan: BGPlan):
 
         def fn(frames, carry, alpha):
             out, new_carry = bg_fused(
-                frames, cfg, batch_tile=plan.batch_tile, carry=carry, alpha=alpha
+                frames.to(sdt), cfg, batch_tile=plan.batch_tile, carry=carry, alpha=alpha,
+                precision=prec,
             )
             return _maybe_quantize(out), new_carry
 
@@ -330,6 +349,7 @@ def _plan_executable(plan: BGPlan):
             return bilateral_grid_filter(im, cfg, quantize_output=quant)
 
         def fn(frames):
+            frames = round_storage(frames, prec)  # the frames the kernel would hold
             if frames.dim() == 3:
                 return torch.stack([single(f) for f in frames])
             return single(frames)
@@ -350,7 +370,8 @@ def _plan_executable(plan: BGPlan):
 
     def fn(frames):
         return _maybe_quantize(
-            bg_fused(frames, cfg, batch_tile=plan.batch_tile, stream_input=stream_input)
+            bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, stream_input=stream_input,
+                     precision=prec)
         )
 
     return fn

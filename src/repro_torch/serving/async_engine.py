@@ -192,7 +192,9 @@ class AsyncFrameEngine:
     Pass ``packer=`` (video mode: the packer's plan dispatches), ``plan=``
     (a :class:`repro_torch.plan.BGPlan` that quantizes its output), or
     ``cfg=`` and optionally ``device=`` for the fused plan
-    (``stream_input=True``: the ``"fused_streamed"`` plan).
+    (``stream_input=True``: the ``"fused_streamed"`` plan). A bf16 plan or
+    a packer on one serves like any other: the pinned staging stays float32,
+    as the frames arrive, and the plan casts to bf16 on the card.
     """
 
     def __init__(

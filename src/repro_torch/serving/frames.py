@@ -36,7 +36,9 @@ class FrameDenoiseEngine:
     or ``cfg=`` and optionally ``device=`` to build the ``"fused"`` plan
     (``stream_input=True``: the ``"fused_streamed"`` plan, as the JAX
     engine builds it). ``max_batch`` must be >= 1 (0 or negative is
-    rejected, not clamped); it caps frames per dispatch.
+    rejected, not clamped); it caps frames per dispatch. A bf16 plan
+    (``precision="bf16"``) serves like any other: frames go to the card as
+    float32 and the plan casts them to bf16 there.
     """
 
     def __init__(

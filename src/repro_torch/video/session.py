@@ -7,7 +7,8 @@ stream" into one dispatch: frames stack on a leading stream axis, the
 per-stream blurred-grid carries stack into one ``(n, gx, gy, gz, 2)``
 tensor, and a per-stream alpha vector lets warm streams (``a_s``), cold
 streams and first-frame streams (forced ``a = 0``) share it. Row i of the
-stacked carry is read and written only by stream i.
+stacked carry is read and written only by stream i. Carries live on the
+plan's device in its storage type (``torch.bfloat16`` for a bf16 plan).
 
 Every pack is one dispatch: on the card, one launch of the temporal kernel
 B2, or of the per-frame kernel B1 when no stream in the pack is warm (no
@@ -126,12 +127,19 @@ class MultiStreamPacker:
         """Snapshot every warm stream's temporal state as host data:
         ``{sid: (carry ndarray, alpha, frames_seen)}``, numpy copies in the
         JAX package's layout, so a snapshot moves between the packages.
-        Cold streams are omitted."""
+        Cold streams are omitted.
+
+        The carry arrays are float32 (``plan.np_storage_dtype``) for both
+        precisions: numpy has no bfloat16, so a bf16 carry leaves as the
+        float32 values of its bf16 values, which is lossless, and
+        :meth:`restore_carry` gives back the same bits. Halving the snapshot
+        wire with bf16 bytes, as the JAX package ships them, comes with the
+        fleet layer that moves snapshots between hosts."""
         out: Dict[Hashable, tuple] = {}
         for sid, sess in list(self.sessions.items()):
             if sess.carry is None:
                 continue
-            carry = sess.carry.detach().cpu().numpy().astype(self.plan.np_storage_dtype)
+            carry = sess.carry.detach().to("cpu", torch.float32).numpy().copy()
             out[sid] = (carry, sess.alpha, sess.frames_seen)
         return out
 
@@ -146,7 +154,13 @@ class MultiStreamPacker:
         """Install a snapshotted carry (host data) onto an open stream, all
         or nothing: every check runs before any session field is assigned,
         so a bad snapshot (wrong geometry, non-finite values, unknown
-        stream, bad alpha) leaves the session as it was."""
+        stream, bad alpha) leaves the session as it was.
+
+        Any float array is taken (the JAX package's ml_dtypes bfloat16
+        arrays too, through ``np.asarray(carry, np.float32)``) and rounded
+        to the plan's storage type on install, as the JAX package's
+        ``np.asarray(carry, bf16)`` does; within one precision that is the
+        identity."""
         sess = self.sessions.get(sid)
         if sess is None:
             raise KeyError(f"stream {sid!r} not open")
@@ -160,7 +174,7 @@ class MultiStreamPacker:
         if alpha is not None and not 0.0 <= float(alpha) < 1.0:
             raise ValueError(f"stream {sid!r}: restored alpha must be in [0, 1)")
         # checks complete: commit from here down
-        sess.carry = torch.as_tensor(arr.copy(), device=self.plan.device)
+        sess.carry = torch.as_tensor(arr.copy()).to(self.plan.device, self.plan.storage_dtype)
         if alpha is not None:
             sess.alpha = float(alpha)
         if frames_seen is not None:

@@ -16,7 +16,8 @@ frame's blend is the exact float identity, so its output equals the
 per-frame kernel's bit for bit. A pack with no carry and every alpha 0 goes
 to the per-frame plan and materializes nothing temporal. The
 ``"reference"`` backend is the staged oracle (``blurred_grid_batch`` ->
-blend -> normalize -> slice) that the kernel is held to.
+blend -> normalize -> slice) that the kernel is held to. A bf16 plan keeps
+every carry in ``torch.bfloat16`` (``BGPlan.storage_dtype``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.core.bilateral_grid import (
     gaussian_taps,
     grid_shape,
 )
+from repro_torch.kernels.common import round_storage
 
 __all__ = ["blurred_grid_batch", "carry_shape", "temporal_denoise"]
 
@@ -45,7 +47,7 @@ def carry_shape(h: int, w: int, cfg: BGConfig) -> Tuple[int, int, int, int]:
     return (gx, gy, gz, 2)
 
 
-def blurred_grid_batch(frames: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
+def blurred_grid_batch(frames: torch.Tensor, cfg: BGConfig, precision: str = "fp32") -> torch.Tensor:
     """(n, h, w) frames -> (n, gx, gy, gz, 2) blurred homogeneous grids, on
     the frames' device.
 
@@ -53,8 +55,13 @@ def blurred_grid_batch(frames: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
     EMA is defined over, as one batched scatter and batched convolutions:
     the spatial cell indices and the taps are built once for the batch.
     Equal to stacking ``grid_blur(grid_create(f))`` per frame.
+
+    ``precision="bf16"`` is the staged oracle's precision axis (JAX
+    ``repro/video/temporal.py::blurred_grid_batch``): the frames are rounded
+    to bf16 before binning, the scatter and the blur accumulate in fp32, and
+    the grid is returned as ``torch.bfloat16``. ``"fp32"`` is unchanged.
     """
-    frames = frames.to(torch.float32)
+    frames = round_storage(frames.to(torch.float32), precision)
     n, h, w = frames.shape
     gx, gy, gz = grid_shape(h, w, cfg)
     dev = frames.device
@@ -76,7 +83,7 @@ def blurred_grid_batch(frames: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
     taps = tuple(float(t) for t in gaussian_taps(cfg))
     for axis in (1, 2, 3):  # batched layout (n, gx, gy, gz, 2): x, y, z
         grid = conv3_axis(grid, taps, axis)
-    return grid
+    return grid.to(torch.bfloat16) if precision == "bf16" else grid
 
 
 @functools.lru_cache(maxsize=64)

@@ -37,9 +37,12 @@ print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
 
 
 NEW_IN_SLICE_3 = ["kernels._wrap", "kernels.bg_create", "kernels.bg_blur", "kernels.bg_slice"]
+# the modules the bf16 storage form runs through (the storage helpers, the
+# fused wrapper, the plan, the video carries and the launcher's --precision)
+BF16_PATH = ["kernels.common", "kernels.bg_fused", "plan", "video.session", "launch.serve"]
 
 
-@pytest.mark.parametrize("name", NEW_IN_SLICE_3)
+@pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, nothing of ``repro`` and no compiled kernel (the CPU host has no

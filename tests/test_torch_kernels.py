@@ -587,3 +587,142 @@ def test_build_target_follows_included_headers(monkeypatch, tmp_path):
     nested = _build._target("bg_blur").name
     (csrc / "bg_extra.cuh").write_text("#pragma once\n// changed\n")
     assert _build._target("bg_blur").name not in (nested, edited["bg_blur"])
+
+
+# ------------------------------------------------------------ bf16 storage
+# The geometry rules' fp32 results from before they took the element size,
+# on an H100's limits: (config, frames, temporal or "s" for B3, geometry)
+FP32_GEOMETRIES = [
+    ('paper', 1, False, (1, 90, 40, 4, 4, 72864)),
+    ('paper', 1, True, (1, 90, 40, 4, 4, 74240)),
+    ('paper', 1, 's', (2, 45, 20, 8, 12, 1, 44, 65712)),
+    ('paper', 4, False, (4, 23, 40, 4, 2, 70704)),
+    ('paper', 4, True, (4, 23, 40, 4, 2, 72080)),
+    ('paper', 4, 's', (6, 15, 40, 4, 12, 2, 44, 114672)),
+    ('paper', 8, False, (6, 15, 40, 4, 1, 54128)),
+    ('paper', 8, True, (6, 15, 40, 4, 1, 55504)),
+    ('paper', 8, 's', (12, 8, 40, 4, 12, 2, 44, 114672)),
+    ('serve', 1, False, (2, 90, 80, 4, 2, 57008)),
+    ('serve', 1, True, (2, 90, 80, 4, 2, 59664)),
+    ('serve', 1, 's', (3, 60, 80, 4, 6, 4, 24, 78744)),
+    ('serve', 4, False, (6, 30, 80, 4, 1, 68832)),
+    ('serve', 4, True, (6, 30, 80, 4, 1, 71488)),
+    ('serve', 4, 's', (12, 15, 80, 4, 6, 4, 24, 78744)),
+    ('serve', 8, False, (6, 30, 80, 4, 1, 68832)),
+    ('serve', 8, True, (6, 30, 80, 4, 1, 71488)),
+    ('serve', 8, 's', (23, 8, 80, 4, 6, 4, 24, 78744)),
+    ('r4', 1, False, (3, 90, 120, 4, 1, 94176)),
+    ('r4', 1, True, (3, 90, 120, 4, 1, 103032)),
+    ('r4', 1, 's', (5, 54, 120, 4, 4, 4, 16, 105344)),
+    ('r4', 4, False, (6, 45, 120, 4, 1, 145620)),
+    ('r4', 4, True, (6, 45, 120, 4, 1, 154476)),
+    ('r4', 4, 's', (17, 16, 120, 4, 4, 4, 16, 105344)),
+    ('r4', 8, False, (6, 45, 120, 4, 1, 145620)),
+    ('r4', 8, True, (6, 45, 120, 4, 1, 154476)),
+    ('r4', 8, 's', (34, 8, 120, 4, 4, 4, 16, 105344)),
+    ('r2', 1, False, (3, 180, 240, 4, 1, 210816)),
+    ('r2', 1, True, (2, 270, 240, 4, 1, 199248)),
+    ('r2', 1, 's', (17, 32, 240, 4, 2, 4, 8, 182152)),
+    ('r2', 4, False, (3, 180, 240, 4, 1, 210816)),
+    ('r2', 4, True, (2, 270, 240, 4, 1, 199248)),
+    ('r2', 4, 's', (68, 8, 240, 4, 2, 4, 8, 182152)),
+    ('r2', 8, False, (3, 180, 240, 4, 1, 210816)),
+    ('r2', 8, True, (2, 270, 240, 4, 1, 199248)),
+    ('r2', 8, 's', (135, 4, 240, 4, 2, 4, 8, 182152)),
+]
+GEOMETRY_CFGS = {"paper": PAPER_DEFAULT.bg, "serve": SERVE_CONFIG, "r4": TABLE1_SWEEP[0].bg,
+                 "r2": BGConfig(2, 4.0, 50.0)}
+
+
+def test_fp32_geometry_rules_unchanged_by_the_element_size():
+    """The split rules with the default (fp32) element size return what they
+    did before bf16 was ported, and ``esize=4`` is that default."""
+    for name, b, kind, want in FP32_GEOMETRIES:
+        cfg = GEOMETRY_CFGS[name]
+        if kind == "s":
+            got = stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN)
+            assert got == stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, esize=4)
+        else:
+            got = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, temporal=kind)
+            assert got == launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, temporal=kind, esize=4)
+        assert tuple(got) == want, (name, b, kind)
+
+
+@pytest.mark.parametrize("name,cfg", FULL_HD + [("r2", BGConfig(2, 4.0, 50.0))])
+def test_bf16_geometries_fit_and_take_less_shared_memory(name, cfg):
+    """bf16 slots and rings hold 2-byte pixels: every full-HD launch fits,
+    takes no more shared memory per block than fp32's at the same knobs, and
+    B3's ring rows stay a multiple of 8 (16 bytes of bf16)."""
+    for b in (1, 4, 8):
+        for temporal in (False, True):
+            g16 = launch_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, temporal=temporal, esize=2)
+            assert g16.smem <= H100_SMEM_OPTIN
+            same = smem_bytes(g16.band, g16.tile, g16.rows, cfg.r, K.grid_shape(1080, 1920, cfg)[2], temporal)
+            assert g16.smem <= same
+        s16 = stream_geometry(b, 1080, 1920, cfg, 132, H100_SMEM_OPTIN, esize=2)
+        gz = K.grid_shape(1080, 1920, cfg)[2]
+        assert s16.smem <= H100_SMEM_OPTIN and s16.ring_rows % 8 == 0
+        assert s16.smem == stream_smem_bytes(s16.tile, s16.chunk, cfg.r, gz, esize=2)
+        assert s16.smem <= stream_smem_bytes(s16.tile, s16.chunk, cfg.r, gz) + 4 * s16.ring_rows * 8
+
+
+BF16_CARD = [((37, 53), BGConfig(4, 3.0, 50.0)), ((19, 26), BGConfig(4, 3.0, 50.0)),
+             ((40, 55), SERVE_CONFIG), ((36, 48), SERVE_CONFIG), ((61, 83), BGConfig(7, 4.0, 50.0))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("shape,cfg", BF16_CARD)
+def test_bf16_kernels_bitwise_plain_on_card(cuda, shape, cfg, b):
+    """B1, B2 and B3 in bf16 equal their bf16 plain version bit for bit at
+    small ragged and odd shapes; B3 equals B1; B2 after a cold pack, then at
+    alphas (0, 0.6, 0.8), image and carry, its alpha-0 rows equal to B1's;
+    only the bf16 counters count."""
+    bf = torch.bfloat16
+    x = torch.from_numpy(noisy_np(b, *shape)).to(cuda).to(bf)
+    x2 = torch.from_numpy(noisy_np(b, *shape, seed=9)).to(cuda).to(bf)
+    gx, gy, gz = K.grid_shape(*shape, cfg)
+    before = {c: getattr(bg_fused, c) for c in ("launches", "temporal_launches", "streamed_launches",
+                                              "bf16_launches", "bf16_temporal_launches",
+                                              "bf16_streamed_launches")}
+    k = bg_fused(x, cfg, precision="bf16")
+    s = bg_fused(x, cfg, precision="bf16", stream_input=True)
+    zero = torch.zeros((b, gx, gy, gz, 2), device=cuda, dtype=bf)
+    o0, c0 = bg_fused(x, cfg, carry=zero, alpha=torch.zeros(b, device=cuda), precision="bf16")
+    alpha = torch.tensor([0.0, 0.6, 0.8][:b], device=cuda)
+    o1, c1 = bg_fused(x2, cfg, carry=c0, alpha=alpha, precision="bf16")
+    torch.cuda.synchronize()
+    after = {c: getattr(bg_fused, c) - v for c, v in before.items()}
+    assert after == {"launches": 0, "temporal_launches": 0, "streamed_launches": 0, "bf16_launches": 1,
+                     "bf16_temporal_launches": 2, "bf16_streamed_launches": 1}
+    assert all(t.dtype == bf for t in (k, s, o0, c0, o1, c1))
+    assert torch.equal(k, bg_fused_plain(x, cfg, precision="bf16"))
+    assert torch.equal(s, k) and torch.equal(o0, k)
+    p0, pc0 = bg_fused_plain(x, cfg, carry=zero, alpha=torch.zeros(b, device=cuda), precision="bf16")
+    assert torch.equal(c0, pc0)
+    p1, pc1 = bg_fused_plain(x2, cfg, carry=c0, alpha=alpha, precision="bf16")
+    assert torch.equal(o1, p1) and torch.equal(c1, pc1)
+    assert torch.equal(o1[0], bg_fused(x2, cfg, precision="bf16")[0])
+    # a frame alone equals its row of the batch; unaligned frame starts
+    assert torch.equal(bg_fused(x[b - 1], cfg, precision="bf16"), k[b - 1])
+    assert torch.equal(bg_fused(x[b - 1], cfg, precision="bf16", stream_input=True), k[b - 1])
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_raise_on_the_other_storage_type_on_card(cuda):
+    cfg = BGConfig(4, 3.0, 50.0)
+    x = torch.from_numpy(noisy_np(2, 19, 26)).to(cuda)
+    gx, gy, gz = K.grid_shape(19, 26, cfg)
+    carry = torch.zeros((2, gx, gy, gz, 2), device=cuda)
+    alpha = torch.zeros(2, device=cuda)
+    counts = (bg_fused.launches, bg_fused.bf16_launches, bg_fused.bf16_streamed_launches)
+    for stream_input in (False, True):
+        with pytest.raises(TypeError, match="float32 frames"):
+            bg_fused(x.to(torch.bfloat16), cfg, stream_input=stream_input)
+        with pytest.raises(TypeError, match="bfloat16 frames"):
+            bg_fused(x, cfg, precision="bf16", stream_input=stream_input)
+    with pytest.raises(TypeError, match="bfloat16 carry"):
+        bg_fused(x.to(torch.bfloat16), cfg, carry=carry, alpha=alpha, precision="bf16")
+    with pytest.raises(TypeError, match="float32 carry"):
+        bg_fused(x, cfg, carry=carry.to(torch.bfloat16), alpha=alpha)
+    assert (bg_fused.launches, bg_fused.bf16_launches, bg_fused.bf16_streamed_launches) == counts

@@ -20,7 +20,7 @@ from repro_torch.data.pipeline import denoise_batch
 from repro_torch.kernels import bilateral_grid_filter_pallas
 from repro_torch.plan import BGPlan
 from repro_torch.serving import AsyncFrameEngine, FrameDenoiseEngine, FrameRequest
-from repro_torch.video import MultiStreamPacker
+from repro_torch.video import MultiStreamPacker, carry_shape
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = (6, 4.0, 60.0)
@@ -54,8 +54,11 @@ REJECTED = [
 ]
 NOT_PORTED = [
     dict(backend="streaming"),
-    dict(backend="fused_streamed", precision="bf16"),
     dict(backend="streaming", quantize_output=False),
+]
+# valid JAX plans that were not ported before the bf16 storage form was
+BF16_PLANS = [
+    dict(backend="fused_streamed", precision="bf16"),
     dict(temporal=True, precision="bf16"),
     dict(backend="reference", temporal=True, precision="bf16"),
     dict(precision="bf16"),
@@ -85,6 +88,27 @@ def test_valid_jax_plans_not_yet_ported_raise(kwargs):
     JBGPlan(cfg=JCFG, **kwargs)  # valid there
     with pytest.raises(NotImplementedError, match="not yet ported"):
         BGPlan(cfg=CFG, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", BF16_PLANS)
+def test_bf16_jax_plans_are_ported(kwargs):
+    """Each bf16 plan the JAX package takes builds on the CPU with bf16
+    storage and runs one small pack (a temporal plan a cold one, then a warm
+    one on the bf16 carry it returned)."""
+    jplan = JBGPlan(cfg=JCFG, **kwargs)
+    plan = BGPlan(cfg=CFG, device="cpu", **kwargs)
+    assert plan.storage_dtype == torch.bfloat16 and jplan.precision == plan.precision == "bf16"
+    assert plan.np_storage_dtype == np.float32  # the snapshot side: numpy has no bfloat16
+    frames = frames_np(2)
+    if plan.temporal:
+        carry = torch.zeros((2,) + carry_shape(45, 64, CFG), dtype=torch.bfloat16)
+        out, carry = plan(frames, carry=carry, alpha=0.0)
+        out, carry = plan(frames, carry=carry, alpha=[0.0, 0.6])
+        assert carry.dtype == torch.bfloat16 and carry.shape == (2,) + carry_shape(45, 64, CFG)
+    else:
+        out = plan(frames)
+    assert out.dtype == torch.float32 and out.shape == frames.shape
+    assert bool(torch.isfinite(out).all())
 
 
 def test_plan_normalizes_like_jax():
@@ -132,8 +156,14 @@ def test_from_json_rejects_what_is_not_ported():
         BGPlan.from_json(dict(payload, mesh_size=2), device="cpu")
     with pytest.raises(NotImplementedError, match="streaming"):
         BGPlan.from_json(dict(payload, backend="streaming"), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        BGPlan.from_json(dict(payload, precision="bf16"), device="cpu")
+    # a bf16 payload is ported now: it loads, and goes back as the JAX recipe
+    jbf16 = JBGPlan(cfg=JCFG, backend="fused_streamed", batch_tile=2, precision="bf16")
+    plan = BGPlan.from_json(json.loads(json.dumps(jbf16.to_json())), device="cpu")
+    assert (plan.precision, plan.backend, plan.batch_tile) == ("bf16", "fused_streamed", 2)
+    assert plan.storage_dtype == torch.bfloat16 and "prec=bf16" in plan.describe()
+    assert JBGPlan.from_json(json.loads(json.dumps(plan.to_json()))) == jbf16
+    no_field = {k: v for k, v in payload.items() if k != "precision"}
+    assert BGPlan.from_json(no_field, device="cpu").precision == "fp32"
     with pytest.raises(ValueError, match="version"):
         BGPlan.from_json(dict(payload, version=2), device="cpu")
 

@@ -21,7 +21,7 @@ import torch
 from repro_torch.core import BGConfig, psnr
 from repro_torch.core.bilateral_grid import grid_blur, grid_create, quantize_intensity
 from repro_torch.data import synthetic_video, synthetic_video_np
-from repro_torch.kernels import bg_fused
+from repro_torch.kernels import bg_fused, bg_fused_plain
 from repro_torch.plan import BGPlan
 from repro_torch.video import MultiStreamPacker, blurred_grid_batch, carry_shape, temporal_denoise
 
@@ -457,3 +457,54 @@ def test_restore_carry_is_all_or_nothing():
     sess = packer.sessions["s"]
     assert torch.equal(sess.carry, torch.from_numpy(good)) and sess.alpha == 0.5
     assert sess.frames_seen == 2 and packer.carry_restores == 1
+
+
+# ---------------------------------------------------- bf16 on the card
+@pytest.fixture
+def cuda():
+    """The CUDA device; skips the test on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(36, 48), (33, 47)])
+def test_bf16_packer_on_card(cuda, shape):
+    """A bf16 packer on the card: three packs of three streams (alphas 0,
+    0.4, 0.8) launch only the bf16 temporal entry point (the first on zero
+    carries at alpha 0), keep bf16 carries on the card, give the plain version's frames on the
+    card bit for bit, and round-trip a snapshot bit for bit."""
+    plan = BGPlan(CFG, precision="bf16", device=cuda)
+    packer = MultiStreamPacker(plan=plan)
+    for s, a in (("a", 0.0), ("b", 0.4), ("c", 0.8)):
+        packer.open(s, alpha=a)
+    streams = {s: noisy_stack(4, *shape, seed=5 * i) for i, s in enumerate("abc")}
+    names = ("launches", "temporal_launches", "bf16_launches", "bf16_temporal_launches")
+    before = {c: getattr(bg_fused, c) for c in names}
+    carry = None
+    for step in range(3):
+        frames = {s: streams[s][step] for s in "abc"}
+        out = packer.pack(frames)
+        x = torch.stack([t(frames[s]) for s in "abc"]).to(cuda).to(torch.bfloat16)
+        alpha = torch.tensor([0.0, 0.4 if carry is not None else 0.0, 0.8 if carry is not None else 0.0],
+                             device=cuda)
+        if carry is None:
+            carry = torch.zeros((3,) + carry_shape(*shape, CFG), device=cuda, dtype=torch.bfloat16)
+        p_out, carry = bg_fused_plain(x, CFG, carry=carry, alpha=alpha, precision="bf16")
+        for i, s in enumerate("abc"):
+            assert out[s].device == cuda and out[s].dtype == torch.float32
+            assert torch.equal(out[s], quantize_intensity(p_out[i].float(), CFG))
+    torch.cuda.synchronize()
+    after = {c: getattr(bg_fused, c) - v for c, v in before.items()}
+    assert after == {"launches": 0, "temporal_launches": 0, "bf16_launches": 0, "bf16_temporal_launches": 3}
+    for s, i in (("b", 1), ("c", 2)):
+        assert packer.sessions[s].carry.dtype == torch.bfloat16 and packer.sessions[s].carry.is_cuda
+        assert torch.equal(packer.sessions[s].carry, carry[i])
+    snap = packer.export_carries()
+    fresh = MultiStreamPacker(plan=plan)
+    for s in "abc":
+        fresh.open(s, alpha=packer.sessions[s].alpha)
+    for s, (c, a, seen) in snap.items():
+        fresh.restore_carry(s, c, alpha=a, frames_seen=seen)
+        assert torch.equal(fresh.sessions[s].carry, packer.sessions[s].carry)
