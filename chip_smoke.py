@@ -22,8 +22,8 @@ of B1, B3, B5 and B6 (every variant checked bit for bit against the
 default),
 times the bf16 forms beside fp32 (``bf16_times``), serves full-HD frames
 and video on bf16 plans with only the bf16 entry points counted
-(``bf16_slice``), and serves the paths through the launcher, in fp32 and
-bf16. Prints one JSON object per
+(``bf16_slice``), and serves the fp32 paths through the launcher. Prints
+one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
 power limit, the last ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero. It needs a CUDA card and fails
@@ -466,7 +466,9 @@ def bf16_slice(torch, cfg, smi, dev):
     ``AsyncFrameEngine`` + ``MultiStreamPacker`` on a bf16 plan. The launch
     counters are zeroed before each run and must show only bf16 entry
     points after it; each quantized output is held within TOL_BF16_LSB of
-    the fp32 engine's on the same frames. Returns the phase rows."""
+    the fp32 engine's on the same frames, whose run right after (warmed up
+    alike) gives the fp32 rates beside the bf16 ones. Returns the phase
+    rows."""
     import numpy as np
 
     from repro_torch.core import add_gaussian_noise, synthetic_batch
@@ -496,19 +498,22 @@ def bf16_slice(torch, cfg, smi, dev):
     for backend, counter in (("fused", "bg_fused.bf16_launches"),
                              ("fused_streamed", "bg_fused.bf16_streamed_launches")):
         plan16 = BGPlan(cfg, backend=backend, precision="bf16", device=dev)
+        plan32 = BGPlan(cfg, backend=backend, device=dev)
         serve(plan16)  # warm-up: the shapes' launch structs and first launches
+        serve(plan32)
         zero_counts()
         out16, dispatches, seconds = serve(plan16)
         counts = kernel_counts()
         check_counts(counts, {counter: dispatches}, f"bf16 {backend} slice")
-        out32 = serve(BGPlan(cfg, backend=backend, device=dev))[0]
+        out32, _, seconds32 = serve(plan32)
         exact, lsb = quantized_agreement(out16, out32)
         check(out16.dtype == torch.float32 and bool(torch.isfinite(out16).all()), f"bf16 {backend} output")
         check(lsb <= TOL_BF16_LSB, f"bf16 {backend} slice: {lsb} LSB from the fp32 engine")
         rows[backend] = {"phase": "bf16_slice", "engine": "FrameDenoiseEngine", "backend": backend,
                          "precision": "bf16", "frames": n, "max_batch": mb, "dispatches": dispatches,
                          "seconds": seconds, "frames_per_s": n / seconds, "launches": counts,
-                         "vs_fp32_exact": exact, "vs_fp32_max_diff": lsb, "card": smi}
+                         "fp32_frames_per_s": n / seconds32, "vs_fp32_exact": exact,
+                         "vs_fp32_max_diff": lsb, "card": smi}
         emit(rows[backend])
 
     n_streams, n_frames = 4, 8
@@ -525,7 +530,7 @@ def bf16_slice(torch, cfg, smi, dev):
     check_counts(counts, {"bg_fused.bf16_launches": cold, "bg_fused.bf16_temporal_launches": len(packs) - cold},
                  f"bf16 video slice, {len(packs)} packs, {cold} cold")
     check(st.shed == st.failed == st.carry_resets == 0, f"bf16 video: shed {st.shed} failed {st.failed}")
-    outs32 = run_video(torch, BGPlan(cfg, device=dev), noisy, ALPHAS)[0]
+    outs32, _, _, st32, seconds32 = run_video(torch, BGPlan(cfg, device=dev), noisy, ALPHAS)
     worst_exact, worst_lsb = 1.0, 0.0
     for key, o in outs16.items():
         exact, lsb = quantized_agreement(o, outs32[key])
@@ -537,6 +542,8 @@ def bf16_slice(torch, cfg, smi, dev):
                      "dispatches": st.dispatches, "mean_batch": st.mean_batch, "seconds": seconds,
                      "frames_per_s": n_streams * n_frames / seconds,
                      "latency_ms_p50": st.latency_ms_p50, "latency_ms_p99": st.latency_ms_p99,
+                     "fp32_frames_per_s": n_streams * n_frames / seconds32,
+                     "fp32_latency_ms_p50": st32.latency_ms_p50, "fp32_latency_ms_p99": st32.latency_ms_p99,
                      "launches": counts, "vs_fp32_worst_exact": worst_exact,
                      "vs_fp32_max_diff": worst_lsb, "card": smi}
     emit(rows["video"])
@@ -1356,17 +1363,6 @@ def main() -> None:
     vstats = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda")
     check(vstats["failed"] == vstats["shed"] == 0, f"serve_video: {vstats}")
     emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})
-    # the same three through bf16 plans: only the bf16 entry points launch
-    for stream_input, key in ((False, "bf16_launches"), (True, "bf16_streamed_launches")):
-        st16 = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda",
-                            stream_input=stream_input, precision="bf16")
-        counted = {k: v for k, v in st16.items() if k.startswith("bg_fused_") and v}
-        check(counted == {f"bg_fused_{key}": st16["dispatches"]}, f"serve_frames bf16: {st16}")
-        emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **st16})
-    v16 = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda", precision="bf16")
-    check(v16["failed"] == v16["shed"] == 0 and v16["bg_fused_launches"] == v16["bg_fused_temporal_launches"] == 0
-          and v16["bg_fused_bf16_temporal_launches"] > 0, f"serve_video bf16: {v16}")
-    emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **v16})
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -52,7 +52,13 @@
 // at least, two pixels): a bf16 slot holds each row as it lies in HBM, in
 // 4-byte words aligned as in HBM (the row's first column at the parity of
 // its element address), and the binning threads read the cell's columns
-// from it, in the same order.
+// from it, in the same order. A row's first or last word may hold a pixel
+// outside the window, which nothing reads: a neighbour's, or the 2 bytes
+// just before the tensor or just after it. Those lie inside the tensor's
+// device allocation: CUDA allocations start at 256-byte boundaries and
+// PyTorch's caching allocator rounds its blocks up to multiples of 512
+// bytes, so a 4-byte-aligned word that holds a byte of the tensor lies in
+// its allocation. The kernel assumes that granularity (at least 4 bytes).
 //
 // Carry planes (temporal). A block blends planes k0..k1 and cells c0..c1
 // (the last halo plane and cell are blended by its neighbours too, with the
@@ -200,7 +206,8 @@ __global__ void __launch_bounds__(kThreads) bg_fused_kernel(const Args<T> a) {
     if constexpr (!kF) {
       // row (pl, m) of the step in slot row pl*R + m - m0, column j at
       // element p + j - ja: ceil((p + nw) / 2) words, the first one from
-      // column ja - p
+      // column ja - p (its other half is never read; see the top of the
+      // file for why it lies inside the tensor's allocation)
       const int nm = m1 - m0;
       const int words = (nw + 2) >> 1;
       T* dst0 = reinterpret_cast<T*>(slot);

@@ -39,9 +39,14 @@
 // same offset in it. In bf16 a copy moves whole 4-byte words, 8 or 2
 // pixels, with w mod 8, rows a multiple of 8: a row whose first or last
 // pixel is the odd half of a word copies the word, and its other half
-// lands in the row's padding, where nothing reads it. TI of stripe k reads its rows when raw plane k+2 is
-// complete, with the first chunk of plane k+3 in flight, so the ring holds
-// 2r + split + chunk rows, rounded up to a multiple of 4.
+// lands in the row's padding, where nothing reads it. That half is a
+// neighbour's pixel, or the 2 bytes just before the tensor or just after
+// it, which lie inside the tensor's device allocation (CUDA allocations
+// start at 256-byte boundaries and PyTorch's caching allocator rounds its
+// blocks up to multiples of 512 bytes: the kernel assumes a granularity of
+// at least 4 bytes, as B1 does). TI of stripe k reads its rows when raw
+// plane k+2 is complete, with the first chunk of plane k+3 in flight, so
+// the ring holds 2r + split + chunk rows, rounded up to a multiple of 4.
 //
 // GC. When a chunk has landed, a thread computes the z bins of four
 // neighbouring pixels of a cell (bg::gc_bin, once per pixel) into the bytes

@@ -11,8 +11,6 @@ async engine and the multi-stream packer, on one device.
         --frame-hw 1080x1920 --alpha 0.6 --config paper-default
     python -m repro_torch.launch.serve --video 2 --video-frames 3 \\
         --frame-hw 36x48 --device cpu
-    python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
-        --config paper-default --precision bf16
 
 The JAX launcher's ``--workers`` and LM modes are not ported yet.
 """
@@ -35,16 +33,14 @@ def serve_frames(
     config: str = "serve",
     device=None,
     stream_input: bool = False,
-    precision: str = "fp32",
 ) -> dict:
     """Serve ``frames`` synthetic noisy frames (made on the host, as clients
     would send them) through the ``"fused"`` plan, or the
     ``"fused_streamed"`` one with ``stream_input`` (the JAX launcher's
-    ``--stream-input``), in ``precision`` (``"fp32"`` or ``"bf16"``), and
-    return ``{"frames", "seconds", "frames_per_s", "dispatches", "backend",
-    "precision", "bg_fused_launches", "bg_fused_streamed_launches",
-    "bg_fused_bf16_launches", "bg_fused_bf16_streamed_launches", "device",
-    "plan"}``, the launches counted over the timed run. The timed loop starts after one warm-up micro-batch
+    ``--stream-input``), and return ``{"frames", "seconds", "frames_per_s",
+    "dispatches", "backend", "bg_fused_launches",
+    "bg_fused_streamed_launches", "device", "plan"}``, the launches counted
+    over the timed run. The timed loop starts after one warm-up micro-batch
     and ends when the last result is on hand (``torch.cuda.synchronize`` on
     a card)."""
     from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
@@ -57,7 +53,7 @@ def serve_frames(
         raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
     cfg = PAPER_DEFAULT.bg if config == "paper-default" else SERVE_CONFIG
     backend = "fused_streamed" if stream_input else "fused"
-    plan = BGPlan(cfg=cfg, backend=backend, precision=precision, device=device)
+    plan = BGPlan(cfg=cfg, backend=backend, device=device)
     eng = FrameDenoiseEngine(plan=plan, max_batch=micro_batch)
     clean = synthetic_batch(frames, height, width, seed=0, device="cpu")
     noisy = add_gaussian_noise(
@@ -73,8 +69,7 @@ def serve_frames(
     eng.flush()
     sync()
 
-    counters = ("launches", "streamed_launches", "bf16_launches", "bf16_streamed_launches")
-    before = {c: getattr(bg_fused, c) for c in counters}
+    b1, b3 = bg_fused.launches, bg_fused.streamed_launches
     t0 = time.perf_counter()
     done, dispatches = [], 0
     for i in range(frames):
@@ -95,8 +90,8 @@ def serve_frames(
         "frames_per_s": frames / dt,
         "dispatches": dispatches,
         "backend": plan.backend,
-        "precision": plan.precision,
-        **{f"bg_fused_{c}": getattr(bg_fused, c) - before[c] for c in counters},
+        "bg_fused_launches": bg_fused.launches - b1,
+        "bg_fused_streamed_launches": bg_fused.streamed_launches - b3,
         "device": str(plan.device),
         "plan": plan.describe(),
     }
@@ -113,21 +108,19 @@ def serve_video(
     batch_window_ms: float = 5.0,
     config: str = "serve",
     device=None,
-    precision: str = "fp32",
 ) -> dict:
     """Serve ``streams`` synthetic noisy video streams of
     ``frames_per_stream`` frames each through ``AsyncFrameEngine`` +
     ``MultiStreamPacker`` (the JAX launcher's ``serve_video``), every stream
     at ``alpha``, at ``fps`` frames per second per stream (0: as fast as
     they are taken), each request with a ``deadline_ms`` budget (None: no
-    deadline), in ``precision`` (``"fp32"`` or ``"bf16"``). The traffic is
-    made on the host first, as clients would send it; one pack through a
-    throwaway engine warms the kernels up.
+    deadline). The traffic is made on the host first, as clients would
+    send it; one pack through a throwaway engine warms the kernels up.
 
     Returns frames/s, fps per stream, p50/p99 latency (submit to
     completion), dispatches, mean batch, deadline misses, shed and failed
     requests, and the per-frame (B1) and temporal (B2) kernel launches of
-    the timed run, fp32 and bf16 entry points apart."""
+    the timed run."""
     from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
     from repro_torch.data import synthetic_video_np
     from repro_torch.kernels import bg_fused
@@ -144,7 +137,7 @@ def serve_video(
         vid = synthetic_video_np(s, frames_per_stream, height, width, motion=1.5)
         noisy = vid + rng.normal(0.0, 30.0, vid.shape)
         traffic.append(np.clip(np.floor(noisy + 0.5), 0.0, 255.0).astype(np.float32))
-    plan = BGPlan(cfg, backend="fused", temporal=False, precision=precision, device=device)
+    plan = BGPlan(cfg, backend="fused", temporal=False, device=device)
 
     def engine():
         packer = MultiStreamPacker(plan=plan)
@@ -159,8 +152,7 @@ def serve_video(
             f.result()
 
     period = 1.0 / fps if fps else 0.0
-    counters = ("launches", "temporal_launches", "bf16_launches", "bf16_temporal_launches")
-    before = {c: getattr(bg_fused, c) for c in counters}
+    b1, b2 = bg_fused.launches, bg_fused.temporal_launches
     with engine() as eng:
         t0 = time.monotonic()
         for t in range(frames_per_stream):
@@ -187,8 +179,8 @@ def serve_video(
         "deadline_misses": st.deadline_misses,
         "shed": st.shed,
         "failed": st.failed,
-        "precision": plan.precision,
-        **{f"bg_fused_{c}": getattr(bg_fused, c) - before[c] for c in counters},
+        "bg_fused_launches": bg_fused.launches - b1,
+        "bg_fused_temporal_launches": bg_fused.temporal_launches - b2,
         "device": str(plan.device),
         "plan": plan.describe(),
     }
@@ -213,9 +205,6 @@ def main(argv=None) -> None:
     ap.add_argument("--config", choices=CONFIGS, default="serve",
                     help="grid config: the JAX launcher's serve grid (r=6) "
                     "or the paper's full-HD default (r=12)")
-    ap.add_argument("--precision", choices=("fp32", "bf16"), default="fp32",
-                    help="storage type of frames, carries and output on the card "
-                    "(bf16: the fused kernels' bf16 entry points, fp32 accumulation)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     h, w = (int(x) for x in args.frame_hw.split("x"))
@@ -223,7 +212,6 @@ def main(argv=None) -> None:
         st = serve_video(
             args.video, args.video_frames, h, w, args.alpha, args.fps,
             args.deadline_ms or None, args.batch_window_ms, args.config, args.device,
-            args.precision,
         )
         print(
             f"[serve] video: {st['frames']} frames ({st['streams']} streams) {h}x{w} "
@@ -233,20 +221,17 @@ def main(argv=None) -> None:
             f"dispatches={st['dispatches']} mean_batch={st['mean_batch']:.1f} "
             f"deadline_misses={st['deadline_misses']} shed={st['shed']} "
             f"failed={st['failed']} launches b1={st['bg_fused_launches']} "
-            f"b2={st['bg_fused_temporal_launches']} b1-bf16={st['bg_fused_bf16_launches']} "
-            f"b2-bf16={st['bg_fused_bf16_temporal_launches']} plan[{st['plan']}]"
+            f"b2={st['bg_fused_temporal_launches']} plan[{st['plan']}]"
         )
         return
     stats = serve_frames(
-        args.frames, h, w, args.micro_batch, args.config, args.device, args.stream_input,
-        args.precision,
+        args.frames, h, w, args.micro_batch, args.config, args.device, args.stream_input
     )
     print(
         f"[serve] {stats['frames']} frames {h}x{w} on {stats['device']} "
         f"in {stats['seconds']:.3f}s ({stats['frames_per_s']:.1f} frames/s, "
         f"{stats['dispatches']} dispatches, launches b1={stats['bg_fused_launches']} "
-        f"b3={stats['bg_fused_streamed_launches']} b1-bf16={stats['bg_fused_bf16_launches']} "
-        f"b3-bf16={stats['bg_fused_bf16_streamed_launches']}, plan[{stats['plan']}])"
+        f"b3={stats['bg_fused_streamed_launches']}, plan[{stats['plan']}])"
     )
 
 

@@ -38,8 +38,8 @@ print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
 
 NEW_IN_SLICE_3 = ["kernels._wrap", "kernels.bg_create", "kernels.bg_blur", "kernels.bg_slice"]
 # the modules the bf16 storage form runs through (the storage helpers, the
-# fused wrapper, the plan, the video carries and the launcher's --precision)
-BF16_PATH = ["kernels.common", "kernels.bg_fused", "plan", "video.session", "launch.serve"]
+# fused wrapper, the plan, the video carries and the staged oracle's grid)
+BF16_PATH = ["kernels.common", "kernels.bg_fused", "plan", "video.session", "video.temporal"]
 
 
 @pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH)

@@ -726,3 +726,37 @@ def test_bf16_wrappers_raise_on_the_other_storage_type_on_card(cuda):
     with pytest.raises(TypeError, match="float32 carry"):
         bg_fused(x, cfg, carry=carry.to(torch.bfloat16), alpha=alpha)
     assert (bg_fused.launches, bg_fused.bf16_launches, bg_fused.bf16_streamed_launches) == counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["alone", "odd_start", "nan_neighbours"])
+def test_bf16_kernels_odd_element_count_on_card(cuda, layout):
+    """A 1x37x53 bf16 frame has an odd element count: its last row ends in
+    the middle of a 4-byte word, and as a view one element into a buffer its
+    first row starts in the middle of one. B1, B2 and B3 copy those words
+    whole and never read their other half: they equal their plain version
+    bit for bit, and NaN elements just outside the frame reach no output
+    pixel."""
+    cfg = BGConfig(4, 3.0, 50.0)
+    bf = torch.bfloat16
+    clean = torch.from_numpy(noisy_np(1, 37, 53)).to(cuda).to(bf)
+    n = clean.numel()
+    if layout == "alone":
+        x = clean.clone()
+    else:
+        base = torch.full((n + 2,), float("nan") if layout == "nan_neighbours" else 7.0,
+                          device=cuda, dtype=bf)
+        x = base[1:n + 1].view(1, 37, 53)
+        x.copy_(clean)
+        assert x.data_ptr() % 4 == 2 and x.is_contiguous()
+    assert n % 2 == 1
+    gx, gy, gz = K.grid_shape(37, 53, cfg)
+    zero = torch.zeros((1, gx, gy, gz, 2), device=cuda, dtype=bf)
+    alpha = torch.zeros(1, device=cuda)
+    want = bg_fused_plain(clean, cfg, precision="bf16")
+    pwant, pcarry = bg_fused_plain(clean, cfg, carry=zero, alpha=alpha, precision="bf16")
+    assert torch.equal(bg_fused(x, cfg, precision="bf16"), want)
+    assert torch.equal(bg_fused(x, cfg, precision="bf16", stream_input=True), want)
+    o, c = bg_fused(x, cfg, carry=zero, alpha=alpha, precision="bf16")
+    assert torch.equal(o, pwant) and torch.equal(c, pcarry)
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(c.float()).all())

@@ -21,7 +21,11 @@ import pytest
 import torch
 
 from repro_torch.core import BGConfig, grid_shape, mssim, quantize_intensity, synthetic_image_np
+from repro_torch.core.bilateral_grid import grid_normalize
 from repro_torch.kernels import bg_fused, bg_fused_plain
+from repro_torch.kernels.bg_blur import bg_blur_plain
+from repro_torch.kernels.bg_create import bg_create_plain
+from repro_torch.kernels.bg_slice import bg_slice_plain
 from repro_torch.kernels.common import precision_bytes, round_storage, storage_dtype
 from repro_torch.plan import BGPlan
 from repro_torch.video import MultiStreamPacker, blurred_grid_batch
@@ -106,6 +110,71 @@ def test_bf16_fused_matches_jax_bf16_fused(jx, shape, args, stream_input):
     # inside the port the streamed form is the default one bit for bit
     assert torch.equal(port, bg_fused_plain(torch.from_numpy(frames).to(torch.bfloat16), cfg,
                                             precision="bf16"))
+
+
+def _contract_bf16(x, cfg, raw=True, norm=True, zweight=True, carry=False):
+    """The bf16 contract in the staged plain versions, with any of its
+    rounding points (raw cell, normalized plane, z weights) left out: the
+    controls a port that rounds elsewhere would be. ``carry`` returns the
+    alpha-0 carry, the frame's blurred grid in bf16."""
+    x = x.to(torch.float32)
+    grid = bg_create_plain(x, cfg)
+    if raw:
+        grid = round_storage(grid, "bf16")
+    blurred = bg_blur_plain(grid, cfg)
+    if carry:
+        return blurred.to(torch.bfloat16)
+    planes = grid_normalize(blurred)
+    if norm:
+        planes = round_storage(planes, "bf16")
+    zdt = torch.bfloat16 if zweight else torch.float32
+    return bg_slice_plain(planes, x, cfg, zweight_dtype=zdt).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,args", CASES, ids=IDS)
+def test_bf16_rounding_points_agree_with_jax(jx, shape, args):
+    """The port rounds where the JAX package's bf16 kernel rounds. Its bf16
+    output is nearer the JAX bf16 output than fp32 computed and then cast to
+    bf16 is, and nearer than the contract without its normalized-plane or
+    its z-weight rounding; its quantized output equals JAX's on at least
+    85 % of pixels (JAX's own bf16 against fp32: 76 %). At alpha 0 its bf16
+    carry (the frame's blurred grid) equals JAX's on more values than
+    without the raw-cell rounding."""
+    frames = noisy(B, *shape, seed=sum(shape))
+    cfg, jcfg = BGConfig(*args), jx.cfg(*args)
+    x = torch.from_numpy(frames)
+    port = bg_fused_plain(x.to(torch.bfloat16), cfg, precision="bf16")
+    assert torch.equal(_contract_bf16(x, cfg), port)
+    ref = f32(jx.bg_fused(jx.np(frames), jcfg, interpret=True, precision="bf16"))
+
+    def gap(out):
+        return float(np.abs(f32(out) - ref).mean())
+
+    controls = {
+        "fp32 then cast": bg_fused_plain(x, cfg).to(torch.bfloat16),
+        "no normalized-plane rounding": _contract_bf16(x, cfg, norm=False),
+        "no z-weight rounding": _contract_bf16(x, cfg, zweight=False),
+    }
+    for what, out in controls.items():
+        assert gap(port) < gap(out), (what, gap(port), gap(out))
+    quant = quantize_intensity(port.float(), cfg)
+    assert within_lsb(quant, quantize_intensity(torch.from_numpy(ref), cfg), lsb=1.0) >= 0.85
+    assert within_lsb(quantize_intensity(controls["fp32 then cast"].float(), cfg),
+                      quantize_intensity(torch.from_numpy(ref), cfg), lsb=1.0) < 0.85
+
+    gx, gy, gz = grid_shape(*shape, cfg)
+    _, jcarry = jx.bg_fused(jx.np(frames), jcfg, interpret=True, precision="bf16",
+                            carry=jx.np(np.zeros((B, gx, gy, gz, 2), np.float32)).astype("bfloat16"),
+                            alpha=jx.np(np.zeros(B, np.float32)))
+    _, own = bg_fused_plain(x.to(torch.bfloat16), cfg, precision="bf16",
+                            carry=torch.zeros((B, gx, gy, gz, 2), dtype=torch.bfloat16),
+                            alpha=torch.zeros(B))
+    assert torch.equal(own, _contract_bf16(x, cfg, carry=True))
+
+    def equal_share(c):
+        return float(np.mean(f32(c) == f32(jcarry)))
+
+    assert equal_share(own) > equal_share(_contract_bf16(x, cfg, raw=False, carry=True))
 
 
 def test_bf16_wrapper_takes_only_its_storage_type():
