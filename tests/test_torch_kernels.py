@@ -567,7 +567,7 @@ def test_build_target_follows_included_headers(monkeypatch, tmp_path):
     shutil.copytree(_build._CSRC, csrc)
     monkeypatch.setattr(_build, "_CSRC", csrc)
     kernels = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur", "bg_slice")
-    staging = ("bg_fused", "bg_fused_streamed", "bg_blur")  # stage through cp.async
+    staging = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur")  # stage through cp.async
     for name in kernels:
         copy = ["bg_copy.cuh"] if name in staging else []
         assert _build._sources(name) == [f"{name}.cu", "bg_common.cuh"] + copy

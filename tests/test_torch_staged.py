@@ -6,7 +6,9 @@ package's staged Pallas kernels (interpret mode) at the JAX package's own
 tolerances (tests/test_kernels.py): GC atol 1e-4 with counts summing to
 h*w, GF rtol 1e-4 / atol 1e-2, TI atol 1e-3, and the staged backend's
 quantized output at >= 99.5 % exact / <= 1 LSB. The tests marked ``gpu``
-run the CUDA kernels and skip without a card:
+run the CUDA kernels and skip without a card; there GC (B4) is held to its
+plain version bit for bit, and B5 of B4's grid to the fused kernel's
+blurred grid bit for bit:
 
     pytest -m gpu tests/test_torch_staged.py
 """
@@ -31,7 +33,8 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels import bg_blur as B5
 from repro_torch.kernels.bg_blur import blur_geometry, blur_smem_bytes
-from repro_torch.kernels.bg_create import create_threads
+from repro_torch.kernels.bg_create import CreateGeometry, create_geometry, create_smem_bytes
+from repro_torch.kernels.bg_create import ring_rows as create_ring_rows
 from repro_torch.kernels.bg_slice import SliceGeometry, slice_geometry, slice_smem_bytes
 from repro_torch.kernels.common import grid_shape
 from repro_torch.plan import BGPlan
@@ -174,15 +177,80 @@ def test_staged_wrappers_reject_what_the_kernels_do_not_take():
     assert bg_slice(gf[1], img[1], cfg).shape == (40, 55)
 
 
-def test_create_block_size_follows_shared_memory():
-    assert create_threads(PAPER_DEFAULT.bg.gz) == 128
-    assert create_threads(100) == 32  # 2*100 floats each: 61 threads fit 48 KB
-    with pytest.raises(ValueError, match="bytes"):
-        create_threads(1000)
-
-
 H100_SMS, H100_SMEM_OPTIN = 132, 232448
 FULL_HD = [(f"table1-r{wl.bg.r}", wl.bg) for wl in TABLE1_SWEEP] + [("serve", SERVE_CONFIG)]
+
+
+@pytest.mark.parametrize("name,cfg", FULL_HD)
+def test_create_geometry_fills_the_card_at_full_hd(name, cfg):
+    """B4's band of planes, column tile and z group at the five full-HD
+    grids, at b = 1 and 8: the block fits the card's shared memory, bands
+    and tiles cover the grid, a tile is at most one task per thread, and
+    every one of the 132 SMs gets a block (at least one full wave)."""
+    gx, gy, gz = grid_shape(1080, 1920, cfg)
+    for b in (1, 8):
+        geo = create_geometry(b, 1080, 1920, cfg, H100_SMS, H100_SMEM_OPTIN)
+        assert isinstance(geo, CreateGeometry)
+        assert 1 <= geo.band <= gx and geo.bands == -(-gx // geo.band)
+        assert 1 <= geo.tile <= gy and geo.tiles == -(-gy // geo.tile)
+        assert geo.zgroup in (1, 2, 4)
+        assert geo.ring_rows == create_ring_rows(cfg.r, geo.band) and geo.ring_rows % 4 == 0
+        assert geo.smem == create_smem_bytes(geo.tile, cfg.r, geo.ring_rows) <= H100_SMEM_OPTIN
+        assert b * geo.bands * geo.tiles >= H100_SMS, (b, geo)
+        assert geo.tile * -(-gz // geo.zgroup) <= 256
+
+
+def test_create_geometry_rules():
+    cfg = PAPER_DEFAULT.bg  # grid 92 x 162 x 4
+    geo = lambda b, **kw: create_geometry(b, 1080, 1920, cfg, H100_SMS, H100_SMEM_OPTIN, **kw)
+    # an mbarrier; the z bin bytes, r rows of tile * r to a multiple of 4,
+    # to 16 bytes; a ring row, tile * r floats + 3 to a multiple of 4, + 3
+    assert create_ring_rows(12, 1) == 12 and create_ring_rows(12, 2) == 24 and create_ring_rows(5, 3) == 12
+    assert create_smem_bytes(54, 12, 24) == 16 + 12 * 648 + 24 * (652 + 3) * 4 == 70672
+    # tasks of 2 z bins; 128 cells halved to 64 (4 blocks of one plane per
+    # SM), evened to 54; one frame cuts finer tiles, 41 cells (368 blocks);
+    # a band of one plane (7776 pixels of the tile)
+    assert geo(1) == (1, 92, 41, 4, 2, 12, 29872)
+    assert geo(4) == (1, 92, 54, 3, 2, 12, 39232)
+    assert geo(8) == (1, 92, 54, 3, 2, 12, 39232)
+    # r=2: planes of 2 rows, so a band holds 48 of them, with a ring of two
+    assert create_geometry(1, 1080, 1920, FIG12_SWEEPS["r"][0], H100_SMS, H100_SMEM_OPTIN)[:7] == \
+        (48, 12, 42, 23, 2, 4, 1648)
+
+
+@pytest.mark.parametrize("knobs,want", [
+    # explicit knobs are cut to the grid, as stream_geometry's are
+    (dict(band=500, tile=1000, zgroup=4), (92, 1, 162, 1, 4, 24)),
+    (dict(band=0, tile=0, zgroup=2), (1, 92, 1, 162, 2, 12)),
+    (dict(band=7, tile=5), (7, 14, 5, 33, 2, 24)),
+])
+def test_create_geometry_knobs_are_clamped(knobs, want):
+    geo = create_geometry(1, 1080, 1920, PAPER_DEFAULT.bg, H100_SMS, H100_SMEM_OPTIN, **knobs)
+    assert geo[:6] == want
+    assert geo.smem == create_smem_bytes(geo.tile, 12, geo.ring_rows) <= H100_SMEM_OPTIN
+
+
+def test_create_geometry_cuts_what_does_not_fit():
+    cfg = TABLE1_SWEEP[3].bg  # r=16: a whole row of 122 cells
+    one, two = create_smem_bytes(122, 16, 16), create_smem_bytes(122, 16, 32)
+    assert one < H100_SMEM_OPTIN < two
+    # a two-plane ring that does not fit: a band of one plane
+    geo = create_geometry(8, 1080, 1920, cfg, H100_SMS, H100_SMEM_OPTIN, tile=122, band=4)
+    assert (geo.tile, geo.band, geo.smem) == (122, 1, one)
+    # a one-plane ring that does not fit: the tile is halved until it does
+    geo = create_geometry(8, 1080, 1920, cfg, H100_SMS, one - 1, tile=122, band=1)
+    assert geo.tile == 61 and geo.smem == create_smem_bytes(61, 16, 16) < one
+
+
+@pytest.mark.parametrize("cfg,limit,match", [
+    (BGConfig(4, 4.0, 1.0), H100_SMEM_OPTIN, "gz=257"),  # a bin is a byte
+    (PAPER_DEFAULT.bg, 1000, f"{create_smem_bytes(1, 12, 12)} bytes"),  # one cell does not fit
+])
+def test_create_geometry_raises(cfg, limit, match):
+    with pytest.raises(ValueError, match=match):
+        create_geometry(1, 1080, 1920, cfg, H100_SMS, limit)
+    with pytest.raises(ValueError, match="zgroup"):
+        create_geometry(1, 1080, 1920, PAPER_DEFAULT.bg, H100_SMS, H100_SMEM_OPTIN, zgroup=3)
 
 
 @pytest.mark.parametrize("name,cfg", FULL_HD)
@@ -270,7 +338,7 @@ def test_staged_kernels_match_plain_on_card(cuda, shape, cfg):
     out = bg_slice(gf, imgs, cfg)
     torch.cuda.synchronize()
     assert (bg_create.launches, bg_blur.launches, bg_slice.launches) == tuple(c + 1 for c in counts)
-    torch.testing.assert_close(grid, bg_create_plain(imgs, cfg), atol=1e-4, rtol=0)
+    assert torch.equal(grid, bg_create_plain(imgs, cfg))
     assert float(grid[..., 0].sum()) == 3 * shape[0] * shape[1]
     torch.testing.assert_close(blurred, bg_blur_plain(grid, cfg), atol=1e-2, rtol=1e-4)
     torch.testing.assert_close(out, bg_slice_plain(gf, imgs, cfg), atol=1e-3, rtol=0)
@@ -297,6 +365,70 @@ def test_blur_kernel_equals_fused_blur_on_card(cuda, shape, cfg):
     differ = {"b5_vs_fused": int((blurred != fused).sum()), "b5_vs_plain": int((blurred != plain).sum()),
               "fused_vs_plain": int((fused != plain).sum()), "values": blurred.numel()}
     assert differ["b5_vs_fused"] == 0, differ
+
+
+# B4 at an odd frame size, a ragged full-HD width, r=2 and r=16 at full HD,
+# and frames outside [0, 255] (their out-of-range bins dropped)
+CREATE_CARD = [((1, 37, 53), BGConfig(4, 4.0, 60.0), 0.0, 255.0),
+               ((2, 1080, 1917), PAPER_DEFAULT.bg, 0.0, 255.0),
+               ((1, 1080, 1920), FIG12_SWEEPS["r"][0], 0.0, 255.0),
+               ((2, 1080, 1920), BGConfig(16, 8.0, 70.0), 0.0, 255.0),
+               ((2, 61, 83), SERVE_CONFIG, -60.0, 0.0),
+               ((2, 61, 83), SERVE_CONFIG, 255.0, 330.0)]
+# B4's knobs at their edges: single planes and cells, a band and a tile past
+# the grid, tiles that do not divide gy, every z group
+CREATE_GEOMETRIES = [dict(band=1, tile=1), dict(band=3, tile=7, zgroup=2), dict(band=500, tile=1000, zgroup=4),
+                     dict(band=2, tile=5, zgroup=4), dict(band=1, tile=13, zgroup=1)]
+
+
+def _frames(shape, lo, hi, seed=5):
+    """Whole-valued frames uniform in [lo, hi], made with numpy."""
+    return np.floor(np.random.default_rng(seed).uniform(lo, hi, shape)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg,lo,hi", CREATE_CARD)
+def test_create_kernel_bitwise_plain_on_card(cuda, shape, cfg, lo, hi):
+    """B4 equals its plain version bit for bit: on frames that start at an
+    odd float of a batch, in every split of the knobs, for each frame of a
+    batch alone, and across launches. Out-of-range bins are dropped."""
+    b, h, w = shape
+    frames = _frames(shape, lo, hi)
+    imgs = torch.from_numpy(frames).to(cuda)
+    before = bg_create.launches
+    grid = bg_create(imgs, cfg)
+    plain = bg_create_plain(imgs, cfg)
+    torch.cuda.synchronize()
+    assert bg_create.launches == before + 1
+    assert torch.equal(grid, plain), float((grid - plain).abs().max())
+    zbin = np.floor(frames * np.float32(1.0 / cfg.range_scale) + np.float32(0.5))
+    assert float(grid[..., 0].sum()) == float(((zbin >= 0) & (zbin < cfg.gz)).sum())
+    # a frame sliced from a batch at an odd float offset (4-byte aligned only)
+    flat = torch.from_numpy(np.concatenate([[7.0], frames.reshape(-1)]).astype(np.float32)).to(cuda)
+    odd = flat[1:].view(shape)
+    assert odd.data_ptr() % 16 == 4 and torch.equal(bg_create(odd, cfg), grid)
+    one = flat[1 + (b - 1) * h * w:].view(h, w)
+    assert torch.equal(bg_create(one, cfg), grid[b - 1])
+    assert torch.equal(bg_create(imgs, cfg), grid)
+    cmod = importlib.import_module("repro_torch.kernels.bg_create")
+    for knobs in CREATE_GEOMETRIES:
+        got = torch.full_like(grid, float("nan"))
+        geo = cmod._launch(imgs, got, cfg, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, grid), (knobs, geo)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg,lo,hi", CREATE_CARD)
+def test_create_then_blur_equals_fused_blur_on_card(cuda, shape, cfg, lo, hi):
+    """B5(B4(x)) equals B1's blurred grid bit for bit (B2's carry at alpha 0
+    on a zero carry) at B4's card shapes, as at ``CARD``'s."""
+    imgs = torch.from_numpy(_frames(shape, lo, hi)).to(cuda)
+    grid = bg_create(imgs, cfg)
+    blurred = bg_blur(grid, cfg)
+    fused = bg_fused(imgs, cfg, carry=torch.zeros_like(grid), alpha=torch.zeros(shape[0], device=cuda))[1]
+    torch.cuda.synchronize()
+    assert int((blurred != fused).sum()) == 0, (int((blurred != fused).sum()), blurred.numel())
 
 
 # ragged grids: gx <= 2, runs longer than gx, y tiles that do not divide gy
