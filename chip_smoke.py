@@ -23,8 +23,17 @@ knobs of B1, B3, B4, B5 and B6 (every variant checked bit for bit against
 the default),
 times the bf16 forms beside fp32 (``bf16_times``), serves full-HD frames
 and video on bf16 plans with only the bf16 entry points counted
-(``bf16_slice``), and serves the fp32 paths through the launcher. Prints
-one JSON object per
+(``bf16_slice``), sweeps the plan candidates ``plan_for`` ranks, records the
+measured winners into a temporary plan cache, reads them back through
+``plan_for``, fits the cost model's overhead constants and reads the
+model's regret on workloads the fit has not seen (``plan_sweep``), drives
+the guarded engine through a failed primary rung (served by the next kernel
+rung, or failed where the card's ladder has none), a hung completion and
+corrupted input (``guarded_dispatch``), and serves the fp32 paths through
+the launcher, whose plans come from ``plan_for`` (as the plan layer
+chooses, and pinned on B3 and on B1). Every served
+phase whose engine counts them holds retries, fallbacks and watchdog trips
+at 0. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
 power limit, the last ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero. It needs a CUDA card and fails
@@ -41,8 +50,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W = 1080, 1920
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 TOL_ABS = 5e-3  # fused vs ref_fused in the JAX package's tests/test_kernels.py
 TOL_EXACT = 0.995  # quantized outputs: share of exactly equal pixels
 TOL_LSB = 1.0  # quantized outputs: largest difference
@@ -137,7 +144,10 @@ def kernel_ms(torch, fn, reps: int):
 
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the operations over the fp32 rate."""
+    the operations over the fp32 rate (the cost model's H100 SXM rates,
+    ``repro_torch.plan``)."""
+    from repro_torch.plan import FP32_FLOPS_PER_S, HBM_BYTES_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -145,54 +155,55 @@ def bound(nbytes: float, flops: float):
 
 def bg_fused_bound(b: int, h: int, w: int, cfg, grid_shape, esize: int = 4):
     """(bound_ms, bound_by, bytes, flops) of the fused filter on b frames
-    (B1 and B3) of ``esize``-byte pixels (4 fp32, 2 bf16): each input read
-    once and each output written once (the TI fractions are fp32), against
-    the operations of separable GC / GF / TI (32 FLOP per pixel: 5 in GC, 27
-    in TI; 33 per grid cell in GF and normalization)."""
-    gx, gy, gz = grid_shape(h, w, cfg)
-    nbytes = b * h * w * esize * 2 + (w + cfg.r) * 4
-    flops = b * (32 * h * w + 33 * gx * gy * gz)
+    (B1 and B3) of ``esize``-byte pixels (4 fp32, 2 bf16), from the counts
+    the cost model uses (``repro_torch.plan.fused_work``: each input read
+    once and each output written once)."""
+    from repro_torch.plan import fused_work
+
+    nbytes, flops = fused_work(b, h, w, cfg, esize)
     return (*bound(nbytes, flops), nbytes, flops)
 
 
 def bg_fused_temporal_bound(b: int, h: int, w: int, cfg, grid_shape, esize: int = 4):
     """(bound_ms, bound_by, bytes, flops) of the temporal kernel on b
-    frames: the per-frame bound plus the carry read once and written once
-    (2 x esize B per cell and channel) and the fp32 alpha, and 6 FLOP per
-    grid cell for the blend of both channels."""
-    _, _, nbytes, flops = bg_fused_bound(b, h, w, cfg, grid_shape, esize)
-    gx, gy, gz = grid_shape(h, w, cfg)
-    nbytes += b * (2 * gx * gy * gz * 2 * esize + 4)
-    flops += b * 6 * gx * gy * gz
+    frames (``fused_work(temporal=True)``: the per-frame counts plus the
+    carry read and written, the alpha and the blend)."""
+    from repro_torch.plan import fused_work
+
+    nbytes, flops = fused_work(b, h, w, cfg, esize, temporal=True)
     return (*bound(nbytes, flops), nbytes, flops)
 
 
 def staged_bounds(b: int, h: int, w: int, cfg, grid_shape) -> dict:
     """{kernel: (bound_ms, bound_by, bytes, flops)} of the staged kernels on
-    b frames, each input read once and each output written once: B4 reads
-    the frames and writes the (count, sum) grid (5 FLOP per pixel); B5 reads
-    and writes that grid (15 FLOP per value: 3 taps along 3 axes); B6 reads
-    the frames and the scalar grid and writes the frames (27 FLOP per
-    pixel)."""
-    gx, gy, gz = grid_shape(h, w, cfg)
-    img, cells = h * w * 4, gx * gy * gz
-    work = {"B4": (b * (img + cells * 8), b * 5 * h * w),
-            "B5": (b * 2 * cells * 8, b * 15 * cells * 2),
-            "B6": (b * (2 * img + cells * 4) + (w + cfg.r) * 4, b * 27 * h * w)}
-    return {k: (*bound(nb, fl), nb, fl) for k, (nb, fl) in work.items()}
+    b frames (``repro_torch.plan.staged_work``)."""
+    from repro_torch.plan import staged_work
+
+    return {k: (*bound(nb, fl), nb, fl) for k, (nb, fl) in staged_work(b, h, w, cfg).items()}
 
 
 def tpu_kernel_bounds(cfg, grid_shape) -> dict:
     """Bytes bound (ms) per 1080x1920 frame of every TPU kernel of the repo,
-    each input read once and each output written once, at 3.35 TB/s: B1
-    and B3 image in and out; B2 that plus the carry in and out; B4 image in,
-    (gx, 2, gz, gy) grid out; B5 grid in and out; B6 image and scalar grid
-    in, image out. All are far from the fp32 operation bound."""
+    each input read once and each output written once, at the H100's HBM
+    rate: B1 and B3 image in and out; B2 that plus the carry in and out; B4
+    image in, (gx, 2, gz, gy) grid out; B5 grid in and out; B6 image and
+    scalar grid in, image out. All are far from the fp32 operation bound."""
+    from repro_torch.plan import HBM_BYTES_PER_S
+
     gx, gy, gz = grid_shape(H, W, cfg)
     img, grid = H * W * 4, gx * gy * gz * 2 * 4
     nbytes = {"B1": 2 * img, "B2": 2 * img + 2 * grid, "B3": 2 * img,
               "B4": img + grid, "B5": 2 * grid, "B6": 2 * img + grid // 2}
     return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}
+
+
+def reliability_zero(st, what: str) -> dict:
+    """The reliability counters of an ``EngineStats``; fails unless retries,
+    fallbacks and watchdog trips are all 0 (a dispatch served by a lower
+    rung must never pass as the kernel's)."""
+    counts = {"retries": st.retries, "fallbacks": st.fallbacks, "watchdog_trips": st.watchdog_trips}
+    check(not any(counts.values()), f"{what}: {counts}")
+    return counts
 
 
 def sync(torch, dev) -> None:
@@ -289,6 +300,7 @@ def video_slice(torch, cfg, smi, dev):
                  f"video slice, {len(packs)} packs, {cold} cold")
     check(st.shed == st.failed == st.carry_resets == 0 and packer.carry_resets == 0,
           f"shed {st.shed} failed {st.failed} quarantined {st.carry_resets}")
+    reliability = reliability_zero(st, "video slice")
     check(all(o.device == dev and tuple(o.shape) == (H, W) and bool(torch.isfinite(o).all())
               for o in outs.values()), "results are finite (h, w) tensors on the card")
 
@@ -330,7 +342,7 @@ def video_slice(torch, cfg, smi, dev):
            "mean_batch": st.mean_batch, "vs_oracle_exact": worst_exact, "vs_oracle_max_diff": worst_lsb,
            "carry_max_abs_err_vs_oracle": carry_err, "psnr_static_alpha08": psnr_warm,
            "psnr_static_alpha0": psnr_cold, "shed": st.shed, "failed": st.failed,
-           "quarantined": st.carry_resets, "card": smi}
+           "quarantined": st.carry_resets, **reliability, "card": smi}
     emit(row)
     return row
 
@@ -533,7 +545,9 @@ def bf16_slice(torch, cfg, smi, dev):
     check_counts(counts, {"bg_fused.bf16_launches": cold, "bg_fused.bf16_temporal_launches": len(packs) - cold},
                  f"bf16 video slice, {len(packs)} packs, {cold} cold")
     check(st.shed == st.failed == st.carry_resets == 0, f"bf16 video: shed {st.shed} failed {st.failed}")
+    reliability = reliability_zero(st, "bf16 video slice")
     outs32, _, _, st32, seconds32 = run_video(torch, BGPlan(cfg, device=dev), noisy, ALPHAS)
+    reliability_zero(st32, "bf16 slice's fp32 video run")
     worst_exact, worst_lsb = 1.0, 0.0
     for key, o in outs16.items():
         exact, lsb = quantized_agreement(o, outs32[key])
@@ -548,7 +562,7 @@ def bf16_slice(torch, cfg, smi, dev):
                      "fp32_frames_per_s": n_streams * n_frames / seconds32,
                      "fp32_latency_ms_p50": st32.latency_ms_p50, "fp32_latency_ms_p99": st32.latency_ms_p99,
                      "launches": counts, "vs_fp32_worst_exact": worst_exact,
-                     "vs_fp32_max_diff": worst_lsb, "card": smi}
+                     "vs_fp32_max_diff": worst_lsb, **reliability, "card": smi}
     emit(rows["video"])
     return rows
 
@@ -593,6 +607,296 @@ def bf16_times(torch, x8, cfg, smi):
               "device_bf16_over_fp32": {k: td[k + "-bf16"] / td[k] for k in ("B1", "B2", "B3")},
               "order": "fp32, bf16, bf16, fp32; each the mean of its two passes", "card": smi})
     return out
+
+
+def plan_sweep(torch, x8, smi, dev):
+    """Every candidate ``plan_for(precision="auto")`` ranks, timed by call
+    (``plan_cost_measured``: the mean of 50 back-to-back dispatches, the
+    quantization included; two passes, forward then backward, the faster
+    kept), at full HD: PAPER_DEFAULT for 1, 4 and 8 frames per frame and 4
+    temporal, the serve grid for 8; the pinned ``"staged"`` plan beside them
+    as information. Per workload: the measured best is recorded into a
+    temporary plan cache and read back through ``plan_for`` (it must come
+    back with provenance "cache"), and the model's pick (auto and fp32) is
+    printed with its predicted and measured times and its regret. Then the
+    overhead constants are fitted by least squares over every candidate of
+    the five fitting workloads (``measured - (compute + memory) ~ [frames,
+    launches, streamed launches]``, no intercept), recorded as the cache's
+    calibration and printed beside the constants in ``repro_torch/plan.py``,
+    with the regret the fitted constants would give. Three held-out
+    workloads, which no fit has seen (PAPER_DEFAULT at 1080x1920 for 2
+    frames and at 720x1280 for 4, the serve grid for 4), are swept the same
+    way and give the model's regret off its fitting data. Returns the fit
+    row."""
+    import tempfile
+
+    import numpy as np
+
+    import repro_torch.plan as P
+    from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
+    from repro_torch.plan_cache import PlanCache, host_fingerprint, workload_key
+
+    paper, serve = PAPER_DEFAULT.bg, SERVE_CONFIG
+    # (label, config, frames, temporal, height, width, held out of the fit)
+    workloads = [("PAPER_DEFAULT", paper, 1, False, H, W, False), ("PAPER_DEFAULT", paper, 4, False, H, W, False),
+                 ("PAPER_DEFAULT", paper, 8, False, H, W, False), ("PAPER_DEFAULT", paper, 4, True, H, W, False),
+                 ("serve r=6", serve, 8, False, H, W, False),
+                 ("PAPER_DEFAULT", paper, 2, False, H, W, True), ("serve r=6", serve, 4, False, H, W, True),
+                 ("PAPER_DEFAULT", paper, 4, False, H * 2 // 3, W * 2 // 3, True)]
+    in_code = {"frame_overhead_s": P.FRAME_OVERHEAD_S, "launch_overhead_s": P.LAUNCH_OVERHEAD_S,
+               "stream_launch_overhead_s": P.STREAM_LAUNCH_OVERHEAD_S}
+    rows, design, target = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = PlanCache(os.path.join(tmp, "plan_cache.json"))
+        for label, cfg, n, temporal, hh, ww, held_out in workloads:
+            frames = x8[:n, :hh, :ww].contiguous()
+            cands = P.candidate_plans(cfg, hh, ww, n_frames=n, temporal=temporal,
+                                      backends=("fused",) if temporal else ("fused", "fused_streamed"),
+                                      device=dev)
+            timed = cands + ([] if temporal else [P.BGPlan(cfg, backend="staged", device=dev)])
+            meas = {}
+            for order in (timed, timed[::-1]):
+                for p in order:
+                    t = P.plan_cost_measured(p, hh, ww, n, reps=50, frames=frames)
+                    meas[p] = min(meas.get(p, float("inf")), t)
+            bd = {p: P.plan_cost_breakdown(p, hh, ww, n) for p in cands}
+            for p in cands if not held_out else ():
+                design.append([float(n), float(bd[p]["steps"]),
+                               float(bd[p]["steps"]) if p.backend == "fused_streamed" else 0.0])
+                target.append(meas[p] - bd[p]["compute_s"] - bd[p]["memory_s"])
+            best = min(cands, key=lambda p: meas[p])
+            best32 = min((p for p in cands if p.precision == "fp32"), key=lambda p: meas[p])
+            picks = {}
+            for mode, prec, ref in (("auto", "auto", best), ("fp32", None, best32)):
+                pick = P.plan_for(cfg, hh, ww, n_frames=n, temporal=temporal, precision=prec, cache=False,
+                                  device=dev)
+                check(pick in meas, f"{label} n={n}: model pick {pick.describe()} is not a swept candidate")
+                picks[mode] = {"plan": pick.describe(), "predicted_ms": bd[pick]["total_s"] * 1e3,
+                               "measured_ms": meas[pick] * 1e3, "regret": meas[pick] / meas[ref]}
+            # the winner's quantized output against the fused route's
+            want = P.BGPlan(cfg, backend="fused", temporal=False, device=dev)(frames)
+            got = best.as_temporal(False)(frames)
+            exact, lsb = quantized_agreement(got, want)
+            lsb_limit = TOL_BF16_LSB if best.precision == "bf16" else TOL_LSB
+            check(lsb <= lsb_limit and (best.precision == "bf16" or exact >= TOL_EXACT),
+                  f"{label} n={n}: winner {best.describe()} vs fused: {exact}, {lsb}")
+            key = workload_key(cfg, hh, ww, n, temporal, 1, device=dev)
+            cache.record(key, best, measured_us=meas[best] * 1e6, model_us=bd[best]["total_s"] * 1e6,
+                         source="chip_smoke plan_sweep")
+            back = P.plan_for(cfg, hh, ww, n_frames=n, temporal=temporal, precision="auto", cache=cache,
+                              device=dev)
+            check(back.provenance == "cache" and back == best and back.plan_hash() == best.plan_hash(),
+                  f"{label} n={n}: cache read-back gave {back.describe()}, recorded {best.describe()}")
+            row = {"phase": "plan_sweep", "config": label, "frame_hw": [hh, ww], "n_frames": n,
+                   "temporal": temporal, "held_out": held_out,
+                   "columns": ("backend", "batch_tile", "precision", "measured_ms", "model_ms", "launches"),
+                   "candidates": [[p.backend, p.batch_tile, p.precision, meas[p] * 1e3,
+                                   bd[p]["total_s"] * 1e3, bd[p]["steps"]] for p in cands],
+                   "measured_best": {"plan": best.describe(), "measured_ms": meas[best] * 1e3},
+                   "measured_best_fp32": {"plan": best32.describe(), "measured_ms": meas[best32] * 1e3},
+                   "model_pick": picks["auto"], "model_pick_fp32": picks["fp32"],
+                   "winner_vs_fused": {"exact": exact, "max_diff": lsb},
+                   "cache_readback": back.describe(),
+                   "staged_pinned_ms": None if temporal else meas[timed[-1]] * 1e3,
+                   "card": smi}
+            emit(row)
+            rows.append((row, cands, meas))
+        x, y = np.asarray(design), np.asarray(target)
+        coef = np.maximum(np.linalg.lstsq(x, y, rcond=None)[0], 0.0)  # overheads are nonnegative
+        rms = float(np.sqrt(np.mean((y - x @ coef) ** 2)))
+        fitted = dict(zip(in_code, (float(c) for c in coef)))
+        cache.record_calibration(host_fingerprint(dev), {**fitted, "rms_residual_s": rms, "n_rows": len(y)})
+        check(cache.calibration(host_fingerprint(dev)) is not None, "calibration recorded")
+
+    def refit_regret(row, cands, meas):
+        def cost(p):
+            bd = P.plan_cost_breakdown(p, *row["frame_hw"], row["n_frames"])
+            return (bd["compute_s"] + bd["memory_s"] + coef[0] * row["n_frames"] + coef[1] * bd["steps"]
+                    + (coef[2] * bd["steps"] if p.backend == "fused_streamed" else 0.0))
+
+        pick = min(cands, key=cost)
+        return {"plan": pick.describe(), "regret": meas[pick] / min(meas[p] for p in cands)}
+
+    def name(r):
+        return (f"{r['config']} {r['frame_hw'][0]}x{r['frame_hw'][1]} n={r['n_frames']}"
+                f"{' temporal' if r['temporal'] else ''}")
+
+    fit = {"phase": "plan_sweep_fit", "fitted": fitted, "in_code": in_code, "rms_residual_s": rms,
+           "n_rows": len(y),
+           "in_code_regret": {name(r): r["model_pick"]["regret"] for r, _, _ in rows if not r["held_out"]},
+           "in_code_regret_held_out": {name(r): r["model_pick"]["regret"] for r, _, _ in rows if r["held_out"]},
+           "fitted_regret": {name(r): refit_regret(r, c, m) for r, c, m in rows if not r["held_out"]},
+           "fitted_regret_held_out": {name(r): refit_regret(r, c, m) for r, c, m in rows if r["held_out"]},
+           "card": smi}
+    emit(fit)
+    return fit
+
+
+def guarded_dispatch(torch, frames, smi, dev):
+    """The guarded engine on the card at full HD, PAPER_DEFAULT, on the plans
+    ``plan_for`` gives for a micro-batch of 8 and for 4 streams:
+
+      * a ``raise_dispatch`` fault on the primary rung, every time: every
+        dispatch of the micro-batch (``fused_streamed``) is served by the
+        next rung, B1 (``fallbacks == dispatches``), the launch counters
+        show B1 and no launch of B3, and the output holds the quantized
+        contract against the fused route; the temporal pack's plan
+        (``fused``) has no rung below it on the card (the reference rung
+        is the CPU's only), so every pack fails with ``AllBackendsFailed``
+        (the injected fault its cause) and no kernel launches;
+      * one ``hang_completion`` above ``watchdog_ms``: one watchdog trip, and
+        the redispatch serves the frames (no failure, no fallback);
+      * a NaN frame refused at submit (``AdmissionError``), a post-admission
+        ``corrupt_frame`` and a ``corrupt_carry``: exactly their requests
+        fail with ``NonFiniteOutput`` and exactly their streams are
+        quarantined.
+
+    Returns the phase rows."""
+    import numpy as np
+
+    from repro_torch.configs.bg_denoise import PAPER_DEFAULT
+    from repro_torch.plan import BGPlan, plan_for
+    from repro_torch.reliability import (AdmissionError, AllBackendsFailed, Fault, FaultInjector, FaultPlan,
+                                         InjectedFault, NonFiniteOutput, RetryPolicy)
+    from repro_torch.serving import AsyncFrameEngine
+    from repro_torch.video import MultiStreamPacker
+
+    cfg = PAPER_DEFAULT.bg
+    counter = {("fused", False): "bg_fused.launches", ("fused", True): "bg_fused.temporal_launches",
+               ("fused_streamed", False): "bg_fused.streamed_launches"}
+    policy = RetryPolicy(max_attempts=2, backoff_s=0.0)
+    rows = {}
+
+    def rounds(eng, batches, stream=False):
+        """Submit each batch and wait for it before the next; returns
+        {(round, index): result or exception}."""
+        got = {}
+        for t, batch in enumerate(batches):
+            futs = [eng.submit(f, stream_id=i if stream else None) for i, f in enumerate(batch)]
+            for i, fut in enumerate(futs):
+                exc = fut.exception(timeout=120.0)
+                got[(t, i)] = exc if exc is not None else fut.result()
+        return got
+
+    # ---- a micro-batch of 8: the primary rung raises on every dispatch
+    plan = plan_for(cfg, H, W, n_frames=8, device=dev, cache=False)
+    ladder = plan.fallback_ladder()
+    check([p.backend for p in ladder] == ["fused_streamed", "fused"], f"micro-batch ladder: {ladder}")
+    nxt = ladder[1]
+    batches = [frames[0:8], frames[8:16]]
+    fused_ref = BGPlan(cfg, backend="fused", device=dev)(np.concatenate(batches))
+    inj = FaultInjector(FaultPlan((Fault("raise_dispatch", backend=plan.backend, times=None),)))
+    zero_counts()
+    with AsyncFrameEngine(plan=plan, max_batch=8, batch_window_ms=1000.0, fault_injector=inj,
+                          retry_policy=policy) as eng:
+        got = rounds(eng, batches)
+        st = eng.stats()
+    sync(torch, dev)
+    counts = kernel_counts()
+    want = {counter[(nxt.backend, False)]: st.dispatches * -(-8 // nxt.tile_for(8))}
+    check_counts(counts, want, f"guarded dispatch: {plan.backend} raising, served by {nxt.backend}")
+    check(st.dispatches == 2 and st.fallbacks == st.dispatches and st.failed == 0 and st.completed == 16,
+          f"primary-rung fault: {st}")
+    out = torch.stack([got[(t, i)] for t in range(2) for i in range(8)])
+    exact, lsb = quantized_agreement(out, fused_ref)
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"fallback rung {nxt.backend} vs fused: {exact}, {lsb}")
+    rows["raise_frames"] = {"phase": "guarded_dispatch", "case": "raise_dispatch on the primary rung, frames",
+                            "plan": plan.describe(), "served_by": nxt.describe(), "dispatches": st.dispatches,
+                            "fallbacks": st.fallbacks, "retries": st.retries, "failed": st.failed,
+                            "launches": counts, "vs_fused_exact": exact, "vs_fused_max_diff": lsb,
+                            "injected": list(inj.fired), "card": smi}
+    emit(rows["raise_frames"])
+
+    # ---- 4 streams: the primary rung raises on every pack, and there is no
+    # rung below it
+    vplan = plan_for(cfg, H, W, n_frames=4, temporal=True, device=dev, cache=False)
+    check([p.backend for p in vplan.fallback_ladder()] == ["fused"], f"temporal ladder: {vplan.fallback_ladder()}")
+    packs = [[frames[(4 * t + s) % len(frames)] for s in range(4)] for t in range(3)]
+
+    def packer_on(p, alphas=ALPHAS):
+        pk = MultiStreamPacker(plan=p)
+        for s in range(4):
+            pk.open(s, alpha=alphas[s])
+        return pk
+
+    inj = FaultInjector(FaultPlan((Fault("raise_dispatch", backend=vplan.backend, times=None),)))
+    zero_counts()
+    with AsyncFrameEngine(packer=packer_on(vplan), max_batch=4, batch_window_ms=1000.0, fault_injector=inj,
+                          retry_policy=policy) as eng:
+        got = rounds(eng, packs, stream=True)
+        st = eng.stats()
+    sync(torch, dev)
+    counts = kernel_counts()
+    check_counts(counts, {}, f"guarded video: {vplan.backend} raising, no rung below it")
+    check(all(isinstance(v, AllBackendsFailed) and isinstance(v.__cause__, InjectedFault) for v in got.values())
+          and len(got) == 12, f"every pack fails with AllBackendsFailed: {got}")
+    check(st.dispatches == 0 and st.fallbacks == 0 and st.retries == 3 and st.failed == 12 and st.completed == 0
+          and st.carry_resets == 0, f"primary-rung fault, video: {st}")
+    rows["raise_video"] = {"phase": "guarded_dispatch", "case": "raise_dispatch on the primary rung, 4 streams",
+                           "plan": vplan.describe(), "served_by": None, "dispatches": st.dispatches,
+                           "fallbacks": st.fallbacks, "retries": st.retries, "failed": st.failed,
+                           "error": type(got[(0, 0)]).__name__, "launches": counts, "card": smi}
+    emit(rows["raise_video"])
+
+    # ---- one hung completion above the watchdog
+    watchdog_ms, hang_s = 500.0, 1.5
+    inj = FaultInjector(FaultPlan((Fault("hang_completion", dispatch=1, delay_s=hang_s),)))
+    zero_counts()
+    with AsyncFrameEngine(plan=plan, max_batch=8, batch_window_ms=1000.0, fault_injector=inj,
+                          watchdog_ms=watchdog_ms) as eng:
+        got = rounds(eng, batches)
+        st = eng.stats()
+    sync(torch, dev)
+    counts = kernel_counts()
+    check_counts(counts, {counter[(plan.backend, False)]: 3 * -(-8 // plan.tile_for(8))},
+                 "hung completion: two dispatches and the redispatch")
+    check(st.watchdog_trips == 1 and st.failed == 0 and st.completed == 16 and st.fallbacks == 0,
+          f"hung completion: {st}")
+    out = torch.stack([got[(t, i)] for t in range(2) for i in range(8)])
+    exact, lsb = quantized_agreement(out, fused_ref)
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"redispatched frames vs fused: {exact}, {lsb}")
+    rows["hang"] = {"phase": "guarded_dispatch", "case": "hang_completion above the watchdog",
+                    "plan": plan.describe(), "watchdog_ms": watchdog_ms, "hang_s": hang_s,
+                    "watchdog_trips": st.watchdog_trips, "dispatches": st.dispatches, "retries": st.retries,
+                    "fallbacks": st.fallbacks, "failed": st.failed, "launches": counts,
+                    "vs_fused_exact": exact, "vs_fused_max_diff": lsb, "card": smi}
+    emit(rows["hang"])
+
+    # ---- corrupted input: refused at submit; corrupted after admission;
+    # a corrupted carry
+    faults = (Fault("corrupt_frame", stream_id=0, frame_index=1, mode="nan"),
+              Fault("corrupt_carry", stream_id=2, dispatch=1, mode="inf"))
+    inj = FaultInjector(FaultPlan(faults, seed=0))
+    packer = packer_on(vplan, alphas=(0.6, 0.6, 0.6, 0.6))
+    quarantined = []
+    real = packer.quarantine
+    packer.quarantine = lambda sid: (quarantined.append(sid), real(sid))[1]
+    with AsyncFrameEngine(packer=packer, max_batch=4, batch_window_ms=1000.0, fault_injector=inj) as eng:
+        bad = np.array(frames[0], copy=True)
+        bad[5, 7] = np.nan
+        try:
+            eng.submit(bad, stream_id=1)
+            refused = False
+        except AdmissionError:
+            refused = True
+        submitted_after_refusal = eng.stats().submitted
+        got = rounds(eng, packs + [packs[0]], stream=True)
+        st = eng.stats()
+    failed = sorted(k for k, v in got.items() if isinstance(v, Exception))
+    check(refused and submitted_after_refusal == 0, "a NaN frame is refused at submit")
+    check(all(isinstance(got[k], NonFiniteOutput) for k in failed) and failed == [(1, 0), (2, 2)],
+          f"exactly the corrupted requests fail: {failed}")
+    check(all(bool(torch.isfinite(v).all()) for v in got.values() if not isinstance(v, Exception)),
+          "no non-finite frame served")
+    check(sorted(quarantined) == [0, 2] and st.carry_resets == 2, f"quarantined {quarantined}")
+    check(st.retries == st.fallbacks == st.watchdog_trips == 0 and inj.fired == [1, 1], f"corrupted input: {st}")
+    rows["corrupt"] = {"phase": "guarded_dispatch", "case": "admission, corrupt_frame, corrupt_carry",
+                       "plan": vplan.describe(), "nan_frame_refused_at_submit": refused,
+                       "failed_requests": [list(k) for k in failed], "quarantined": quarantined,
+                       "carry_resets": st.carry_resets, "failed": st.failed, "injected": list(inj.fired),
+                       "card": smi}
+    emit(rows["corrupt"])
+    return rows
 
 
 def kernel_counts() -> dict:
@@ -991,6 +1295,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs only on the card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # the launcher's plan_for reads the default plan cache: point it at an
+    # empty file of this run, so the served plans are the cost model's
+    import tempfile
+
+    cache_dir = tempfile.TemporaryDirectory()
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = os.path.join(cache_dir.name, "plan_cache.json")
     from repro_torch.configs.bg_denoise import FIG12_SWEEPS, PAPER_DEFAULT, SERVE_CONFIG, TABLE1_SWEEP
     from repro_torch.core import (BGConfig, add_gaussian_noise, grid_normalize, grid_shape, mssim,
                                   psnr, quantize_intensity, synthetic_batch)
@@ -1134,6 +1444,15 @@ def main() -> None:
     # ---- phase 3e: the bf16 slice: frames on bf16 fused and streamed plans,
     # video on a bf16 packer, only the bf16 entry points counted
     bf16 = bf16_slice(torch, cfg, smi, dev)
+
+    # ---- phase 3f: plan selection: the candidates plan_for ranks, timed;
+    # the measured winners through a temporary cache and back; the fit of
+    # the cost model's overhead constants
+    plan_sweep(torch, x8, smi, dev)
+
+    # ---- phase 3g: guarded dispatch: a failed primary rung, a hung
+    # completion, corrupted input
+    guarded_dispatch(torch, frames, smi, dev)
 
     # ---- phase 4: times at b=8, PAPER_DEFAULT, CUDA events: a kernel's
     # `ms` is the mean of back-to-back wrapper calls (the method since the
@@ -1441,17 +1760,23 @@ def main() -> None:
           "designs": {"bg_fused_streamed": "one 512-thread block per band of stripes over the whole width, "
                                            "one GC owner per (plane part, cell), rows copied twice",
                       "bg_slice": "one thread per pixel, three divisions and eight corner gathers each"}})
-    stats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda")
-    check(stats["bg_fused_launches"] == stats["dispatches"] and stats["bg_fused_streamed_launches"] == 0,
-          f"serve_frames: {stats}")
-    emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **stats})
-    sstats = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda",
-                          stream_input=True)
-    check(sstats["bg_fused_streamed_launches"] == sstats["dispatches"] and sstats["bg_fused_launches"] == 0,
-          f"serve_frames(stream_input=True): {sstats}")
-    emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **sstats})
+    # the launcher: plans from plan_for (the cost model: the cache is empty),
+    # once as the plan layer chooses and once pinned on each kernel route
+    # (stream_input True: B3, the JAX launcher's --stream-input; False: B1)
+    for stream_input in (None, True, False):
+        st = serve_frames(32, H, W, micro_batch=max_batch, config="paper-default", device="cuda",
+                          stream_input=stream_input)
+        ran = "bg_fused_streamed_launches" if st["backend"] == "fused_streamed" else "bg_fused_launches"
+        idle = "bg_fused_launches" if ran == "bg_fused_streamed_launches" else "bg_fused_streamed_launches"
+        per = -(-max_batch // st["batch_tile"])  # 32 frames: 4 dispatches of 8
+        pinned = {None: st["backend"], True: "fused_streamed", False: "fused"}[stream_input]
+        check(st[ran] == st["dispatches"] * per and st[ran] > 0 and st[idle] == 0 and st["provenance"] == "model"
+              and st["backend"] == pinned, f"serve_frames: {st}")
+        emit({"phase": "serve", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "stream_input": stream_input,
+              "card": smi, **st})
     vstats = serve_video(4, 24, H, W, alpha=0.6, config="paper-default", device="cuda")
     check(vstats["failed"] == vstats["shed"] == 0, f"serve_video: {vstats}")
+    check(vstats["retries"] == vstats["fallbacks"] == vstats["watchdog_trips"] == 0, f"serve_video: {vstats}")
     emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})
 
     print(smi, flush=True)

@@ -19,18 +19,21 @@ Ported (the frame- and video-serving paths at full width):
   * ``plan``: ``BGPlan`` with the ``"reference"``, ``"fused"``,
     ``"fused_streamed"`` and ``"staged"`` backends, per frame and temporal,
     fp32 and (but ``"staged"``, as in the JAX package) bf16 storage, one
-    device, JSON payloads shared with the JAX package;
+    device, JSON payloads and hashes shared with the JAX package; its
+    fallback ladder, provenance and dispatch hook; ``plan_for`` on an H100
+    cost model; ``plan_cache``, the measured-plan cache and its CLI;
   * ``video``: ``temporal_denoise``, ``blurred_grid_batch``,
     ``StreamSession`` and ``MultiStreamPacker`` (carry snapshots shared
     with the JAX package);
   * ``serving``: ``FrameDenoiseEngine`` and ``AsyncFrameEngine`` (futures,
     deadline micro-batching, pinned host-to-device feeding, output and
-    carry guards); ``reliability``: the structured errors and the guards;
+    carry guards, guarded dispatch: retries, the fallback ladder, the
+    watchdog, fault injection); ``reliability``: the structured errors, the
+    guards, retry and breakers, fault injection;
   * ``data.pipeline.denoise_batch``, ``data.synthetic_video``,
     ``configs.bg_denoise`` and ``launch.serve --frames`` (``--stream-input``)
     / ``--video``.
 
-Not ported yet: the ``"streaming"`` backend (no kernel), plan tuning and the plan cache, mesh sharding, the rest of reliability
-(retries, the fallback ladder, the watchdog, fault injection), the fleet,
-and the LM substrate.
+Not ported yet: the ``"streaming"`` backend (no kernel), mesh sharding,
+the fleet (and with it the transport faults), and the LM substrate.
 """

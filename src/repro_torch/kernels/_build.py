@@ -20,7 +20,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+from repro_torch.reliability.errors import KernelBuildError, KernelLaunchError
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "build_log", "check", "load"]
 
@@ -45,7 +47,7 @@ def _nvcc() -> str:
     path = Path(cuda_home) / "bin" / "nvcc"
     if path.exists():
         return str(path)
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found on PATH or under CUDA_HOME; the port's CUDA kernels "
         "are built on the machine with the card"
     )
@@ -77,7 +79,8 @@ def _target(name: str) -> Path:
 def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every named source that is not cached yet, one nvcc process
     each, all started together; returns ``{name: library path}``. Raises
-    ``RuntimeError`` with nvcc's output if any build fails."""
+    ``KernelBuildError`` (a ``RuntimeError``) with nvcc's output if any
+    build fails."""
     names = list(names)
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
@@ -101,7 +104,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
             todo[n].with_suffix(".log").write_text(log)
             os.replace(tmp, todo[n])  # atomic: concurrent builds agree
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelBuildError("\n".join(failed))
     return targets
 
 
@@ -110,22 +113,39 @@ def build_log(name: str) -> str:
     return _target(name).with_suffix(".log").read_text()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed.
-    Every source exports ``<name>_error_string(int)``, bound here."""
+def load(name: str, signatures: Optional[Dict[str, tuple]] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed, with
+    every entry point of ``signatures`` (``{symbol: (argtypes, restype)}``)
+    bound. Every source exports ``<name>_error_string(int)``, bound here.
+    Raises ``KernelBuildError`` when the library does not load or lacks an
+    entry point."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
-            fn = getattr(lib, f"{name}_error_string")
-            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+            path = build_all([name])[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                raise KernelBuildError(f"{name}: cannot load {path.name}: {exc}") from exc
+            _bind(lib, name, {f"{name}_error_string": ([ctypes.c_int], ctypes.c_char_p)})
             _libs[name] = lib
+        _bind(lib, name, signatures or {})
         return lib
 
 
+def _bind(lib: ctypes.CDLL, name: str, signatures: Dict[str, tuple]) -> None:
+    for symbol, (argtypes, restype) in signatures.items():
+        try:
+            fn = getattr(lib, symbol)
+        except AttributeError as exc:
+            raise KernelBuildError(f"{name}: the library has no entry point {symbol}") from exc
+        fn.argtypes, fn.restype = argtypes, restype
+
+
 def check(name: str, err: int) -> None:
-    """Raise ``RuntimeError`` unless ``err`` (the ``cudaGetLastError()`` a
-    launch function of ``csrc/<name>.cu`` returned) is 0."""
+    """Raise ``KernelLaunchError`` (a ``RuntimeError``) unless ``err`` (the
+    ``cudaGetLastError()`` a launch function of ``csrc/<name>.cu``
+    returned) is 0."""
     if err != 0:
         msg = getattr(_libs[name], f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+        raise KernelLaunchError(f"{name} launch failed: CUDA error {err} ({msg})")

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.reliability.errors import KernelLaunchError
+
 from . import _build, _wrap
 from .common import BGConfig, conv3_axis, taps_np
 
@@ -113,13 +115,8 @@ class BlurShape(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bg_blur_launch.argtypes = [p] * 4
-    lib.bg_blur_launch.restype = i
-    lib.bg_blur_smem_optin.argtypes = [i]
-    lib.bg_blur_smem_optin.restype = i
-    return lib
+    return _build.load(KERNEL, {"bg_blur_launch": ([p] * 4, i), "bg_blur_smem_optin": ([i], i)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,7 +124,7 @@ def _device_limits(index: int) -> Tuple[int, int]:
     """(SM count, opt-in shared memory per block) of CUDA device ``index``."""
     smem = _lib().bg_blur_smem_optin(index)
     if smem <= 0:
-        raise RuntimeError(f"bg_blur: cannot query shared memory of cuda:{index}")
+        raise KernelLaunchError(f"bg_blur: cannot query shared memory of cuda:{index}")
     return torch.cuda.get_device_properties(index).multi_processor_count, smem
 
 

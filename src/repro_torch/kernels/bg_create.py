@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.reliability.errors import KernelLaunchError
+
 from . import _build, _wrap
 from .common import BGConfig, gc_cells, gc_row_split, grid_shape
 
@@ -187,13 +189,8 @@ class CreateShape(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bg_create_launch.argtypes = [p] * 4
-    lib.bg_create_launch.restype = i
-    lib.bg_create_smem_optin.argtypes = [i]
-    lib.bg_create_smem_optin.restype = i
-    return lib
+    return _build.load(KERNEL, {"bg_create_launch": ([p] * 4, i), "bg_create_smem_optin": ([i], i)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -201,7 +198,7 @@ def _device_limits(index: int) -> Tuple[int, int]:
     """(SM count, opt-in shared memory per block) of CUDA device ``index``."""
     smem = _lib().bg_create_smem_optin(index)
     if smem <= 0:
-        raise RuntimeError(f"bg_create: cannot query shared memory of cuda:{index}")
+        raise KernelLaunchError(f"bg_create: cannot query shared memory of cuda:{index}")
     return torch.cuda.get_device_properties(index).multi_processor_count, smem
 
 

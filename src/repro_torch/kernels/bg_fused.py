@@ -74,6 +74,8 @@ import torch
 
 from repro_torch.core.bilateral_grid import grid_normalize
 
+from repro_torch.reliability.errors import KernelLaunchError
+
 from . import _build, _wrap
 from .bg_blur import bg_blur_plain
 from .bg_create import bg_create_plain
@@ -412,19 +414,14 @@ class LaunchShape(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bg_fused_launch.argtypes = [p] * 6
-    lib.bg_fused_launch.restype = i
-    lib.bg_fused_temporal_launch.argtypes = [p] * 9
-    lib.bg_fused_temporal_launch.restype = i
-    lib.bg_fused_bf16_launch.argtypes = [p] * 6
-    lib.bg_fused_bf16_launch.restype = i
-    lib.bg_fused_temporal_bf16_launch.argtypes = [p] * 9
-    lib.bg_fused_temporal_bf16_launch.restype = i
-    lib.bg_fused_smem_optin.argtypes = [i]
-    lib.bg_fused_smem_optin.restype = i
-    return lib
+    return _build.load(KERNEL, {
+        "bg_fused_launch": ([p] * 6, i),
+        "bg_fused_temporal_launch": ([p] * 9, i),
+        "bg_fused_bf16_launch": ([p] * 6, i),
+        "bg_fused_temporal_bf16_launch": ([p] * 9, i),
+        "bg_fused_smem_optin": ([i], i),
+    })
 
 
 class StreamShape(ctypes.Structure):
@@ -439,11 +436,9 @@ class StreamShape(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _stream_lib() -> ctypes.CDLL:
-    lib = _build.load(STREAM_KERNEL)
-    for fn in (lib.bg_fused_streamed_launch, lib.bg_fused_streamed_bf16_launch):
-        fn.argtypes = [ctypes.c_void_p] * 6
-        fn.restype = ctypes.c_int
-    return lib
+    sig = ([ctypes.c_void_p] * 6, ctypes.c_int)
+    return _build.load(STREAM_KERNEL, {"bg_fused_streamed_launch": sig,
+                                       "bg_fused_streamed_bf16_launch": sig})
 
 
 @functools.lru_cache(maxsize=None)
@@ -451,7 +446,7 @@ def _device_limits(index: int) -> Tuple[int, int]:
     """(SM count, opt-in shared memory per block) of CUDA device ``index``."""
     smem = _lib().bg_fused_smem_optin(index)
     if smem <= 0:
-        raise RuntimeError(f"bg_fused: cannot query shared memory of cuda:{index}")
+        raise KernelLaunchError(f"bg_fused: cannot query shared memory of cuda:{index}")
     return torch.cuda.get_device_properties(index).multi_processor_count, smem
 
 

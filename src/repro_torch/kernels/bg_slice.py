@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.reliability.errors import KernelLaunchError
+
 from . import _build, _wrap
 from .common import BGConfig, grid_shape, ti_col_fracs
 
@@ -170,12 +172,9 @@ class SliceShape(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    lib.bg_slice_launch.argtypes = [ctypes.c_void_p] * 7
-    lib.bg_slice_launch.restype = ctypes.c_int
-    lib.bg_slice_smem_optin.argtypes = [ctypes.c_int]
-    lib.bg_slice_smem_optin.restype = ctypes.c_int
-    return lib
+    i = ctypes.c_int
+    return _build.load(KERNEL, {"bg_slice_launch": ([ctypes.c_void_p] * 7, i),
+                                "bg_slice_smem_optin": ([i], i)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,7 +182,7 @@ def _smem_limit(index: int) -> int:
     """Opt-in shared memory per block of CUDA device ``index``."""
     smem = _lib().bg_slice_smem_optin(index)
     if smem <= 0:
-        raise RuntimeError(f"{KERNEL}: cannot query shared memory of cuda:{index}")
+        raise KernelLaunchError(f"{KERNEL}: cannot query shared memory of cuda:{index}")
     return smem
 
 

@@ -12,6 +12,12 @@ async engine and the multi-stream packer, on one device.
     python -m repro_torch.launch.serve --video 2 --video-frames 3 \\
         --frame-hw 36x48 --device cpu
 
+Both modes build their plan with ``plan_for`` (the JAX launcher's route):
+the measured-plan cache, else the cost model, picks backend and batch tile
+(fp32; ``--stream-input`` pins ``"fused_streamed"``), and the printed
+``plan[...]`` names the route it came from (``src=cache``, ``src=model`` or
+``src=explicit``). The frame mode asks for a micro-batch of
+``--micro-batch`` frames, where the JAX launcher leaves the pack size open.
 The JAX launcher's ``--workers`` and LM modes are not ported yet.
 """
 from __future__ import annotations
@@ -32,28 +38,29 @@ def serve_frames(
     micro_batch: int = 8,
     config: str = "serve",
     device=None,
-    stream_input: bool = False,
+    stream_input: bool | None = None,
 ) -> dict:
     """Serve ``frames`` synthetic noisy frames (made on the host, as clients
-    would send them) through the ``"fused"`` plan, or the
-    ``"fused_streamed"`` one with ``stream_input`` (the JAX launcher's
-    ``--stream-input``), and return ``{"frames", "seconds", "frames_per_s",
-    "dispatches", "backend", "bg_fused_launches",
-    "bg_fused_streamed_launches", "device", "plan"}``, the launches counted
-    over the timed run. The timed loop starts after one warm-up micro-batch
-    and ends when the last result is on hand (``torch.cuda.synchronize`` on
-    a card)."""
+    would send them) through the plan ``plan_for`` gives for micro-batches
+    of ``micro_batch`` frames, and return ``{"frames",
+    "seconds", "frames_per_s", "dispatches", "backend", "batch_tile",
+    "provenance", "bg_fused_launches", "bg_fused_streamed_launches",
+    "device", "plan"}``, the launches counted over the timed run.
+    ``stream_input`` goes to ``plan_for`` as it is: ``None`` lets the plan
+    layer choose, ``True`` (the JAX launcher's ``--stream-input``) pins
+    ``"fused_streamed"``, ``False`` pins ``"fused"``. The timed loop starts
+    after one warm-up micro-batch and ends when the last result is on hand
+    (``torch.cuda.synchronize`` on a card)."""
     from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
     from repro_torch.core import add_gaussian_noise, synthetic_batch
     from repro_torch.kernels import bg_fused
-    from repro_torch.plan import BGPlan
+    from repro_torch.plan import plan_for
     from repro_torch.serving import FrameDenoiseEngine, FrameRequest
 
     if config not in CONFIGS:
         raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
     cfg = PAPER_DEFAULT.bg if config == "paper-default" else SERVE_CONFIG
-    backend = "fused_streamed" if stream_input else "fused"
-    plan = BGPlan(cfg=cfg, backend=backend, device=device)
+    plan = plan_for(cfg, height, width, n_frames=micro_batch, stream_input=stream_input, device=device)
     eng = FrameDenoiseEngine(plan=plan, max_batch=micro_batch)
     clean = synthetic_batch(frames, height, width, seed=0, device="cpu")
     noisy = add_gaussian_noise(
@@ -90,6 +97,8 @@ def serve_frames(
         "frames_per_s": frames / dt,
         "dispatches": dispatches,
         "backend": plan.backend,
+        "batch_tile": plan.batch_tile,
+        "provenance": plan.provenance,
         "bg_fused_launches": bg_fused.launches - b1,
         "bg_fused_streamed_launches": bg_fused.streamed_launches - b3,
         "device": str(plan.device),
@@ -117,14 +126,15 @@ def serve_video(
     deadline). The traffic is made on the host first, as clients would
     send it; one pack through a throwaway engine warms the kernels up.
 
+    The plan is ``plan_for``'s for packs of ``streams`` temporal frames.
     Returns frames/s, fps per stream, p50/p99 latency (submit to
     completion), dispatches, mean batch, deadline misses, shed and failed
-    requests, and the per-frame (B1) and temporal (B2) kernel launches of
-    the timed run."""
+    requests, the engine's retries, fallbacks and watchdog trips, and the
+    per-frame (B1) and temporal (B2) kernel launches of the timed run."""
     from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
     from repro_torch.data import synthetic_video_np
     from repro_torch.kernels import bg_fused
-    from repro_torch.plan import BGPlan
+    from repro_torch.plan import plan_for
     from repro_torch.serving import AsyncFrameEngine
     from repro_torch.video import MultiStreamPacker
 
@@ -137,7 +147,7 @@ def serve_video(
         vid = synthetic_video_np(s, frames_per_stream, height, width, motion=1.5)
         noisy = vid + rng.normal(0.0, 30.0, vid.shape)
         traffic.append(np.clip(np.floor(noisy + 0.5), 0.0, 255.0).astype(np.float32))
-    plan = BGPlan(cfg, backend="fused", temporal=False, device=device)
+    plan = plan_for(cfg, height, width, n_frames=streams, temporal=True, device=device)
 
     def engine():
         packer = MultiStreamPacker(plan=plan)
@@ -179,6 +189,9 @@ def serve_video(
         "deadline_misses": st.deadline_misses,
         "shed": st.shed,
         "failed": st.failed,
+        "retries": st.retries,
+        "fallbacks": st.fallbacks,
+        "watchdog_trips": st.watchdog_trips,
         "bg_fused_launches": bg_fused.launches - b1,
         "bg_fused_temporal_launches": bg_fused.temporal_launches - b2,
         "device": str(plan.device),
@@ -220,12 +233,14 @@ def main(argv=None) -> None:
             f"p50={st['latency_ms_p50']:.1f}ms p99={st['latency_ms_p99']:.1f}ms "
             f"dispatches={st['dispatches']} mean_batch={st['mean_batch']:.1f} "
             f"deadline_misses={st['deadline_misses']} shed={st['shed']} "
-            f"failed={st['failed']} launches b1={st['bg_fused_launches']} "
+            f"failed={st['failed']} retries={st['retries']} fallbacks={st['fallbacks']} "
+            f"watchdog_trips={st['watchdog_trips']} launches b1={st['bg_fused_launches']} "
             f"b2={st['bg_fused_temporal_launches']} plan[{st['plan']}]"
         )
         return
     stats = serve_frames(
-        args.frames, h, w, args.micro_batch, args.config, args.device, args.stream_input
+        args.frames, h, w, args.micro_batch, args.config, args.device,
+        True if args.stream_input else None,
     )
     print(
         f"[serve] {stats['frames']} frames {h}x{w} on {stats['device']} "

@@ -1,5 +1,6 @@
-"""Execution plans for the bilateral-grid pipeline (``BGPlan``), narrowed to
-what the port runs so far.
+"""Execution plans for the bilateral-grid pipeline (``BGPlan``), their
+selection (``plan_for`` on an H100 cost model and the measured-plan cache)
+and the fallback ladder the guarded engines dispatch down.
 
 A :class:`BGPlan` is one frozen, hashable record of every dispatch decision,
 validated once at construction. Calling a plan runs its cached executable;
@@ -38,12 +39,64 @@ plan the JAX package rejects is rejected here with the same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
 raises when there is none; ``device="cpu"`` runs the plain versions.
+
+Plan selection (:func:`plan_for`)
+---------------------------------
+``plan_for`` resolves the free decisions (``"fused"`` or
+``"fused_streamed"``, ``batch_tile``, and with ``precision="auto"`` the
+storage type) in the JAX package's order: pinned arguments first (provenance
+``"explicit"``), then the measured-plan cache (:mod:`repro_torch.plan_cache`,
+``"cache"``), then the cost model below (``"model"``). A plan built directly
+has provenance ``"default"``. It never picks ``"staged"`` or
+``"reference"``; they are reachable when pinned.
+
+The batch tile rule (:func:`auto_batch_tile`). On the TPU the tile was
+bounded by a per-step VMEM budget. On the H100 a block's shared memory does
+not grow with the batch: ``launch_geometry`` and ``stream_geometry`` cut
+band, rows and column tile to fit, and raise ``ValueError`` (naming the
+bytes) only when one stripe of one cell does not fit. So the largest legal
+tile is the whole pack, capped at ``MAX_AUTO_TILE`` (64, the JAX package's
+cap, kept as the top of the candidate ladder, not as a memory rule), and the
+rule raises where the geometry raises.
+
+The H100 cost model (:func:`plan_cost_breakdown`). Per dispatch of ``b``
+frames of ``h x w``, on one H100 SXM (``HBM_BYTES_PER_S``,
+``FP32_FLOPS_PER_S``):
+
+  compute_s   the kernels' operations (:func:`fused_work`, the counts
+              ``chip_smoke.py`` takes its bounds from) over the fp32 rate.
+  memory_s    the bytes the dispatch moves over the HBM rate: the kernels'
+              inputs read once and outputs written once (:func:`fused_work`),
+              plus the frame's second read in B1 and B2 (GC and TI each read
+              it; B3 reads it once), plus under bf16 the plan's two casts
+              (frames to bf16 before the kernel, the output back to float32).
+  overhead_s  ``FRAME_OVERHEAD_S`` per frame (the quantization pass, and
+              what a kernel spends per frame above its bytes),
+              ``LAUNCH_OVERHEAD_S`` per kernel launch (host work per wrapper
+              call, and a small launch filling the card poorly),
+              ``STREAM_LAUNCH_OVERHEAD_S`` more per B3 launch. There is no
+              term per dispatch: fitted beside these, it came out 0.
+
+``total_s`` (the sum) ranks candidates; ``bound_s`` is the roofline
+``max(compute, memory)``. ``steps`` counts kernel launches. The overhead
+constants are fitted on the card by least squares over the measured
+candidates of ``chip_smoke.py``'s ``plan_sweep`` phase (each constant names
+its card and power limit). :func:`plan_cost_measured` times a plan's
+dispatch on its device: the sweep's measurement.
+
+Guarded dispatch: :meth:`BGPlan.fallback_ladder` gives the rungs
+``repro_torch.reliability.GuardedDispatch`` walks, and
+:func:`set_dispatch_hook` installs a host-side hook run at the top of every
+``BGPlan.__call__`` (fault injection, tracing).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Union
+import hashlib
+import json
+import time
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,19 +105,229 @@ from repro_torch._device import resolve_device
 from repro_torch.core.bilateral_grid import (
     BGConfig,
     bilateral_grid_filter,
+    grid_shape,
     quantize_intensity,
 )
 from repro_torch.kernels.common import PRECISIONS, precision_bytes, round_storage, storage_dtype
 
-__all__ = ["BGPlan", "BACKENDS", "PRECISIONS", "PORTED_BACKENDS", "precision_bytes"]
+__all__ = [
+    "BGPlan",
+    "BACKENDS",
+    "PRECISIONS",
+    "PORTED_BACKENDS",
+    "precision_bytes",
+    "plan_for",
+    "plan_cost",
+    "plan_cost_breakdown",
+    "plan_cost_measured",
+    "candidate_plans",
+    "auto_batch_tile",
+    "fused_work",
+    "staged_work",
+    "set_dispatch_hook",
+    "MAX_AUTO_TILE",
+    "HBM_BYTES_PER_S",
+    "FP32_FLOPS_PER_S",
+    "FRAME_OVERHEAD_S",
+    "LAUNCH_OVERHEAD_S",
+    "STREAM_LAUNCH_OVERHEAD_S",
+]
 
 # the JAX package's names, so its plans validate here the same way
 BACKENDS = ("reference", "streaming", "staged", "fused", "fused_streamed")
 _KERNEL_BACKENDS = ("staged", "fused", "fused_streamed")
 _FUSED_BACKENDS = ("fused", "fused_streamed")
+_MESH_BACKENDS = ("streaming", "fused", "fused_streamed")
 _TEMPORAL_BACKENDS = ("reference", "fused")
 _BF16_BACKENDS = ("reference", "fused", "fused_streamed")
 PORTED_BACKENDS = ("reference", "fused", "fused_streamed", "staged")
+
+# ------------------------------------------------------- the H100 cost model
+# One H100 SXM: HBM rate and fp32 rate outside the tensor cores (data sheet).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# Streaming multiprocessors of the H100 SXM; only the band split of the
+# geometry rules reads it (auto_batch_tile's check does not depend on it).
+H100_SMS = 132
+# Top of the batch-tile ladder (the JAX package's MAX_AUTO_TILE).
+MAX_AUTO_TILE = 64
+# Overhead terms (module docstring), fitted by least squares (no intercept,
+# clipped at 0) over the 54 candidates of the five fitting workloads of
+# chip_smoke.py's plan_sweep phase at 1080x1920 on an NVIDIA H100 80GB HBM3,
+# 700.00 W (residual 34.90 us rms). Not fitted to its three held-out
+# workloads, where the phase reads the model's regret.
+FRAME_OVERHEAD_S = 36.15e-6  # H100 80GB HBM3, 700.00 W
+LAUNCH_OVERHEAD_S = 19.72e-6  # H100 80GB HBM3, 700.00 W
+STREAM_LAUNCH_OVERHEAD_S = 4.44e-6  # H100 80GB HBM3, 700.00 W
+# The batch-tile candidates the model ranks: powers of two below the cap,
+# plus the cap itself.
+_TILE_LADDER = (1, 2, 4, 8, 16, 32, 64)
+
+
+def fused_work(b: int, h: int, w: int, cfg: BGConfig, esize: int = 4,
+               temporal: bool = False) -> Tuple[int, int]:
+    """(bytes, operations) of the fused filter (B1, B3; ``temporal``: B2) on
+    ``b`` frames of ``esize``-byte pixels (4 fp32, 2 bf16), each input read
+    once and each output written once (the TI fractions are fp32), against
+    the operations of separable GC / GF / TI: 32 per pixel (5 in GC, 27 in
+    TI) and 33 per grid cell (GF and normalization). The temporal kernel
+    adds the carry read and written (2 x esize bytes per cell and channel),
+    the fp32 alpha, and 6 operations per cell for the blend of both
+    channels. ``chip_smoke.py`` takes its bounds from these counts."""
+    gx, gy, gz = grid_shape(h, w, cfg)
+    cells = gx * gy * gz
+    nbytes = b * h * w * esize * 2 + (w + cfg.r) * 4
+    flops = b * (32 * h * w + 33 * cells)
+    if temporal:
+        nbytes += b * (2 * cells * 2 * esize + 4)
+        flops += b * 6 * cells
+    return nbytes, flops
+
+
+def staged_work(b: int, h: int, w: int, cfg: BGConfig) -> Dict[str, Tuple[int, int]]:
+    """{kernel: (bytes, operations)} of the staged kernels on ``b`` frames,
+    each input read once and each output written once: B4 reads the frames
+    and writes the (count, sum) grid (5 operations per pixel); B5 reads and
+    writes that grid (15 per value: 3 taps along 3 axes); B6 reads the
+    frames and the scalar grid and writes the frames (27 per pixel)."""
+    gx, gy, gz = grid_shape(h, w, cfg)
+    img, cells = h * w * 4, gx * gy * gz
+    return {"B4": (b * (img + cells * 8), b * 5 * h * w),
+            "B5": (b * 2 * cells * 8, b * 15 * cells * 2),
+            "B6": (b * (2 * img + cells * 4) + (w + cfg.r) * 4, b * 27 * h * w)}
+
+
+def auto_batch_tile(
+    cfg: BGConfig,
+    h: int,
+    w: int,
+    n_frames: Optional[int] = None,
+    *,
+    stream_input: bool = False,
+    mesh_size: int = 1,
+    temporal: bool = False,
+    precision: str = "fp32",
+) -> int:
+    """The largest legal batch tile on the H100 (module docstring): the
+    per-device share of the pack ``ceil(n_frames / mesh_size)``, capped at
+    ``MAX_AUTO_TILE`` (the cap alone when the pack size is unknown).
+
+    Raises ``ValueError`` as ``launch_geometry`` (``stream_input``:
+    ``stream_geometry``) raises, when one stripe of one column cell of an
+    ``h x w`` frame does not fit a block's shared memory on the card.
+    """
+    from repro_torch.kernels.bg_fused import H100_SMEM_OPTIN, launch_geometry, stream_geometry
+
+    esize = precision_bytes(precision)
+    if stream_input:
+        stream_geometry(1, h, w, cfg, H100_SMS, H100_SMEM_OPTIN, esize=esize)
+    else:
+        launch_geometry(1, h, w, cfg, H100_SMS, H100_SMEM_OPTIN, temporal=temporal, esize=esize)
+    bt = MAX_AUTO_TILE
+    if n_frames is not None:
+        bt = min(bt, -(-int(n_frames) // max(1, mesh_size)))
+    return int(max(1, bt))
+
+
+def plan_cost_breakdown(plan: "BGPlan", h: int, w: int,
+                        n_frames: Optional[int] = None) -> dict:
+    """Term-by-term H100 estimate for dispatching ``plan`` on ``(n_frames, h,
+    w)`` frames (module docstring). Returns ``flops``, ``hbm_bytes``,
+    ``steps`` (kernel launches), ``compute_s``, ``memory_s``,
+    ``overhead_s``, ``bound_s`` (``max(compute, memory)``) and ``total_s``
+    (the sum that ranks candidates). Covers the kernel backends only:
+    ``"reference"``, which :func:`plan_for` never ranks, raises
+    ``ValueError``."""
+    cfg = plan.cfg
+    b = 1 if n_frames is None else max(1, int(n_frames))
+    gx, gy, gz = grid_shape(h, w, cfg)
+    cells = gx * gy * gz
+    esize = precision_bytes(plan.precision)
+    if plan.backend in _FUSED_BACKENDS:
+        steps = -(-b // plan.tile_for(b))
+        hbm, flops = fused_work(b, h, w, cfg, esize, plan.temporal)
+        hbm += (steps - 1) * (w + cfg.r) * 4  # each launch reads the TI fractions
+        if plan.backend == "fused":
+            hbm += b * h * w * esize  # GC and TI each read the frame
+        if plan.precision == "bf16":
+            hbm += b * h * w * 2 * (4 + esize)  # the cast in and the cast out
+        overhead = LAUNCH_OVERHEAD_S * steps
+        if plan.backend == "fused_streamed":
+            overhead += STREAM_LAUNCH_OVERHEAD_S * steps
+    elif plan.backend == "staged":
+        work = staged_work(b, h, w, cfg).values()
+        hbm = sum(nb for nb, _ in work) + b * cells * 12  # normalize: 2 in, 1 out
+        flops = sum(fl for _, fl in work) + b * cells
+        steps = 4  # B4, B5, the normalization, B6
+        overhead = LAUNCH_OVERHEAD_S * steps
+    else:
+        raise ValueError(
+            f"the H100 cost model covers the kernel backends {_KERNEL_BACKENDS}; "
+            f"{plan.backend!r} is never ranked (plan_cost_measured times any plan)"
+        )
+    overhead += FRAME_OVERHEAD_S * b
+    compute_s = flops / FP32_FLOPS_PER_S
+    memory_s = hbm / HBM_BYTES_PER_S
+    return {
+        "flops": float(flops),
+        "hbm_bytes": float(hbm),
+        "steps": int(steps),
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "overhead_s": overhead,
+        "bound_s": max(compute_s, memory_s),
+        "total_s": compute_s + memory_s + overhead,
+    }
+
+
+def plan_cost(plan: "BGPlan", h: int, w: int, n_frames: Optional[int] = None) -> float:
+    """Predicted seconds to dispatch ``plan`` on ``(n_frames, h, w)`` frames:
+    the ranking key :func:`plan_for` minimizes."""
+    return plan_cost_breakdown(plan, h, w, n_frames)["total_s"]
+
+
+def plan_cost_measured(plan: "BGPlan", h: int, w: int, n_frames: int = 1, reps: int = 20,
+                       *, frames: Optional[torch.Tensor] = None, warmup: int = 3) -> float:
+    """Measured seconds per dispatch of ``plan`` on ``(n_frames, h, w)``
+    frames (``frames``, or random 8-bit frames made on the plan's device):
+    the mean of ``reps`` back-to-back calls after ``warmup`` calls, timed by
+    CUDA events on a card (the host's launch work included where it is the
+    slower side), by the host clock on the CPU. A temporal plan is timed on
+    a carry it warmed itself, at alpha 0.6. This replaces the JAX package's
+    ``plan_cost_hlo``, which compiled XLA HLO."""
+    dev = plan.device
+    if frames is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        frames = torch.floor(torch.rand((n_frames, h, w), generator=gen, device=dev) * 256.0)
+    frames = frames.to(dev, torch.float32).contiguous()
+    if plan.temporal:
+        n = frames.shape[0]
+        zero = torch.zeros((n, *grid_shape(h, w, plan.cfg), 2), dtype=plan.storage_dtype, device=dev)
+        carry = plan(frames, carry=zero, alpha=torch.zeros(n, device=dev))[1]
+        alpha = torch.full((n,), 0.6, device=dev)
+
+        def call():
+            return plan(frames, carry=carry, alpha=alpha)
+    else:
+
+        def call():
+            return plan(frames)
+
+    for _ in range(warmup):
+        call()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    return (time.perf_counter() - t0) / reps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +450,26 @@ class BGPlan:
             return self
         return _variant(self, "temporal", temporal)
 
+    def fallback_ladder(self) -> Tuple["BGPlan", ...]:
+        """The degradation ladder for fault-tolerant serving: this plan
+        first, then simpler variants, each on this plan's device. On the
+        CPU it is the JAX package's (``fused_streamed -> fused ->
+        reference``; any other backend falls straight to ``reference``).
+        On a card it ends at the last kernel rung (``fused_streamed ->
+        fused``; any other backend alone): the ``reference`` rung there
+        would answer a failed kernel from plain PyTorch on the card, so a
+        card plan never degrades past its kernels. ``temporal`` and
+        ``precision`` survive every rung (``fused`` and ``reference`` both
+        carry the grid EMA and both storage types); a ``reference`` rung's
+        ``batch_tile`` normalizes away. Consumed by
+        ``repro_torch.reliability.GuardedDispatch``."""
+        ladder = [self]
+        if self.backend == "fused_streamed":
+            ladder.append(self.with_options(backend="fused"))
+        if self.backend != "reference" and self.device.type == "cpu":
+            ladder.append(self.with_options(backend="reference", batch_tile=None))
+        return tuple(ladder)
+
     # -------------------------------------------------------- serialization
     def to_json(self) -> dict:
         """The JAX package's version-1 payload (``repro.plan.BGPlan.to_json``).
@@ -225,11 +508,28 @@ class BGPlan:
             device=device,
         )
 
+    def plan_hash(self) -> str:
+        """Stable hex digest of :meth:`to_json`: the JAX package's hash of an
+        equal payload, character for character (two hosts agree on a
+        dispatch recipe when their hashes match)."""
+        payload = json.dumps(self.to_json(), sort_keys=True, separators=(",", ":"))
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+    @property
+    def provenance(self) -> str:
+        """How this plan was chosen: ``"cache"`` (measured-plan cache hit),
+        ``"model"`` (ranked by the cost model in :func:`plan_for`),
+        ``"explicit"`` (``plan_for`` with every free decision pinned) or
+        ``"default"`` (constructed directly). Not part of equality or the
+        hash."""
+        return self.__dict__.get("_provenance", "default")
+
     def describe(self) -> str:
         """One-line dispatch summary for logs."""
         return (
-            f"backend={self.backend} temporal={self.temporal} "
-            f"bt={self.batch_tile} prec={self.precision} device={self.device}"
+            f"backend={self.backend} bt={self.batch_tile} mesh=1 "
+            f"temporal={int(self.temporal)} prec={self.precision} "
+            f"src={self.provenance} device={self.device}"
         )
 
     # ------------------------------------------------------------- dispatch
@@ -248,9 +548,15 @@ class BGPlan:
         A temporal plan takes (h, w) or (n, h, w) frames with ``carry`` (the
         ``(n, gx, gy, gz, 2)`` carries, moved to the device in the storage
         type, as the JAX package's ``carry.astype(sdt)``) and ``alpha`` and
-        returns ``(out, new_carry)``, the carry in the storage type. A host alpha (scalar, list or numpy) is broadcast to
-        ``(n,)`` and range-checked here, once; a tensor alpha is trusted, as
-        checking a device tensor would wait for the card."""
+        returns ``(out, new_carry)``, the carry in the storage type. A host
+        alpha (scalar, list or numpy) is broadcast to ``(n,)`` and
+        range-checked here, once; a tensor alpha is trusted, as checking a
+        device tensor would wait for the card.
+
+        The dispatch hook (:func:`set_dispatch_hook`) runs first; an
+        exception it raises aborts the dispatch."""
+        if _DISPATCH_HOOK is not None:
+            _DISPATCH_HOOK(self)
         frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         if self.temporal:
             if carry is None or alpha is None:
@@ -299,6 +605,186 @@ class BGPlan:
 def _variant(plan: BGPlan, field: str, value) -> BGPlan:
     """``plan`` with one field changed, validated once per distinct value."""
     return dataclasses.replace(plan, **{field: value})
+
+
+# ------------------------------------------------------------------ plan_for
+def candidate_plans(cfg: BGConfig, height: int, width: int, *, n_frames: Optional[int] = None,
+                    temporal: bool = False, backends=("fused", "fused_streamed"),
+                    precisions=PRECISIONS, batch_tile: Optional[int] = None,
+                    quantize_output: bool = True, device=None) -> list:
+    """The grid :func:`plan_for`'s model ranks: ``backends`` x the tile
+    ladder up to :func:`auto_batch_tile` (or the pinned ``batch_tile``) x
+    ``precisions``, in that order, on ``device``. ``chip_smoke.py``'s
+    ``plan_sweep`` times the same grid."""
+    device = resolve_device(device)
+    plans = []
+    for prec in precisions:
+        for be in backends:
+            if batch_tile is not None:
+                tiles = [batch_tile]
+            else:
+                cap = auto_batch_tile(cfg, height, width, n_frames, stream_input=be == "fused_streamed",
+                                      temporal=temporal, precision=prec)
+                tiles = sorted({t for t in _TILE_LADDER if t < cap} | {cap})
+            plans.extend(BGPlan(cfg=cfg, backend=be, temporal=temporal, batch_tile=t,
+                                quantize_output=quantize_output, precision=prec, device=device)
+                         for t in tiles)
+    return plans
+
+
+def _stamp(plan: BGPlan, provenance: str) -> BGPlan:
+    object.__setattr__(plan, "_provenance", provenance)
+    return plan
+
+
+def plan_for(
+    cfg: BGConfig,
+    height: int,
+    width: int,
+    *,
+    n_frames: Optional[int] = None,
+    temporal: bool = False,
+    backend: Optional[str] = None,
+    sharded: Optional[bool] = None,
+    mesh=None,
+    batch_tile: Optional[int] = None,
+    stream_input: Optional[bool] = None,
+    quantize_output: bool = True,
+    precision: Optional[str] = None,
+    cache=None,
+    device=None,
+) -> BGPlan:
+    """Build a concrete :class:`BGPlan` for the given frame geometry (the
+    JAX package's ``plan_for``, on the H100 cost model).
+
+    Free decisions (``"fused"`` or ``"fused_streamed"`` through
+    ``stream_input``, ``batch_tile``) are resolved in order: the
+    measured-plan cache (:mod:`repro_torch.plan_cache`; ``cache=None`` uses
+    the process default, a :class:`~repro_torch.plan_cache.PlanCache` pins
+    one, ``False`` skips the lookup), consulted only when nothing is
+    pinned, then the cost model (:func:`plan_cost`) over every legal
+    candidate. Pinned values skip both; :attr:`BGPlan.provenance` records
+    which route won. Per frame the candidates are ``"fused"`` and
+    ``"fused_streamed"``, temporal ``"fused"`` only, each at the tile ladder
+    up to :func:`auto_batch_tile`; ``"staged"`` and ``"reference"`` are
+    never picked, only pinned.
+
+    ``precision``: ``None`` keeps every candidate fp32 (a numerics decision
+    is never made for the caller), ``"fp32"`` / ``"bf16"`` pin it, ``"auto"``
+    ranks bf16 beside fp32 on the fused family (exact-cost ties keep fp32).
+    A cached bf16 winner is used only under ``"auto"`` or ``"bf16"``.
+
+    ``device`` is the plan's device (``None``: the CUDA card); the cache key
+    carries its fingerprint. The plan is single-device: ``sharded=None``
+    stays on one device whatever ``torch.cuda.device_count()`` says, and
+    ``sharded=True`` or a ``mesh`` raise ``NotImplementedError`` until mesh
+    sharding is ported (``sharded=True`` on a backend that does not shard
+    raises the JAX package's ``ValueError`` first).
+    """
+    if precision not in (None, "auto") and precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be one of {(None, 'auto') + PRECISIONS}, got {precision!r}"
+        )
+    fully_auto = (
+        backend is None and stream_input is None and batch_tile is None
+        and precision in (None, "auto")
+    )
+    if backend is None:
+        if temporal:
+            if stream_input:
+                raise ValueError("stream_input does not compose with a temporal carry")
+            candidates = ("fused",)
+        elif stream_input is None:
+            candidates = ("fused", "fused_streamed")
+        else:
+            candidates = ("fused_streamed",) if stream_input else ("fused",)
+    else:
+        if (
+            stream_input is not None
+            and (backend == "fused_streamed") != bool(stream_input)
+            and backend in _FUSED_BACKENDS
+        ):
+            raise ValueError(f"stream_input={stream_input} contradicts backend={backend!r}")
+        candidates = (backend,)
+
+    mesh_capable = all(b in _MESH_BACKENDS for b in candidates)
+    if sharded and not mesh_capable:
+        raise ValueError(
+            f"sharded=True needs a mesh-capable backend {_MESH_BACKENDS}, got {backend!r}"
+        )
+    if sharded or mesh is not None:
+        raise NotImplementedError("mesh sharding is not yet ported; plans are single-device")
+    device = resolve_device(device)
+
+    def build(be, bt, prec):
+        return BGPlan(cfg=cfg, backend=be, temporal=temporal, batch_tile=bt,
+                      quantize_output=quantize_output, precision=prec, device=device)
+
+    fused_family = all(b in _FUSED_BACKENDS for b in candidates)
+    if precision == "bf16":
+        precisions = ("bf16",)
+    elif precision == "auto" and fused_family:
+        precisions = ("fp32", "bf16")
+    else:
+        precisions = ("fp32",)
+
+    if (len(candidates) == 1 and len(precisions) == 1
+            and (batch_tile is not None or not fused_family)):
+        # every decision pinned (or a backend with none to make)
+        return _stamp(build(candidates[0], batch_tile, precisions[0]), "explicit")
+
+    # ---- the measured-plan cache (fully automatic calls only: a cached
+    # entry is a complete decision and must not override a pinned argument)
+    if fully_auto and cache is not False:
+        from repro_torch.plan_cache import get_default_cache, workload_key
+
+        pc = get_default_cache() if cache is None else cache
+        ent = pc.lookup(workload_key(cfg, height, width, n_frames, temporal, 1, device=device))
+        if ent is not None:
+            try:
+                pj = ent["plan"]
+                be, bt = pj["backend"], pj.get("batch_tile")
+                prec = pj.get("precision", "fp32")
+                # a cached bf16 winner must not reach a caller that did not
+                # opt into reduced precision
+                if be in candidates and prec in precisions:
+                    return _stamp(build(be, bt, prec), "cache")
+            except (KeyError, TypeError, ValueError):
+                pass  # stale or incompatible entry: the model decides
+
+    # ---- the cost model over the legal candidate grid
+    plans = candidate_plans(cfg, height, width, n_frames=n_frames, temporal=temporal,
+                            backends=candidates, precisions=precisions, batch_tile=batch_tile,
+                            quantize_output=quantize_output, device=device)
+    n_eval = int(n_frames) if n_frames is not None else max(p.batch_tile for p in plans)
+    best = min(
+        plans,
+        key=lambda p: (
+            plan_cost(p, height, width, n_eval),
+            p.precision != "fp32",  # exact tie: precision costs quality
+            p.backend != "fused",  # exact tie: the simpler kernel
+            -p.batch_tile,
+        ),
+    )
+    return _stamp(best, "model")
+
+
+# ------------------------------------------------------------ dispatch hook
+# One process-wide host-side hook run at the top of every BGPlan.__call__,
+# before any device work: the integration point for fault injection
+# (FaultInjector.plan_hook) and tracing. None (the default) costs one global
+# load per dispatch.
+_DISPATCH_HOOK = None
+
+
+def set_dispatch_hook(hook):
+    """Install ``hook(plan)`` as the global pre-dispatch hook; returns the
+    previous hook (restore it when done; ``FaultInjector.plan_hook`` is the
+    context-managed form). Pass ``None`` to clear."""
+    global _DISPATCH_HOOK
+    prev = _DISPATCH_HOOK
+    _DISPATCH_HOOK = hook
+    return prev
 
 
 @functools.lru_cache(maxsize=256)

@@ -31,14 +31,42 @@ same-stream repeat is deferred to the next batch. Every pack is one
 dispatch: the temporal kernel B2 when a stream of the pack is warm, the
 per-frame kernel B1 otherwise.
 
-Guards: ``submit`` validates shape, dtype and finiteness on the host
-(``AdmissionError``). Each dispatch launches per-row ``isfinite`` flags over
-its outputs (and, in video mode, the advanced carries), read at completion:
-a non-finite output row fails exactly that request with
-``NonFiniteOutput``, a bad carry row quarantines exactly that stream. A
-dispatch error fails that batch's futures and nothing else; the engine
-keeps serving. There is no retry, fallback ladder, watchdog or fault
-injection yet: no path here gives way to another backend.
+Fault tolerance (the ``repro_torch.reliability`` wiring, as in the JAX
+engine):
+
+  * **Admission**: ``submit`` validates shape, dtype and finiteness on the
+    host (``AdmissionError``).
+  * **Guarded dispatch**: every launch runs through a
+    ``reliability.GuardedDispatch``: bounded retries with backoff, then the
+    plan's fallback ladder behind per-rung circuit breakers
+    (``fused_streamed -> fused -> reference`` on the CPU; on a card the
+    ladder ends at ``fused``, so plain PyTorch never serves a card plan;
+    ``fallback=False`` keeps the primary rung alone). A transient fault
+    costs a retry; a dead backend serves from the next rung, counted in
+    ``fallbacks``. Caller errors fail fast, and so do the port's kernel
+    errors (``KernelBuildError``, ``KernelLaunchError``, the latter also for
+    a CUDA error the wait on a batch's completion reports): a kernel that
+    does not build, launch or complete is never retried or hidden behind a
+    lower rung.
+  * **Finite-guards and carry quarantine**: each dispatch launches per-row
+    ``isfinite`` flags over its outputs (and, in video mode, the advanced
+    carries), read at completion: a non-finite output row fails exactly that
+    request with ``NonFiniteOutput``, a bad carry row quarantines exactly
+    that stream.
+  * **Watchdog**: ``watchdog_ms`` bounds the completion wait of each
+    in-flight batch, the wait on the batch's CUDA event (and the fault
+    injector's completion hook) run in a helper thread joined with that
+    timeout, the JAX engine's semantics. Past it the batch counts a
+    ``watchdog_trips``, the dispatching rung's breaker records a failure,
+    and the batch fails with ``EngineTimeout``, except that a stateless
+    (non-video) batch first gets one synchronous guarded redispatch (a
+    batch whose completion reported a CUDA error gets none). A
+    kernel truly hung on the card cannot be cancelled from the host: the
+    watchdog fails its requests structurally, it does not recover them, and
+    work queued behind it on the same stream waits with it.
+  * **Fault injection**: assign ``engine.fault_injector`` (a
+    ``reliability.FaultInjector``) to fire a deterministic fault schedule at
+    the hook points above.
 
 Telemetry: ``stats()`` returns an :class:`EngineStats` snapshot.
 """
@@ -61,7 +89,12 @@ from repro_torch.reliability import (
     DeadlineExceeded,
     DispatchGuard,
     EngineClosed,
+    EngineTimeout,
+    GuardedDispatch,
+    KernelBuildError,
+    KernelLaunchError,
     NonFiniteOutput,
+    RetryPolicy,
     finite_rows,
     validate_frame,
 )
@@ -78,10 +111,13 @@ class EngineStats:
     completed requests.
 
     ``failed``: requests resolved with an exception (dispatch or completion
-    failures, finite-guard rejections); ``carry_resets``: temporal carries
+    failures, finite-guard rejections); ``retries``: guarded-dispatch
+    re-attempts; ``fallbacks``: dispatches served from a fallback-ladder rung
+    below the primary backend; ``carry_resets``: temporal carries
     quarantined back to cold; ``shed``: requests dropped at collect time
-    because their deadline had passed; ``restores``: carries installed from
-    a snapshot. ``latency_samples`` carries the sorted latency reservoir
+    because their deadline had passed; ``watchdog_trips``: in-flight batches
+    that exceeded the completion watchdog; ``restores``: carries installed
+    from a snapshot. ``latency_samples`` carries the sorted latency reservoir
     (ms) so :meth:`merge` computes exact percentiles over several engines;
     ``as_dict()`` leaves it out. ``stats["key"]`` indexing is kept.
     """
@@ -96,8 +132,11 @@ class EngineStats:
     latency_ms_p50: float
     latency_ms_p99: float
     failed: int = 0
+    retries: int = 0
+    fallbacks: int = 0
     carry_resets: int = 0
     shed: int = 0
+    watchdog_trips: int = 0
     restores: int = 0
     latency_samples: Tuple[float, ...] = ()
 
@@ -153,8 +192,11 @@ class EngineStats:
             latency_ms_p50=_pct(0.50),
             latency_ms_p99=_pct(0.99),
             failed=sum(p.failed for p in parts),
+            retries=sum(p.retries for p in parts),
+            fallbacks=sum(p.fallbacks for p in parts),
             carry_resets=sum(p.carry_resets for p in parts),
             shed=sum(p.shed for p in parts),
+            watchdog_trips=sum(p.watchdog_trips for p in parts),
             restores=sum(p.restores for p in parts),
             latency_samples=tuple(samples),
         )
@@ -184,6 +226,9 @@ class _InFlight:
     carry_ok: Optional[torch.Tensor]
     event: Optional["torch.cuda.Event"]  # None on the CPU: already done
     staging: torch.Tensor  # the pinned host buffer, alive until completion
+    frames: torch.Tensor  # the batch on the plan's device (for a redispatch)
+    rung: int = 0  # the fallback-ladder rung that dispatched it
+    didx: Optional[int] = None  # the fault injector's dispatch index
 
 
 class AsyncFrameEngine:
@@ -192,9 +237,14 @@ class AsyncFrameEngine:
     Pass ``packer=`` (video mode: the packer's plan dispatches), ``plan=``
     (a :class:`repro_torch.plan.BGPlan` that quantizes its output), or
     ``cfg=`` and optionally ``device=`` for the fused plan
-    (``stream_input=True``: the ``"fused_streamed"`` plan). A bf16 plan or
+    (``stream_input=True``: the ``"fused_streamed"`` plan); like the JAX
+    engine it builds a plain ``BGPlan``, not ``plan_for``'s. A bf16 plan or
     a packer on one serves like any other: the pinned staging stays float32,
     as the frames arrive, and the plan casts to bf16 on the card.
+
+    ``fault_injector`` (assignable at runtime), ``watchdog_ms`` (``None``:
+    no watchdog), ``retry_policy`` and ``fallback`` wire the reliability
+    layer (module docstring).
     """
 
     def __init__(
@@ -209,6 +259,10 @@ class AsyncFrameEngine:
         packer=None,
         plan=None,
         device=None,
+        fault_injector=None,
+        watchdog_ms: Optional[float] = None,
+        retry_policy: Optional[RetryPolicy] = None,
+        fallback: bool = True,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -216,6 +270,8 @@ class AsyncFrameEngine:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+        if watchdog_ms is not None and watchdog_ms <= 0:
+            raise ValueError(f"watchdog_ms must be > 0 or None, got {watchdog_ms}")
         if (packer is not None or plan is not None) and (device is not None or stream_input):
             raise ValueError(
                 "pass device= and stream_input= with cfg=; a plan carries its "
@@ -249,6 +305,14 @@ class AsyncFrameEngine:
         self.packer = packer
         self._packer_lock = threading.Lock()
 
+        # reliability wiring (module docstring)
+        self.fault_injector = fault_injector
+        self.watchdog = None if watchdog_ms is None else watchdog_ms / 1e3
+        ladder = plan.fallback_ladder() if fallback else (plan,)
+        self._guard = GuardedDispatch(
+            ladder, retry_policy, on_retry=self._count_retry, on_fallback=self._count_fallback
+        )
+
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._inflight: "queue.Queue" = queue.Queue(maxsize=max_inflight)
         self._held: Deque[AsyncFrameRequest] = deque()  # deferred same-stream
@@ -266,8 +330,11 @@ class AsyncFrameEngine:
         self._submitted = 0
         self._deadline_misses = 0
         self._failed = 0
+        self._retries = 0
+        self._fallbacks = 0
         self._carry_resets = 0
         self._shed = 0
+        self._watchdog_trips = 0
 
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name="bg-frame-dispatch", daemon=True
@@ -301,6 +368,10 @@ class AsyncFrameEngine:
         if self.packer is not None and stream_id is None:
             raise ValueError("video mode: submit needs a stream_id")
         frame = validate_frame(frame, stream_id=stream_id)
+        inj = self.fault_injector
+        if inj is not None:
+            # post-admission hook: in-flight corruption admission cannot see
+            frame = inj.corrupt_frame(frame, stream_id)
         now = time.monotonic()
         req = AsyncFrameRequest(
             uid=next(self._uid),
@@ -378,11 +449,22 @@ class AsyncFrameEngine:
                 latency_ms_p50=_pct(lat, 0.50),
                 latency_ms_p99=_pct(lat, 0.99),
                 failed=self._failed,
+                retries=self._retries,
+                fallbacks=self._fallbacks,
                 carry_resets=self._carry_resets,
                 shed=self._shed,
+                watchdog_trips=self._watchdog_trips,
                 restores=getattr(self.packer, "carry_restores", 0) or 0,
                 latency_samples=tuple(x * 1e3 for x in lat),
             )
+
+    def _count_retry(self) -> None:
+        with self._lock:
+            self._retries += 1
+
+    def _count_fallback(self) -> None:
+        with self._lock:
+            self._fallbacks += 1
 
     # ------------------------------------------------------------ dispatch
     def _get_next(self, timeout: Optional[float]):
@@ -481,10 +563,10 @@ class AsyncFrameEngine:
         self._held.extendleft(reversed(deferred))
         return batch
 
-    def _launch(self, batch: List[AsyncFrameRequest]) -> _InFlight:
-        """Stack one micro-batch into a (pinned) host buffer, copy it to the
-        plan's device without blocking, dispatch it, and record the event
-        the completion thread waits on."""
+    def _stage(self, batch: List[AsyncFrameRequest]):
+        """Stack one micro-batch into a (pinned) host buffer and copy it to
+        the plan's device without blocking; once per batch, whatever rung
+        then dispatches it. Returns ``(staging, frames on the device)``."""
         shapes = {tuple(np.shape(r.frame)) for r in batch}
         if len(shapes) != 1 or len(next(iter(shapes))) != 2:
             raise ValueError(f"a micro-batch needs equal (h, w) frames, got {sorted(shapes)}")
@@ -495,23 +577,44 @@ class AsyncFrameEngine:
         )
         for i, r in enumerate(batch):
             staging[i].copy_(torch.as_tensor(r.frame))
-        x = staging.to(dev, non_blocking=True) if on_card else staging
+        return staging, (staging.to(dev, non_blocking=True) if on_card else staging)
+
+    def _launch_with(self, plan, batch: List[AsyncFrameRequest], staging, x) -> _InFlight:
+        """Dispatch the staged batch ``x`` through ``plan`` (a fallback
+        ladder rung) and record the event the completion wait is on."""
         if self.packer is not None:
             by_sid = {r.stream_id: x[i] for i, r in enumerate(batch)}
             with self._packer_lock:
-                out, guard = self.packer.pack_guarded(by_sid)
+                out, guard = self.packer.pack_guarded(
+                    by_sid, plan=None if plan is self.plan else plan
+                )
             outs = [out[r.stream_id] for r in batch]
         else:
-            out = self.plan(x)
+            out = plan(x)
             guard = DispatchGuard(out_ok=finite_rows(out))
             outs = [out[i] for i in range(len(batch))]
         out_ok = None if guard.out_ok is None else guard.out_ok.to("cpu", non_blocking=True)
         carry_ok = None if guard.carry_ok is None else guard.carry_ok.to("cpu", non_blocking=True)
         event = None
-        if on_card:
+        if plan.device.type == "cuda":
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-        return _InFlight(batch, outs, guard, out_ok, carry_ok, event, staging)
+            event.record(torch.cuda.current_stream(plan.device))
+        return _InFlight(batch, outs, guard, out_ok, carry_ok, event, staging, x)
+
+    def _guarded_launch(self, batch: List[AsyncFrameRequest]) -> _InFlight:
+        """One guarded dispatch: retries, the fallback ladder and the
+        breakers around :meth:`_launch_with`."""
+        staging, x = self._stage(batch)
+        box = {}
+
+        def attempt(plan):
+            inj = self.fault_injector
+            box["didx"] = inj.on_dispatch(plan.backend) if inj else None
+            return self._launch_with(plan, batch, staging, x)
+
+        item, rung = self._guard.call(attempt)
+        item.rung, item.didx = rung, box.get("didx")
+        return item
 
     def _dispatch_loop(self):
         if self.plan.device.type == "cuda":
@@ -527,8 +630,8 @@ class AsyncFrameEngine:
             if not batch:
                 continue
             try:
-                item = self._launch(batch)
-            except Exception as exc:  # fails this batch, nothing else
+                item = self._guarded_launch(batch)
+            except Exception as exc:  # caller errors, kernel errors, an exhausted ladder
                 self._finish(batch, error=exc)
                 continue
             with self._lock:
@@ -545,6 +648,47 @@ class AsyncFrameEngine:
                         break
 
     # ---------------------------------------------------------- completion
+    def _await(self, item: _InFlight, didx: Optional[int], with_hook: bool = True) -> None:
+        """Wait for ``item``'s dispatch to complete, bounded by the watchdog.
+
+        The fault injector's completion hook (an injected hang) and the wait
+        on the batch's CUDA event run inside the bounded region; past
+        ``watchdog_ms`` both look alike: ``EngineTimeout`` and one watchdog
+        trip. The helper thread of a wait that timed out is a daemon and
+        ends when its event does (never, for a kernel truly hung on the
+        card: the host cannot cancel it)."""
+
+        def work():
+            inj = self.fault_injector if with_hook else None
+            if inj is not None:
+                inj.on_complete(didx)
+            if item.event is not None:
+                try:
+                    item.event.synchronize()
+                except RuntimeError as exc:  # a CUDA error of the batch's kernels
+                    raise KernelLaunchError(f"the dispatch's completion failed: {exc}") from exc
+
+        if self.watchdog is None:
+            work()
+            return
+        box = {}
+
+        def runner():
+            try:
+                work()
+            except BaseException as exc:  # raised on the waiting side
+                box["err"] = exc
+
+        t = threading.Thread(target=runner, name="bg-frame-await", daemon=True)
+        t.start()
+        t.join(self.watchdog)
+        if t.is_alive():
+            with self._lock:
+                self._watchdog_trips += 1
+            raise EngineTimeout(self.watchdog, uids=[r.uid for r in item.batch])
+        if "err" in box:
+            raise box["err"]
+
     def _quarantine(self, sids) -> None:
         """Reset the given streams' temporal carries to cold, counting
         actual resets."""
@@ -558,8 +702,9 @@ class AsyncFrameEngine:
             with self._lock:
                 self._carry_resets += n
 
-    def _resolve(self, item: _InFlight) -> None:
-        """Post-completion guard pass and future resolution for one batch."""
+    def _resolve(self, item: _InFlight, didx: Optional[int] = None) -> None:
+        """Post-completion guard pass and future resolution for one batch;
+        then the injector's carry faults for dispatch ``didx``."""
         guard = item.guard
         if item.carry_ok is not None and guard.carry_sids:
             flags = item.carry_ok.numpy()
@@ -576,7 +721,58 @@ class AsyncFrameEngine:
             ]
             if not any(e is not None for e in errors):
                 errors = None
+        # injected carry corruption or loss lands after a healthy completion:
+        # the poison the next pack's guard flags must catch. It lands before
+        # the futures resolve (the JAX engine's order is the reverse), so a
+        # client that waits for a pack before sending the next always sees it.
+        inj = self.fault_injector
+        if inj is not None and self.packer is not None and didx is not None:
+            with self._packer_lock:
+                inj.apply_carry_faults(self.packer.sessions, didx)
         self._finish(item.batch, outs=item.outs, errors=errors)
+
+    def _on_completion_failure(self, item: _InFlight, exc: Exception) -> None:
+        """A launched batch failed to complete (a CUDA error, a watchdog
+        trip, an injected fault). Charges the dispatching rung's breaker. A
+        video pack is stateful: its futures fail, and its streams' carries
+        are quarantined, only those whose carry flags read bad when the
+        flags can still be read without the hook (none for a pure hang),
+        else every warm stream of the pack. A stateless batch gets one
+        synchronous guarded redispatch (retries, the ladder, the watchdog)
+        of its staged frames, so a transient completion failure still
+        serves results; unless the failure was a CUDA error
+        (``KernelLaunchError``), which fails its futures as it is."""
+        self._guard.record_remote_failure(item.rung)
+        batch = item.batch
+        if self.packer is not None:
+            suspects = list(item.guard.carry_sids)
+            if suspects and item.carry_ok is not None:
+                try:
+                    self._await(item, None, with_hook=False)
+                    flags = item.carry_ok.numpy()
+                    suspects = [s for s, ok in zip(item.guard.carry_sids, flags) if not ok]
+                except Exception:
+                    pass  # flags unreadable: quarantine the whole pack
+            self._quarantine(suspects)
+            self._finish(batch, error=exc)
+            return
+        if isinstance(exc, (KernelBuildError, KernelLaunchError)):
+            self._finish(batch, error=exc)
+            return
+        try:
+
+            def attempt(plan):
+                inj = self.fault_injector
+                didx = inj.on_dispatch(plan.backend) if inj else None
+                again = self._launch_with(plan, batch, item.staging, item.frames)
+                self._await(again, didx)
+                return again
+
+            again, _ = self._guard.call(attempt)
+        except Exception as exc2:
+            self._finish(batch, error=exc2)
+            return
+        self._resolve(again)
 
     def _finish(self, batch, outs=None, error=None, errors=None):
         now = time.monotonic()
@@ -611,11 +807,8 @@ class AsyncFrameEngine:
             if item is _SENTINEL:
                 return
             try:
-                if item.event is not None:
-                    item.event.synchronize()
+                self._await(item, item.didx)
             except Exception as exc:
-                # the card failed this batch: its advanced carries are suspect
-                self._quarantine(list(item.guard.carry_sids))
-                self._finish(item.batch, error=exc)
+                self._on_completion_failure(item, exc)
                 continue
-            self._resolve(item)
+            self._resolve(item, didx=item.didx)

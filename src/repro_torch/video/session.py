@@ -182,18 +182,22 @@ class MultiStreamPacker:
         self.carry_restores += 1
 
     # ---------------------------------------------------------------- pack
-    def pack(self, frames: Dict[Hashable, object]) -> Dict[Hashable, torch.Tensor]:
+    def pack(self, frames: Dict[Hashable, object], *, plan=None) -> Dict[Hashable, torch.Tensor]:
         """Denoise one frame from each given stream in one batched dispatch.
 
         ``frames`` maps stream id -> (h, w) frame (numpy or tensor); every
         id must be open and appear once, and all frames share one (h, w).
         Returns stream id -> denoised frame on the plan's device and
-        advances each stream's carry and counter.
+        advances each stream's carry and counter. ``plan=`` dispatches an
+        alternate base plan (a fallback-ladder rung) for this pack only; it
+        must share the packer plan's device and storage type, since the
+        carries live there.
         """
-        results, _ = self.pack_guarded(frames)
+        results, _ = self.pack_guarded(frames, plan=plan)
         return results
 
-    def pack_guarded(self, frames: Dict[Hashable, object], *, carry_limit: Optional[float] = None):
+    def pack_guarded(self, frames: Dict[Hashable, object], *, plan=None,
+                     carry_limit: Optional[float] = None):
         """:meth:`pack` plus a ``DispatchGuard``.
 
         Returns ``(results, guard)``: ``guard.out_ok`` holds per-row output
@@ -226,7 +230,14 @@ class MultiStreamPacker:
         sessions = {s: self.sessions[s] for s in sids}
         batch = torch.stack([arrs[s] for s in sids])
         warm = [s for s in sids if sessions[s].alpha > 0.0]
-        plan = self.plan.with_tile(self.plan.tile_for(len(sids)))
+        # the packer asks the plan for this pack's tile
+        base = self.plan if plan is None else plan
+        if base.device != dev or base.precision != self.plan.precision:
+            raise ValueError(
+                f"pack(plan=) must share the packer's device {dev} and precision "
+                f"{self.plan.precision!r}, got {base.device} and {base.precision!r}"
+            )
+        plan = base.with_tile(base.tile_for(len(sids)))
         results = {}
         carry_sids = ()
         carry_ok = None

@@ -40,9 +40,13 @@ NEW_IN_SLICE_3 = ["kernels._wrap", "kernels.bg_create", "kernels.bg_blur", "kern
 # the modules the bf16 storage form runs through (the storage helpers, the
 # fused wrapper, the plan, the video carries and the staged oracle's grid)
 BF16_PATH = ["kernels.common", "kernels.bg_fused", "plan", "video.session", "video.temporal"]
+# plan selection and guarded dispatch: the cache, the reliability layer, and
+# the engine and launcher that use them
+PLAN_AND_RELIABILITY = ["plan_cache", "reliability.errors", "reliability.retry", "reliability.faults",
+                        "serving.async_engine", "launch.serve"]
 
 
-@pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH)
+@pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, nothing of ``repro`` and no compiled kernel (the CPU host has no
