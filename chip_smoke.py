@@ -31,7 +31,11 @@ the guarded engine through a failed primary rung (served by the next kernel
 rung, or failed where the card's ladder has none), a hung completion and
 corrupted input (``guarded_dispatch``), and serves the fp32 paths through
 the launcher, whose plans come from ``plan_for`` (as the plan layer
-chooses, and pinned on B3 and on B1). Every served
+chooses, and pinned on B3 and on B1), and runs the fleet (``fleet``: the
+launcher's ``serve_fleet`` over 2 local and 2 subprocess workers, B2 only,
+each worker's launches counted; a SIGKILLed subprocess worker's streams
+restored from snapshots and held bit for bit to in-process workers; a bf16
+snapshot; stateless micro-batches of 8 on B3 and of 1 on B1). Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
@@ -68,12 +72,6 @@ ALPHAS = (0.0, 0.4, 0.6, 0.8)
 TOL_BF16_LSB = 2.0
 BF16_MSSIM_RATIO = 0.98
 BF16_ALPHAS = (0.0, 0.6, 0.8, 0.3)
-SOURCES = ("bg_fused", "bg_fused_streamed", "bg_create", "bg_blur", "bg_slice")
-# every launch counter of the port: (wrapper, attribute)
-COUNTERS = (("bg_fused", "launches"), ("bg_fused", "temporal_launches"),
-            ("bg_fused", "streamed_launches"), ("bg_fused", "bf16_launches"),
-            ("bg_fused", "bf16_temporal_launches"), ("bg_fused", "bf16_streamed_launches"),
-            ("bg_create", "launches"), ("bg_blur", "launches"), ("bg_slice", "launches"))
 
 
 def emit(obj) -> None:
@@ -899,16 +897,285 @@ def guarded_dispatch(torch, frames, smi, dev):
     return rows
 
 
-def kernel_counts() -> dict:
-    import repro_torch.kernels as k
+FLEET_ALPHA = 0.6
+B2 = "bg_fused.temporal_launches"
 
-    return {f"{fn}.{attr}": getattr(getattr(k, fn), attr) for fn, attr in COUNTERS}
+
+def fleet_traffic(n_streams: int, n_frames: int):
+    """Noisy full-size video frames on the host, one (frames, h, w) float32
+    array per stream, as ``serve_fleet`` makes its traffic."""
+    import numpy as np
+
+    from repro_torch.data import synthetic_video_np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for s in range(n_streams):
+        vid = synthetic_video_np(s, n_frames, H, W, motion=1.5)
+        noisy = vid + rng.normal(0.0, 30.0, vid.shape)
+        out.append(np.clip(np.floor(noisy + 0.5), 0.0, 255.0).astype(np.float32))
+    return out
+
+
+def fleet_served(st: dict, what: str) -> None:
+    """A served fleet run answered every frame: 0 failed, shed, router
+    shed, retries, fallbacks and watchdog trips, every worker alive."""
+    keys = ("failed", "shed", "router_shed", "retries", "fallbacks", "watchdog_trips")
+    check(not any(st[k] for k in keys) and st["workers_alive"] == st["workers"],
+          f"{what}: {({k: st[k] for k in keys + ('workers_alive',)})}")
+
+
+def ref_outputs(torch, payload, dev, frames, upto: int):
+    """Frames 0..``upto`` of one stream through an uninterrupted in-process
+    worker, one frame per pack; returns the host outputs."""
+    from repro_torch.fleet import LocalWorker
+
+    ref = LocalWorker("ref", payload, device=dev, max_batch=1)
+    try:
+        ref.open_stream(0, alpha=FLEET_ALPHA)
+        return [ref.submit(frames[t], stream_id=0).result(timeout=60).cpu().numpy()
+                for t in range(upto + 1)]
+    finally:
+        ref.close(timeout=30)
+
+
+def fleet_failover(torch, dev, n_frames: int = 4, in_flight: int = 4) -> dict:
+    """Two subprocess workers behind a router with its watchdog: 4 warm
+    streams, each output held to an in-process worker's bit for bit; then
+    frames in flight, one child SIGKILLed. Every future resolves (a result
+    or ``WorkerDown``) within a bounded wait, the victim's warm streams are
+    restored onto the survivor from its shipped snapshots, and the next
+    frame of each restored stream equals an uninterrupted worker's bit for
+    bit."""
+    import numpy as np
+
+    from repro_torch.configs.bg_denoise import SERVE_CONFIG
+    from repro_torch.fleet import FleetRouter, PlanController, WorkerDown
+
+    n_streams = 4
+    traffic = fleet_traffic(n_streams, n_frames + in_flight + 1)
+    controller = PlanController(cfg=SERVE_CONFIG, height=H, width=W, streams_per_worker=2,
+                                temporal=True, device=dev)
+    payload = controller.payload()
+    refs = {s: ref_outputs(torch, payload, dev, traffic[s], n_frames + in_flight)
+            for s in range(n_streams)}
+    t0 = time.perf_counter()
+    router = FleetRouter(controller=controller, n_workers=2, worker_backend="subprocess",
+                         health_interval_s=0.1,
+                         worker_kwargs=dict(device=str(dev), max_batch=2, batch_window_ms=5.0,
+                                            snapshot_interval_s=0.25))
+    start_s = time.perf_counter() - t0
+    try:
+        for s in range(n_streams):
+            router.open_stream(s, alpha=FLEET_ALPHA)
+        for t in range(n_frames):
+            futs = [router.submit(traffic[s][t], stream_id=s) for s in range(n_streams)]
+            for s, f in enumerate(futs):
+                out = f.result(timeout=60)
+                check(isinstance(out, np.ndarray) and np.array_equal(out, refs[s][t]),
+                      f"fleet failover: stream {s} frame {t} differs from the local worker")
+        victim = router.stream_worker(0)
+        vworker = next(w for w in router.workers if w.wid == victim)
+        victims = sorted(s for s in range(n_streams) if router.stream_worker(s) == victim)
+        check(sorted(vworker.request_snapshot()) == victims, "fleet failover: snapshots of the victim")
+        launches = {w.wid: w.launches() for w in router.workers}
+        futs = [router.submit(traffic[s][t], stream_id=s)
+                for t in range(n_frames, n_frames + in_flight) for s in range(n_streams)]
+        router.crash_worker(victim)  # SIGKILL, the router not told
+        t_kill = time.perf_counter()
+        served = down = 0
+        for f in futs:
+            try:
+                f.result(timeout=30)
+                served += 1
+            except WorkerDown:
+                down += 1
+        resolve_s = time.perf_counter() - t_kill
+        deadline = time.monotonic() + 10.0
+        while not router.is_dead(victim) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        check(router.is_dead(victim), "fleet failover: the watchdog did not see the SIGKILL")
+        check(router.restores == len(victims) and router.quarantined_streams == 0,
+              f"fleet failover: {router.restores} restores, {router.quarantined_streams} cold, "
+              f"victims {victims}")
+        seen = {}
+        for s in victims:
+            # the survivor's store holds the snapshot it was restored from
+            k = router.workers[router.stream_worker(s)].carry_snapshot(s).frames_seen
+            seen[s] = k
+            out = router.submit(traffic[s][k], stream_id=s).result(timeout=60)
+            check(np.array_equal(out, refs[s][k]),
+                  f"fleet failover: restored stream {s} frame {k} differs from an uninterrupted worker")
+        st = router.stats()
+    finally:
+        router.close(timeout=30)
+    check(all(launches[w].get(B2, 0) > 0 and set(launches[w]) == {B2} for w in launches),
+          f"fleet failover: child launches {launches}")
+    return {"workers_start_s": start_s, "victim": victim, "victim_streams": victims,
+            "in_flight": len(futs), "served_after_kill": served, "worker_down": down,
+            "resolve_s": resolve_s, "restores": st.restores, "quarantined": st.quarantined_streams,
+            "restore_staleness_p99_s": st.restore_staleness_p99, "restored_frames_seen": seen,
+            "child_launches_before_kill": launches, "bitwise_vs_local_frames": n_frames * n_streams,
+            "bitwise_after_restore": len(victims)}
+
+
+def fleet_bf16_snapshot(torch, dev) -> dict:
+    """A 2-worker local fleet on a pinned bf16 temporal plan with snapshots:
+    only B2-bf16 launches, one per dispatch; the victim's snapshots carry
+    "bfloat16" words, half the fp32 bytes, and the restore on the survivor
+    gives back the same bits."""
+    from repro_torch.configs.bg_denoise import SERVE_CONFIG
+    from repro_torch.fleet import FleetRouter, PlanController, codec
+    from repro_torch.plan import BGPlan
+
+    plan = BGPlan(SERVE_CONFIG, backend="fused", temporal=True, precision="bf16", device=dev)
+    traffic = fleet_traffic(4, 3)
+    router = FleetRouter(controller=PlanController(plan), n_workers=2, health_interval_s=None,
+                         worker_kwargs=dict(device=dev, max_batch=2, snapshots=True))
+    zero_counts()
+    try:
+        for s in range(4):
+            router.open_stream(s, alpha=FLEET_ALPHA)
+        for t in range(3):
+            for f in [router.submit(traffic[s][t], stream_id=s) for s in range(4)]:
+                f.result(timeout=60)
+        sync(torch, dev)
+        st = router.stats()
+        check_counts(kernel_counts(), {"bg_fused.bf16_temporal_launches": st.merged.dispatches},
+                     "fleet bf16")
+        victim = router.stream_worker(0)
+        vworker = next(w for w in router.workers if w.wid == victim)
+        victims = sorted(s for s in range(4) if router.stream_worker(s) == victim)
+        want = {s: vworker.packer.sessions[s].carry.clone() for s in victims}
+        snap = vworker.carry_snapshot(0)
+        hdr, data = codec.array_header(snap.carry), codec.array_bytes(snap.carry)
+        check(hdr["dtype"] == "bfloat16" and len(data) * 2 == want[0].numel() * 4,
+              f"fleet bf16: snapshot {hdr}, {len(data)} bytes")
+        back = codec.decode_array(hdr, data)
+        check(back.dtype == torch.bfloat16 and torch.equal(back, want[0].cpu()), "fleet bf16: wire bits")
+        router.fail_worker(victim)
+        survivor = next(w for w in router.workers if w.wid != victim)
+        check(router.restores == len(victims), f"fleet bf16: {router.restores} restores of {victims}")
+        check(all(torch.equal(survivor.packer.sessions[s].carry, want[s]) for s in victims),
+              "fleet bf16: restored carries differ from the victim's")
+    finally:
+        router.close(timeout=30)
+    return {"precision": "bf16", "dispatches": st.merged.dispatches, "snapshot_dtype": hdr["dtype"],
+            "snapshot_bytes": len(data), "fp32_bytes": want[0].numel() * 4,
+            "restored_bitwise": len(victims)}
+
+
+def fleet_stateless(torch, dev, micro_batch: int, n_frames: int) -> dict:
+    """Two local workers on ``plan_for``'s frame plan for micro-batches of
+    ``micro_batch``: every dispatch launches the plan's kernel once (B3 at
+    8, B1 at 1 on the cost model), no other kernel runs, and each output
+    equals its frame served alone through one in-process worker on the
+    same plan, bit for bit (the kernels are bit-equal across packs)."""
+    from repro_torch.configs.bg_denoise import SERVE_CONFIG
+    from repro_torch.fleet import FleetRouter, LocalWorker, PlanController
+
+    traffic = fleet_traffic(1, n_frames)[0]
+    controller = PlanController(cfg=SERVE_CONFIG, height=H, width=W,
+                                streams_per_worker=micro_batch, temporal=False, device=dev)
+    plan = controller.plan
+    router = FleetRouter(controller=controller, n_workers=2, health_interval_s=None,
+                         worker_kwargs=dict(device=dev, max_batch=micro_batch, batch_window_ms=5.0))
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        futs = [router.submit(traffic[i]) for i in range(n_frames)]
+        outs = [f.result(timeout=60) for f in futs]
+        seconds = time.perf_counter() - t0
+        sync(torch, dev)
+        st = router.stats()
+        launches = {w.wid: w.launches() for w in router.workers}
+    finally:
+        router.close(timeout=30)
+    ran = "bg_fused.streamed_launches" if plan.backend == "fused_streamed" else "bg_fused.launches"
+    per = -(-micro_batch // plan.batch_tile)
+    got = kernel_counts()
+    check(got[ran] > 0 and got[ran] <= st.merged.dispatches * per
+          and got[ran] >= st.merged.dispatches, f"fleet stateless b={micro_batch}: {got}")
+    check_counts(got, {ran: got[ran]}, f"fleet stateless b={micro_batch}")
+    check(sum(v.get(ran, 0) for v in launches.values()) == got[ran], f"per-worker launches {launches}")
+    check(all(o.is_cuda and tuple(o.shape) == (H, W) for o in outs), "fleet stateless: CUDA (h, w) results")
+    check(st.merged.failed == st.merged.shed == st.router_shed == 0, f"fleet stateless: {st.as_dict()}")
+    reliability_zero(st.merged, f"fleet stateless b={micro_batch}")
+    alone = LocalWorker("alone", controller.payload(), device=dev, max_batch=1)
+    try:  # after the counts were read: these launches are the comparison's
+        ref = [alone.submit(traffic[i]).result(timeout=60) for i in range(n_frames)]
+    finally:
+        alone.close(timeout=30)
+    differ = [i for i in range(n_frames) if not torch.equal(outs[i], ref[i])]
+    check(not differ, f"fleet stateless b={micro_batch}: frames {differ} differ from the frame served alone")
+    return {"micro_batch": micro_batch, "frames": n_frames, "plan": plan.describe(),
+            "dispatches": st.merged.dispatches, "mean_batch": st.merged.mean_batch,
+            "launches": {ran: got[ran]}, "worker_launches": launches, "seconds": seconds,
+            "frames_per_s": n_frames / seconds, "bitwise_alone": True}
+
+
+def fleet_slice(torch, smi, dev) -> float:
+    """Phase "fleet": the port's fleet on the card at full HD on the serve
+    grid (the JAX launcher's fleet config), on ``plan_for``'s plans. The
+    local and the subprocess temporal fleets through the launcher's
+    ``serve_fleet`` (B2 only; the in-process workers' launches equal the
+    dispatches, each child's counted over its stats RPC), the SIGKILL
+    failover with its bit-for-bit checks, the bf16 snapshot, the stateless
+    fleet at micro-batch 8 and 1. First one engine (``serve_video``) on the
+    same grid and traffic, the yardstick of the thread-hosted fleet.
+    Returns the phase's seconds."""
+    from repro_torch.launch.serve import serve_fleet, serve_video
+
+    t_phase = time.perf_counter()
+    one = serve_video(4, 24, H, W, FLEET_ALPHA, config="serve", device=dev)
+    check(one["bg_fused_temporal_launches"] == one["dispatches"] > 0 and one["bg_fused_launches"] == 0,
+          f"fleet one engine: {one}")
+    check(not any(one[k] for k in ("failed", "shed", "retries", "fallbacks", "watchdog_trips")),
+          f"fleet one engine: {one}")
+    emit({"phase": "fleet", "run": "one_engine", "config": "serve (6, 4, 60)", "frame_hw": [H, W],
+          "card": smi, **one})
+    zero_counts()
+    st = serve_fleet(4, 24, H, W, FLEET_ALPHA, workers=2, worker_backend="local", device=dev)
+    sync(torch, dev)
+    check(st["dispatches"] > 0, f"fleet local: {st}")
+    check_counts(kernel_counts(), {B2: st["dispatches"]}, "fleet local")
+    check(sum(v.get(B2, 0) for v in st["worker_launches"].values()) == st["dispatches"]
+          and all(set(v) <= {B2} for v in st["worker_launches"].values()),
+          f"fleet local: worker launches {st['worker_launches']}")
+    fleet_served(st, "fleet local")
+    emit({"phase": "fleet", "run": "local", "config": "serve (6, 4, 60)", "frame_hw": [H, W],
+          "card": smi, **st})
+
+    zero_counts()
+    st = serve_fleet(4, 24, H, W, FLEET_ALPHA, workers=2, worker_backend="subprocess", device=dev)
+    check_counts(kernel_counts(), {}, "fleet subprocess: the parent launches nothing")
+    check(all(v.get(B2, 0) > 0 and set(v) == {B2} for v in st["worker_launches"].values())
+          and sum(v[B2] for v in st["worker_launches"].values()) == st["dispatches"],
+          f"fleet subprocess: child launches {st['worker_launches']}")
+    fleet_served(st, "fleet subprocess")
+    emit({"phase": "fleet", "run": "subprocess", "config": "serve (6, 4, 60)", "frame_hw": [H, W],
+          "card": smi, **st})
+
+    emit({"phase": "fleet", "run": "failover", "card": smi, **fleet_failover(torch, dev)})
+    emit({"phase": "fleet", "run": "bf16_snapshot", "card": smi, **fleet_bf16_snapshot(torch, dev)})
+    for mb, n in ((8, 32), (1, 8)):
+        emit({"phase": "fleet", "run": "stateless", "card": smi, **fleet_stateless(torch, dev, mb, n)})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "fleet", "run": "done", "seconds": seconds, "card": smi})
+    return seconds
+
+
+def kernel_counts() -> dict:
+    """Every launch counter of the port, ``{"bg_fused.launches": n, ...}``."""
+    from repro_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def zero_counts() -> None:
     import repro_torch.kernels as k
 
-    for fn, attr in COUNTERS:
+    for fn, attr in k.COUNTERS:
         setattr(getattr(k, fn), attr, 0)
 
 
@@ -1327,11 +1594,11 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _build.build_all(SOURCES)  # one nvcc per source, all started together
+    _build.build_all(_build.SOURCES)  # one nvcc per source, all started together
     build_s = time.perf_counter() - t0
     limits = (torch.cuda.get_device_properties(0).multi_processor_count, kmod._device_limits(0)[1])
     ptxas = {src: [ln.strip() for ln in _build.build_log(src).splitlines() if "ptxas info" in ln]
-             for src in SOURCES}
+             for src in _build.SOURCES}
     emit({"phase": "device", "nvidia_smi": smi, "device_name": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas})
@@ -1778,6 +2045,7 @@ def main() -> None:
     check(vstats["failed"] == vstats["shed"] == 0, f"serve_video: {vstats}")
     check(vstats["retries"] == vstats["fallbacks"] == vstats["watchdog_trips"] == 0, f"serve_video: {vstats}")
     emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})
+    fleet_slice(torch, smi, dev)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -30,10 +30,15 @@ Ported (the frame- and video-serving paths at full width):
     carry guards, guarded dispatch: retries, the fallback ladder, the
     watchdog, fault injection); ``reliability``: the structured errors, the
     guards, retry and breakers, fault injection;
+  * ``fleet``: the router (sticky streams, admission, backpressure,
+    snapshot-restore failover, rolling restarts), the plan controller,
+    health and stats, the wire codec (the JAX package's bytes, bf16 by
+    name), thread-hosted and subprocess workers, and the transport faults
+    (``FaultInjector.on_transport``);
   * ``data.pipeline.denoise_batch``, ``data.synthetic_video``,
     ``configs.bg_denoise`` and ``launch.serve --frames`` (``--stream-input``)
-    / ``--video``.
+    / ``--video`` (``--workers``, ``--worker-backend``).
 
 Not ported yet: the ``"streaming"`` backend (no kernel), mesh sharding,
-the fleet (and with it the transport faults), and the LM substrate.
+the rest of ``core``, ``data`` and ``launch``, and the LM substrate.
 """

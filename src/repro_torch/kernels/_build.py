@@ -24,9 +24,11 @@ from typing import Dict, Iterable, Optional
 
 from repro_torch.reliability.errors import KernelBuildError, KernelLaunchError
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "build_log", "check", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build_all", "build_log", "check", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+# every kernel source of the port (``csrc/<name>.cu``)
+SOURCES = tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,16 +1,22 @@
 """What every kernel wrapper of the port checks and passes around its ctypes
-launch: the operands' type, rank, device and layout, the stream, and the TI
-lerp fractions on the device. Nothing here launches or builds anything."""
+launch: the operands' type, rank, device and layout, the stream, the TI
+lerp fractions on the device, and the launch counters. Nothing here
+launches or builds anything."""
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from .common import ti_col_fracs
 
-__all__ = ["frames", "on_card", "contiguous", "stream", "ti_fracs"]
+__all__ = ["frames", "on_card", "contiguous", "stream", "ti_fracs", "count", "tally_launches",
+           "read_tally"]
+
+_count_lock = threading.Lock()
+_local = threading.local()
 
 
 def frames(image, kernel: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -60,3 +66,29 @@ def ti_fracs(w: int, r: int, device: torch.device):
         torch.as_tensor(ti_col_fracs(w, r), device=device),
         torch.as_tensor(xf, device=device),
     )
+
+
+def count(fn, attr: str) -> None:
+    """Add one to the launch counter ``fn.attr`` (``bg_fused.launches``, ...)
+    and to the calling thread's tally, if it has one, as one atomic step:
+    the engines of several in-process workers launch from their own
+    threads, and a read-modify-write of a counter is not atomic under the
+    interpreter lock."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        tally = getattr(_local, "tally", None)
+        if tally is not None:
+            key = f"{fn.__name__}.{attr}"
+            tally[key] = tally.get(key, 0) + 1
+
+
+def tally_launches(tally) -> None:
+    """Also count the calling thread's launches into the dict ``tally``
+    (``{"bg_fused.temporal_launches": n, ...}``); ``None`` stops it."""
+    _local.tally = tally
+
+
+def read_tally(tally) -> dict:
+    """A consistent copy of a tally that :func:`count` writes."""
+    with _count_lock:
+        return dict(tally)

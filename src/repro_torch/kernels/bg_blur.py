@@ -147,7 +147,7 @@ def _launch(g: torch.Tensor, out: torch.Tensor, cfg: BGConfig, run=None, ytile=N
     _, shape = _launch_args(*g.shape[:4], g.device.index, cfg, run, ytile)
     err = _lib().bg_blur_launch(g.data_ptr(), out.data_ptr(), shape, _wrap.stream(g.device))
     _build.check(KERNEL, err)
-    bg_blur.launches += 1
+    _wrap.count(bg_blur, "launches")
 
 
 def bg_blur(grid: torch.Tensor, cfg: BGConfig) -> torch.Tensor:

@@ -223,7 +223,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -> Creat
     geo, _, shape = _launch_args(b, h, w, cfg, x.device.index, tuple(sorted(knobs.items())))
     err = _lib().bg_create_launch(x.data_ptr(), out.data_ptr(), shape, _wrap.stream(x.device))
     _build.check(KERNEL, err)
-    bg_create.launches += 1
+    _wrap.count(bg_create, "launches")
     return geo
 
 

@@ -503,13 +503,13 @@ def _launch(
         err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev))
     _build.check(KERNEL, err)
     if temporal and bf16:
-        bg_fused.bf16_temporal_launches += 1
+        _wrap.count(bg_fused, "bf16_temporal_launches")
     elif temporal:
-        bg_fused.temporal_launches += 1
+        _wrap.count(bg_fused, "temporal_launches")
     elif bf16:
-        bg_fused.bf16_launches += 1
+        _wrap.count(bg_fused, "bf16_launches")
     else:
-        bg_fused.launches += 1
+        _wrap.count(bg_fused, "launches")
     return geo
 
 
@@ -544,9 +544,9 @@ def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -
     err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev))
     _build.check(STREAM_KERNEL, err)
     if bf16:
-        bg_fused.bf16_streamed_launches += 1
+        _wrap.count(bg_fused, "bf16_streamed_launches")
     else:
-        bg_fused.streamed_launches += 1
+        _wrap.count(bg_fused, "streamed_launches")
     return geo
 
 

@@ -212,7 +212,7 @@ def _launch(g: torch.Tensor, x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, 
         _wrap.stream(x.device),
     )
     _build.check(KERNEL, err)
-    bg_slice.launches += 1
+    _wrap.count(bg_slice, "launches")
     return geo
 
 

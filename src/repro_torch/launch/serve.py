@@ -1,6 +1,8 @@
 """Frame- and video-serving launcher: stream synthetic noisy frames through
 the micro-batching frame engine, or synthetic video streams through the
-async engine and the multi-stream packer, on one device.
+async engine and the multi-stream packer, on one device; ``--workers N``
+fronts the video streams with a ``repro_torch.fleet.FleetRouter`` over N
+workers instead of one bare engine.
 
     python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
         --micro-batch 8 --config paper-default
@@ -11,6 +13,8 @@ async engine and the multi-stream packer, on one device.
         --frame-hw 1080x1920 --alpha 0.6 --config paper-default
     python -m repro_torch.launch.serve --video 2 --video-frames 3 \\
         --frame-hw 36x48 --device cpu
+    python -m repro_torch.launch.serve --video 4 --workers 2 \\
+        --worker-backend subprocess --frame-hw 1080x1920
 
 Both modes build their plan with ``plan_for`` (the JAX launcher's route):
 the measured-plan cache, else the cost model, picks backend and batch tile
@@ -18,7 +22,9 @@ the measured-plan cache, else the cost model, picks backend and batch tile
 ``plan[...]`` names the route it came from (``src=cache``, ``src=model`` or
 ``src=explicit``). The frame mode asks for a micro-batch of
 ``--micro-batch`` frames, where the JAX launcher leaves the pack size open.
-The JAX launcher's ``--workers`` and LM modes are not ported yet.
+The fleet mode's plan comes from a ``PlanController`` (``plan_for`` for
+each worker's share of the streams), as in the JAX launcher. The JAX
+launcher's LM modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -199,6 +205,140 @@ def serve_video(
     }
 
 
+def serve_fleet(
+    streams: int,
+    frames_per_stream: int,
+    height: int,
+    width: int,
+    alpha: float,
+    workers: int,
+    worker_backend: str = "local",
+    fps: float = 0.0,
+    deadline_ms: float | None = None,
+    batch_window_ms: float = 5.0,
+    config: str = "serve",
+    device=None,
+) -> dict:
+    """Serve the traffic of :func:`serve_video` through a
+    ``repro_torch.fleet.FleetRouter`` over ``workers`` workers (the JAX
+    launcher's ``serve_fleet``): thread-hosted (``worker_backend="local"``)
+    or one child process each (``"subprocess"``, behind the socket codec
+    with heartbeats and warm-carry snapshots). One controller-resolved plan
+    for the whole fleet (``plan_for`` for each worker's share of the
+    streams), sticky stream affinity, fleet-level admission and
+    backpressure. The traffic is made on the host first; one frame per
+    stream through the router warms the workers up outside the timed
+    window (it is in the workers' lifetime stats, as in the JAX launcher).
+
+    Returns frames/s, fps per stream, the p50/p99 latency merged from the
+    workers' reservoirs (the JAX launcher's; warm-up included, and a
+    child's reservoir ends where its engine resolves, before the wire),
+    the client's p50/p99 over the timed window (submit to the router's
+    future resolving, the wire included), dispatches, mean batch, the
+    deadline-miss rate, the router's shed count, workers alive, the merged
+    failed, shed, retries, fallbacks and watchdog trips, and
+    ``worker_launches``: each
+    worker's lifetime kernel launches by counter (an in-process worker's
+    engine threads', a child's process counters over the stats RPC), and
+    for subprocess workers ``worker_wire``, each child's result-thread
+    seconds (``SubprocessWorker.wire``)."""
+    from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
+    from repro_torch.data import synthetic_video_np
+    from repro_torch.fleet import FleetRouter, PlanController
+
+    if config not in CONFIGS:
+        raise ValueError(f"config must be one of {CONFIGS}, got {config!r}")
+    cfg = PAPER_DEFAULT.bg if config == "paper-default" else SERVE_CONFIG
+    rng = np.random.default_rng(0)
+    traffic = []
+    for s in range(streams):
+        vid = synthetic_video_np(s, frames_per_stream, height, width, motion=1.5)
+        noisy = vid + rng.normal(0.0, 30.0, vid.shape)
+        traffic.append(np.clip(np.floor(noisy + 0.5), 0.0, 255.0).astype(np.float32))
+    per_worker = max(1, -(-streams // workers))
+    controller = PlanController(cfg=cfg, height=height, width=width,
+                                streams_per_worker=per_worker, temporal=True, device=device)
+    dev = controller.plan.device
+    router = FleetRouter(
+        controller=controller,
+        n_workers=workers,
+        worker_backend=worker_backend,
+        worker_kwargs=dict(device=str(dev), max_batch=per_worker,
+                           batch_window_ms=batch_window_ms),
+    )
+    period = 1.0 / fps if fps else 0.0
+    try:
+        for s in range(streams):
+            router.open_stream(s, alpha=alpha)
+        for f in [router.submit(traffic[s][0], stream_id=s) for s in range(streams)]:
+            f.result()
+        router.flush()
+        t0 = time.monotonic()
+        futs, client = [], []
+
+        def on_done(_f, t_sub):
+            client.append(time.monotonic() - t_sub)
+
+        for t in range(frames_per_stream):
+            if period:
+                pause = t0 + t * period - time.monotonic()
+                if pause > 0:
+                    time.sleep(pause)
+            for s in range(streams):
+                t_sub = time.monotonic()
+                fut = router.submit(traffic[s][t], stream_id=s, deadline_ms=deadline_ms)
+                fut.add_done_callback(lambda f, t_sub=t_sub: on_done(f, t_sub))
+                futs.append(fut)
+        for f in futs:
+            try:
+                f.result()
+            except Exception:
+                pass  # failures are counted in the workers' stats
+        dt = time.monotonic() - t0
+        st = router.stats()
+        # a dead child's counters went with it
+        alive = [w for w in router.workers if not router.is_dead(w.wid)]
+        launches = {w.wid: w.launches() for w in alive}
+        wire = {w.wid: w.wire() for w in alive if hasattr(w, "wire")}
+    finally:
+        router.close()
+    total = streams * frames_per_stream
+    m = st.merged
+    client = sorted(client)
+
+    def pct(q):  # EngineStats' estimator
+        return client[min(int(q * len(client)), len(client) - 1)] * 1e3
+
+    return {
+        "streams": streams,
+        "frames": total,
+        "workers": workers,
+        "worker_backend": worker_backend,
+        "seconds": dt,
+        "frames_per_s": total / dt,
+        "fps_per_stream": total / dt / streams,
+        "latency_ms_p50": m.latency_ms_p50,
+        "latency_ms_p99": m.latency_ms_p99,
+        "client_latency_ms_p50": pct(0.50),
+        "client_latency_ms_p99": pct(0.99),
+        "dispatches": m.dispatches,
+        "mean_batch": m.mean_batch,
+        "deadline_miss_rate": st.deadline_miss_rate,
+        "router_shed": st.router_shed,
+        "workers_alive": st.workers_alive,
+        "failed": m.failed,
+        "shed": m.shed,
+        "retries": m.retries,
+        "fallbacks": m.fallbacks,
+        "watchdog_trips": m.watchdog_trips,
+        "worker_launches": launches,
+        "worker_wire": wire,
+        "device": str(dev),
+        "plan": controller.plan.describe(),
+        "plan_hash": controller.plan_hash,
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -218,9 +358,34 @@ def main(argv=None) -> None:
     ap.add_argument("--config", choices=CONFIGS, default="serve",
                     help="grid config: the JAX launcher's serve grid (r=6) "
                     "or the paper's full-HD default (r=12)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="serve the video streams through a fleet of N workers (0: one engine)")
+    ap.add_argument("--worker-backend", choices=("local", "subprocess"), default="local",
+                    help="fleet workers: threads in this process, or one child process each")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     h, w = (int(x) for x in args.frame_hw.split("x"))
+    if args.workers and args.video is None:
+        ap.error("--workers serves video streams: pass --video N")
+    if args.workers:
+        st = serve_fleet(
+            args.video, args.video_frames, h, w, args.alpha, args.workers,
+            args.worker_backend, args.fps, args.deadline_ms or None, args.batch_window_ms,
+            args.config, args.device,
+        )
+        print(
+            f"[serve] fleet: {st['frames']} frames ({st['streams']} streams) {h}x{w} over "
+            f"{st['workers_alive']}/{st['workers']} {st['worker_backend']} workers on "
+            f"{st['device']} in {st['seconds']:.3f}s ({st['frames_per_s']:.1f} frames/s, "
+            f"{st['fps_per_stream']:.1f} fps/stream) p50={st['latency_ms_p50']:.1f}ms "
+            f"p99={st['latency_ms_p99']:.1f}ms (merged reservoirs; client "
+            f"p50={st['client_latency_ms_p50']:.1f}ms p99={st['client_latency_ms_p99']:.1f}ms) "
+            f"dispatches={st['dispatches']} mean_batch={st['mean_batch']:.1f} "
+            f"deadline_miss_rate={st['deadline_miss_rate']:.4f} shed={st['router_shed']} "
+            f"failed={st['failed']} launches={st['worker_launches']} plan[{st['plan']}] "
+            f"hash={st['plan_hash']}"
+        )
+        return
     if args.video is not None:
         st = serve_video(
             args.video, args.video_frames, h, w, args.alpha, args.fps,

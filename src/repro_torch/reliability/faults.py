@@ -29,10 +29,15 @@ Hook points (all on the host; no device work but a carry overwrite):
       with NaN/Inf, on its device) and ``drop_carry`` (lose it): the poison
       the carry quarantine must catch on the next pack.
 
-The transport kinds (``drop_message``, ``truncate_message``,
-``delay_heartbeat``) validate as in the JAX package, so the two packages
-accept the same plans; their hook, ``on_transport``, belongs to the fleet's
-socket workers and is not ported yet.
+  ``on_transport(msg_type, data, direction)``  called by the fleet's
+      ``SubprocessWorker`` transport with each encoded wire message. Fires
+      ``drop_message`` (the message vanishes: returns ``None``),
+      ``truncate_message`` (a strict prefix of ``fraction`` of the bytes:
+      the framing desynchronizes, the peer sees a torn frame) and
+      ``delay_heartbeat`` (opens a window of ``delay_s`` in which every
+      heartbeat is suppressed: the child looks wedged). ``message`` selects
+      the wire message type, ``dispatch`` the n-th transport message this
+      injector has seen (0-based, both directions counted).
 
 Fault matching: a fault fires when every non-``None`` selector matches
 (``stream_id``, ``frame_index``, ``dispatch``, ``backend``) and it has fired
@@ -60,7 +65,7 @@ FAULT_KINDS = (
     "drop_carry",
     "raise_dispatch",
     "hang_completion",
-    # transport kinds: fired by the fleet's socket transport (not ported yet)
+    # transport kinds: fired by the fleet's socket transport (on_transport)
     "drop_message",
     "truncate_message",
     "delay_heartbeat",
@@ -147,6 +152,8 @@ class FaultInjector:
         self.log: List[Tuple[str, object]] = []
         self._frame_counts: Dict[Hashable, int] = {}
         self._dispatches = 0
+        self._messages = 0  # transport messages seen by on_transport
+        self._hb_resume = 0.0  # heartbeat suppression window end (monotonic)
 
     # ------------------------------------------------------------ matching
     def _armed(self, i: int) -> bool:
@@ -247,6 +254,50 @@ class FaultInjector:
                     hit.append(sid)
                     self.log.append((f.kind, (sid, dispatch)))
         return hit
+
+    def on_transport(self, msg_type: str, data: bytes,
+                     direction: str = "send") -> Optional[bytes]:
+        """Transport hook: maybe-mutated wire bytes for one encoded message.
+
+        Returns the bytes to actually put on (or accept from) the wire,
+        possibly truncated, or ``None`` when the message should vanish
+        (``drop_message`` fired, or a ``delay_heartbeat`` suppression window
+        is open and ``msg_type == "heartbeat"``). Faults match on the
+        ``message`` selector (wire message-type name) and the ``dispatch``
+        selector (n-th transport message seen by this injector, 0-based,
+        counted across both directions)."""
+        with self._lock:
+            m = self._messages
+            self._messages += 1
+            now = time.monotonic()
+            if msg_type == "heartbeat" and now < self._hb_resume:
+                self.log.append(("delay_heartbeat", (m, "suppressed")))
+                return None
+            for i, f in enumerate(self.plan.faults):
+                if f.kind not in (
+                    "drop_message", "truncate_message", "delay_heartbeat"
+                ) or not self._armed(i):
+                    continue
+                if f.message is not None and f.message != msg_type:
+                    continue
+                if f.dispatch is not None and f.dispatch != m:
+                    continue
+                self.fired[i] += 1
+                self.log.append((f.kind, (m, msg_type, direction)))
+                if f.kind == "drop_message":
+                    return None
+                if f.kind == "truncate_message":
+                    # keep a strict prefix: at least 1 byte, never the whole
+                    # message (a no-op truncation would test nothing)
+                    keep = max(1, min(len(data) - 1, int(round(f.fraction * len(data)))))
+                    return data[:keep]
+                # delay_heartbeat: open the suppression window; the
+                # triggering message itself is swallowed when it is a
+                # heartbeat, passed through otherwise
+                self._hb_resume = max(self._hb_resume, now + f.delay_s)
+                if msg_type == "heartbeat":
+                    return None
+            return data
 
     # ----------------------------------------------------- plan integration
     @contextlib.contextmanager

@@ -35,7 +35,8 @@ Fault tolerance (the ``repro_torch.reliability`` wiring, as in the JAX
 engine):
 
   * **Admission**: ``submit`` validates shape, dtype and finiteness on the
-    host (``AdmissionError``).
+    host (``AdmissionError``). Disable with ``admission_checks=False`` (the
+    fleet's workers do: their router validated at its front door).
   * **Guarded dispatch**: every launch runs through a
     ``reliability.GuardedDispatch``: bounded retries with backoff, then the
     plan's fallback ladder behind per-rung circuit breakers
@@ -68,7 +69,9 @@ engine):
     ``reliability.FaultInjector``) to fire a deterministic fault schedule at
     the hook points above.
 
-Telemetry: ``stats()`` returns an :class:`EngineStats` snapshot.
+Telemetry: ``stats()`` returns an :class:`EngineStats` snapshot;
+``launches()`` the kernel launches made by this engine's threads, by
+counter (so several engines in one process count apart).
 """
 from __future__ import annotations
 
@@ -85,6 +88,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bilateral_grid import BGConfig
+from repro_torch.kernels import _wrap
 from repro_torch.reliability import (
     DeadlineExceeded,
     DispatchGuard,
@@ -117,7 +121,9 @@ class EngineStats:
     quarantined back to cold; ``shed``: requests dropped at collect time
     because their deadline had passed; ``watchdog_trips``: in-flight batches
     that exceeded the completion watchdog; ``restores``: carries installed
-    from a snapshot. ``latency_samples`` carries the sorted latency reservoir
+    from a snapshot; ``reconnects``: transport connections re-established
+    to a process-isolated fleet worker (0 for an in-process engine).
+    ``latency_samples`` carries the sorted latency reservoir
     (ms) so :meth:`merge` computes exact percentiles over several engines;
     ``as_dict()`` leaves it out. ``stats["key"]`` indexing is kept.
     """
@@ -138,6 +144,7 @@ class EngineStats:
     shed: int = 0
     watchdog_trips: int = 0
     restores: int = 0
+    reconnects: int = 0
     latency_samples: Tuple[float, ...] = ()
 
     def __getitem__(self, key: str):
@@ -198,6 +205,7 @@ class EngineStats:
             shed=sum(p.shed for p in parts),
             watchdog_trips=sum(p.watchdog_trips for p in parts),
             restores=sum(p.restores for p in parts),
+            reconnects=sum(p.reconnects for p in parts),
             latency_samples=tuple(samples),
         )
 
@@ -243,8 +251,8 @@ class AsyncFrameEngine:
     as the frames arrive, and the plan casts to bf16 on the card.
 
     ``fault_injector`` (assignable at runtime), ``watchdog_ms`` (``None``:
-    no watchdog), ``retry_policy`` and ``fallback`` wire the reliability
-    layer (module docstring).
+    no watchdog), ``retry_policy``, ``fallback`` and ``admission_checks``
+    wire the reliability layer (module docstring).
     """
 
     def __init__(
@@ -263,6 +271,7 @@ class AsyncFrameEngine:
         watchdog_ms: Optional[float] = None,
         retry_policy: Optional[RetryPolicy] = None,
         fallback: bool = True,
+        admission_checks: bool = True,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -304,6 +313,8 @@ class AsyncFrameEngine:
         self.deadline_margin = deadline_margin_ms / 1e3
         self.packer = packer
         self._packer_lock = threading.Lock()
+        self.admission_checks = admission_checks
+        self._launches: Dict[str, int] = {}  # this engine's threads' launches
 
         # reliability wiring (module docstring)
         self.fault_injector = fault_injector
@@ -367,7 +378,8 @@ class AsyncFrameEngine:
         """
         if self.packer is not None and stream_id is None:
             raise ValueError("video mode: submit needs a stream_id")
-        frame = validate_frame(frame, stream_id=stream_id)
+        if self.admission_checks:
+            frame = validate_frame(frame, stream_id=stream_id)
         inj = self.fault_injector
         if inj is not None:
             # post-admission hook: in-flight corruption admission cannot see
@@ -457,6 +469,12 @@ class AsyncFrameEngine:
                 restores=getattr(self.packer, "carry_restores", 0) or 0,
                 latency_samples=tuple(x * 1e3 for x in lat),
             )
+
+    def launches(self) -> Dict[str, int]:
+        """Kernel launches made by this engine's dispatch and completion
+        threads, by counter (``"bg_fused.temporal_launches"``, ...): the
+        wrappers' process-wide counters split by engine."""
+        return _wrap.read_tally(self._launches)
 
     def _count_retry(self) -> None:
         with self._lock:
@@ -617,6 +635,7 @@ class AsyncFrameEngine:
         return item
 
     def _dispatch_loop(self):
+        _wrap.tally_launches(self._launches)
         if self.plan.device.type == "cuda":
             torch.cuda.set_device(self.plan.device)
         while True:
@@ -797,6 +816,7 @@ class AsyncFrameEngine:
             self._drained.notify_all()
 
     def _complete_loop(self):
+        _wrap.tally_launches(self._launches)  # a stateless redispatch launches here
         while True:
             try:
                 item = self._inflight.get(timeout=0.2)

@@ -132,9 +132,11 @@ class MultiStreamPacker:
         The carry arrays are float32 (``plan.np_storage_dtype``) for both
         precisions: numpy has no bfloat16, so a bf16 carry leaves as the
         float32 values of its bf16 values, which is lossless, and
-        :meth:`restore_carry` gives back the same bits. Halving the snapshot
-        wire with bf16 bytes, as the JAX package ships them, comes with the
-        fleet layer that moves snapshots between hosts."""
+        :meth:`restore_carry` gives back the same bits. The fleet's
+        snapshots (``repro_torch.fleet.LocalWorker.carry_snapshot``) keep
+        the storage type instead, a CPU ``torch.bfloat16`` tensor for bf16,
+        and ship its 2-byte words, as the JAX package ships its bf16
+        snapshots."""
         out: Dict[Hashable, tuple] = {}
         for sid, sess in list(self.sessions.items()):
             if sess.carry is None:
@@ -157,13 +159,16 @@ class MultiStreamPacker:
         stream, bad alpha) leaves the session as it was.
 
         Any float array is taken (the JAX package's ml_dtypes bfloat16
-        arrays too, through ``np.asarray(carry, np.float32)``) and rounded
-        to the plan's storage type on install, as the JAX package's
-        ``np.asarray(carry, bf16)`` does; within one precision that is the
-        identity."""
+        arrays too, through ``np.asarray(carry, np.float32)``), and any
+        float tensor (a fleet snapshot's CPU ``torch.bfloat16`` one too),
+        and rounded to the plan's storage type on install, as the JAX
+        package's ``np.asarray(carry, bf16)`` does; within one precision
+        that is the identity."""
         sess = self.sessions.get(sid)
         if sess is None:
             raise KeyError(f"stream {sid!r} not open")
+        if isinstance(carry, torch.Tensor):
+            carry = carry.detach().to("cpu", torch.float32).numpy()
         arr = np.asarray(carry, self.plan.np_storage_dtype)
         if arr.ndim != 4 or arr.shape[-1] != 2:
             raise ValueError(
