@@ -35,7 +35,12 @@ chooses, and pinned on B3 and on B1), and runs the fleet (``fleet``: the
 launcher's ``serve_fleet`` over 2 local and 2 subprocess workers, B2 only,
 each worker's launches counted; a SIGKILLed subprocess worker's streams
 restored from snapshots and held bit for bit to in-process workers; a bf16
-snapshot; stateless micro-batches of 8 on B3 and of 1 on B1). Every served
+snapshot; stateless micro-batches of 8 on B3 and of 1 on B1), and runs
+the rest of the image core (``core_paths``: the ``"streaming"`` plan
+against the reference plan and B1, fixed point on the card equal to the
+CPU's bits, the exact BF beside the BG plan at r = 4, 8, 12, 16, and the
+vlm and spectrogram frontends on ``plan_for``'s plans, B3 or B1 counted).
+Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
@@ -1556,6 +1561,233 @@ def slice_sweep(torch, x, gf, cfg):
             "columns": ("band", "tile", "ms_per_frame", "device_ms_per_frame"), "variants": variants}
 
 
+# the fixed-point datapath against the pow2 float path, the JAX package's
+# tests/test_core_bg.py:124-125: at least 99 % of pixels within 1 LSB, none
+# more than 4 apart
+TOL_FIXED_SHARE, TOL_FIXED_MAX = 0.99, 4.0
+# the exact BF's window claim: BF and BG at the radii of Table I
+BF_RADII = (4, 8, 12, 16)
+BF_CROP = (270, 480)
+# the frontends: vlm_preprocess on 8 frames (16x16 patches to 256 wide
+# embeddings), spectrogram_denoise on a (4, 1024, 512) spectrogram
+VLM_FRAMES, VLM_PATCH, VLM_DIM = 8, 16, 256
+SPEC_SHAPE = (4, 1024, 512)
+KERNEL_COUNTER = {"fused": "bg_fused.launches", "fused_streamed": "bg_fused.streamed_launches"}
+
+
+def frontend_run(torch, dev, call):
+    """Run ``call()`` (a frontend on ``plan``) with every launch counter at
+    0 and the plan's dispatches counted by the dispatch hook; returns
+    ``(result, counters, dispatches)``, the counters read just after."""
+    from repro_torch.plan import set_dispatch_hook
+
+    seen = []
+    zero_counts()
+    prev = set_dispatch_hook(seen.append)
+    try:
+        out = call()
+        sync(torch, dev)
+    finally:
+        set_dispatch_hook(prev)
+    got = kernel_counts()
+    return out, got, len(seen)
+
+
+def zbin_boundary(torch, dev, frames8, audio, aplan) -> dict:
+    """Inputs a few ulps below a z-bin edge (ROADMAP C4). An 8-bit picture
+    mapped to dB (``frames8 / 255 * 80 - 80``, the spectrogram's shape)
+    gives them after the frontend's min-max scaling. Every z bin of the
+    port divides, ``floor(px / rs + 0.5)``, the reference's rule, on the
+    card as on the CPU. Returns the pixels a product with ``fp32(1/rs)``
+    bins apart from the division (the kernels' rule before PR 21), whether
+    B4's counts on the scaled frames equal its plain version's and the
+    reference ``grid_create``'s, and the share of outputs within 1e-3 of a
+    level and the largest difference in levels of the plan (B3 or B1)
+    against the reference plan on the card and on the CPU, and of the two
+    references. The caller holds them."""
+    import numpy as np
+
+    from repro_torch.core import grid_create
+    from repro_torch.data import spectrogram_denoise
+    from repro_torch.kernels import bg_create, bg_create_plain
+    from repro_torch.plan import BGPlan
+
+    spec8 = frames8 / 255.0 * 80.0 - 80.0
+    lo8, hi8 = spec8.min(), spec8.max()
+    scaled = ((spec8 - lo8) / torch.clamp(hi8 - lo8, min=1e-9) * 255.0).contiguous()  # the frontend's
+    rs = audio.range_scale
+    product_bin = torch.floor(scaled.cpu() * float(np.float32(1.0 / rs)) + 0.5)
+    division_bin = torch.floor(scaled.cpu() / rs + 0.5)
+    counts = bg_create(scaled, audio)[..., 0]
+    counts_plain = bg_create_plain(scaled, audio)[..., 0]
+    counts_ref = torch.stack([grid_create(f, audio)[..., 0] for f in scaled])
+    out = spectrogram_denoise(spec8, plan=aplan)
+    ref_card = spectrogram_denoise(spec8, plan=BGPlan(audio, backend="reference", device=dev))
+    ref_cpu = spectrogram_denoise(spec8.cpu(), audio, device="cpu")
+    level = float(hi8 - lo8) / 255.0
+
+    def agree(a, b):
+        d = (a.cpu() - b.cpu()).abs() / level
+        return {"levels_within_1e-3": float((d <= 1e-3).float().mean()), "max_levels": float(d.max())}
+
+    return {"shape": list(spec8.shape), "config": "(4, 2.0, 40.0)", "plan": aplan.describe(),
+            "pixels": spec8.numel(), "pixels_a_product_bins_apart": int((product_bin != division_bin).sum()),
+            "b4_counts_bitwise_plain": bool(torch.equal(counts, counts_plain)),
+            "b4_counts_bitwise_reference": bool(torch.equal(counts, counts_ref)),
+            "kernel_vs_card_reference": agree(out, ref_card), "kernel_vs_cpu_reference": agree(out, ref_cpu),
+            "card_reference_vs_cpu_reference": agree(ref_card, ref_cpu)}
+
+
+def core_paths(torch, smi, dev, clean, x8) -> float:
+    """Phase "core_paths": the rest of the image core on the card at
+    1080x1920, ``PAPER_DEFAULT``. The ``"streaming"`` plan on 2 frames
+    against the ``"reference"`` plan (atol 1e-3 unquantized, the quantized
+    contract) and against B1 (the quantized contract); fixed point on one
+    frame equal to the port's CPU result (``torch.equal``) and within
+    ``TOL_FIXED_*`` of the pow2 float path; the exact BF at r = 4, 8, 12,
+    16 beside the BG plan at the same radius and sigmas (ms per frame,
+    MSSIM against the clean scene), the BF held to the CPU BF on a 270x480
+    crop; ``vlm_preprocess`` and ``spectrogram_denoise`` on ``plan_for``'s
+    plans, their launches read from the counters. Each line carries the
+    card's name and power limit. ``clean`` and ``x8`` are the script's 8 clean full-HD scenes and
+    their noisy frames. Returns the phase's seconds."""
+    from repro_torch.configs.bg_denoise import PAPER_DEFAULT
+    from repro_torch.core import BGConfig, bilateral_filter, bilateral_grid_filter, bilateral_grid_filter_fixed, mssim
+    from repro_torch.data import denoise_batch, spectrogram_denoise, vlm_preprocess
+    from repro_torch.plan import BGPlan, plan_for
+
+    t_phase = time.perf_counter()
+    cfg = PAPER_DEFAULT.bg
+    check(x8.shape[0] == VLM_FRAMES, f"core_paths takes {VLM_FRAMES} frames")
+    x2 = x8[:2].contiguous()
+
+    # ---- the streaming backend on 2 frames
+    plans = {(be, q): BGPlan(cfg, backend=be, quantize_output=q, device=dev)
+             for be in ("streaming", "reference") for q in (False, True)}
+    zero_counts()
+    s_raw = plans["streaming", False](x2)
+    s_q = plans["streaming", True](x2)
+    sync(torch, dev)
+    check_counts(kernel_counts(), {}, "streaming: plain PyTorch by design, no kernel")
+    r_raw = plans["reference", False](x2)
+    r_q = plans["reference", True](x2)
+    b1 = BGPlan(cfg, backend="fused", device=dev)(x2)
+    err = float((s_raw - r_raw).abs().max())
+    exact_ref, lsb_ref = quantized_agreement(s_q, r_q)
+    exact_b1, lsb_b1 = quantized_agreement(s_q, b1)
+    s_ms = cuda_ms(torch, lambda: plans["streaming", True](x2), reps=3, warmup=1)
+    r_ms = cuda_ms(torch, lambda: plans["reference", True](x2), reps=3, warmup=1)
+    emit({"phase": "core_paths", "check": "streaming", "config": "PAPER_DEFAULT", "shape": list(x2.shape),
+          "max_abs_err_vs_reference": err, "tolerance": 1e-3,
+          "quantized_exact_vs_reference": exact_ref, "quantized_max_diff_vs_reference": lsb_ref,
+          "quantized_exact_vs_b1": exact_b1, "quantized_max_diff_vs_b1": lsb_b1,
+          "ms_per_frame": s_ms / 2, "reference_ms_per_frame": r_ms / 2, "card": smi})
+    check(s_raw.shape == x2.shape and bool(torch.isfinite(s_raw).all()), "streaming: shape/finite")
+    check(err <= 1e-3, f"streaming vs reference: {err}")
+    check(exact_ref >= TOL_EXACT and lsb_ref <= TOL_LSB, f"streaming vs reference: {exact_ref}, {lsb_ref}")
+    check(exact_b1 >= TOL_EXACT and lsb_b1 <= TOL_LSB, f"streaming vs B1: {exact_b1}, {lsb_b1}")
+
+    # ---- fixed point on one frame: integer sums, so the card gives the CPU's bits
+    pow2 = BGConfig(cfg.r, cfg.sigma_s, cfg.sigma_r, weight_mode="pow2")
+    frame = x2[0].contiguous()
+    fx = bilateral_grid_filter_fixed(frame, pow2, device=dev)
+    fx_cpu = bilateral_grid_filter_fixed(frame.cpu(), pow2, device="cpu")
+    diff = (fx - bilateral_grid_filter(frame, pow2)).abs()
+    within, fmax = float((diff <= 1.0).float().mean()), float(diff.max())
+    f_ms = cuda_ms(torch, lambda: bilateral_grid_filter_fixed(frame, pow2, device=dev), reps=5, warmup=1)
+    equal = bool(torch.equal(fx.cpu(), fx_cpu))
+    emit({"phase": "core_paths", "check": "fixed_point", "config": "PAPER_DEFAULT pow2", "shape": list(frame.shape),
+          "bitwise_cpu": equal, "share_within_1_lsb_of_pow2_float": within, "max_diff_vs_pow2_float": fmax,
+          "ms_per_frame": f_ms, "card": smi})
+    check(fx.device == dev and equal, "fixed point: the card differs from the CPU")
+    check(within >= TOL_FIXED_SHARE and fmax <= TOL_FIXED_MAX, f"fixed point vs pow2 float: {within}, {fmax}")
+
+    # ---- the paper's window claim: the exact BF's cost grows with r^2, the BG's does not
+    ch, cw = min(BF_CROP[0], H), min(BF_CROP[1], W)
+    crop = frame[:ch, :cw].contiguous()
+    noisy_m = float(mssim(clean[0], frame))
+    rows = {}
+    for r in BF_RADII:
+        rc = BGConfig(r, cfg.sigma_s, cfg.sigma_r)
+        bf = bilateral_filter(frame, r, rc.sigma_s, rc.sigma_r, device=dev)
+        crop_err = float((bilateral_filter(crop, r, rc.sigma_s, rc.sigma_r, quantize_output=False, device=dev).cpu()
+                          - bilateral_filter(crop.cpu(), r, rc.sigma_s, rc.sigma_r, quantize_output=False,
+                                             device="cpu")).abs().max())
+        bg_plan = plan_for(rc, H, W, n_frames=1, cache=False, device=dev)
+        bg = bg_plan(frame)
+        rows[r] = {"bf_ms_per_frame": cuda_ms(torch, lambda: bilateral_filter(frame, r, rc.sigma_s, rc.sigma_r, device=dev),
+                                              reps=2, warmup=1),
+                   "bg_ms_per_frame": cuda_ms(torch, lambda: bg_plan(frame), reps=20),
+                   "bf_mssim": float(mssim(clean[0], bf)), "bg_mssim": float(mssim(clean[0], bg)),
+                   "bf_taps": (2 * r + 1) ** 2, "bg_plan": bg_plan.describe(),
+                   "bf_crop_max_abs_err_vs_cpu": crop_err}
+        emit({"phase": "core_paths", "check": "window_claim", "r": r, "sigma_s": rc.sigma_s,
+              "sigma_r": rc.sigma_r, "frame_hw": [H, W], "noisy_mssim": noisy_m, **rows[r], "card": smi})
+        check(crop_err <= 1e-3, f"BF r={r}: card vs CPU on the {ch}x{cw} crop: {crop_err}")
+        check(rows[r]["bf_mssim"] > noisy_m and rows[r]["bg_mssim"] > noisy_m, f"r={r}: no denoising")
+    lo, hi = BF_RADII[0], BF_RADII[-1]
+    emit({"phase": "core_paths", "check": "window_claim_summary", "radii": list(BF_RADII),
+          "bf_ms_ratio": rows[hi]["bf_ms_per_frame"] / rows[lo]["bf_ms_per_frame"],
+          "bf_taps_ratio": rows[hi]["bf_taps"] / rows[lo]["bf_taps"],
+          "bg_ms_ratio": rows[hi]["bg_ms_per_frame"] / rows[lo]["bg_ms_per_frame"], "card": smi})
+
+    # ---- the frontends on plan_for's plans: the kernel carries the denoise
+    vplan = plan_for(cfg, H, W, n_frames=VLM_FRAMES, cache=False, device=dev)
+    emb, got, disp = frontend_run(torch, dev,
+                                  lambda: vlm_preprocess(x8, None, VLM_PATCH, VLM_DIM, plan=vplan))
+    ran = KERNEL_COUNTER[vplan.backend]
+    per = -(-VLM_FRAMES // vplan.tile_for(VLM_FRAMES))
+    check(disp == 1, f"vlm_preprocess: {disp} dispatches")
+    check_counts(got, {ran: disp * per}, "vlm_preprocess")
+    n_patch = (H // VLM_PATCH) * (W // VLM_PATCH)
+    check(emb.device == dev and tuple(emb.shape) == (VLM_FRAMES, n_patch, VLM_DIM) and bool(torch.isfinite(emb).all()),
+          f"vlm_preprocess: embeddings {tuple(emb.shape)}")
+    exact, lsb = quantized_agreement(denoise_batch(x8, plan=vplan), plans["reference", True](x8))
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"vlm_preprocess frames vs reference: {exact}, {lsb}")
+    v_ms = cuda_ms(torch, lambda: vlm_preprocess(x8, None, VLM_PATCH, VLM_DIM, plan=vplan), reps=5, warmup=1)
+    emit({"phase": "core_paths", "check": "vlm_preprocess", "frames": VLM_FRAMES, "frame_hw": [H, W],
+          "patch": VLM_PATCH, "dim": VLM_DIM, "plan": vplan.describe(), "dispatches": disp,
+          "launches": got, "launches_per_dispatch": got[ran] / disp, "quantized_exact_vs_reference": exact,
+          "quantized_max_diff_vs_reference": lsb, "ms_per_frame": v_ms / VLM_FRAMES, "card": smi})
+
+    audio = BGConfig(r=4, sigma_s=2.0, sigma_r=40.0)  # the JAX package's spectrogram default
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, t, f = SPEC_SHAPE
+    tt = torch.arange(t, device=dev, dtype=torch.float32)[None, :, None] / 40.0
+    ff = torch.arange(f, device=dev, dtype=torch.float32)[None, None, :] / 25.0
+    spec = (-60.0 + 30.0 * torch.sin(tt + ff * torch.rand((b, 1, 1), generator=gen, device=dev))
+            + 6.0 * torch.randn(SPEC_SHAPE, generator=gen, device=dev))
+    aplan = plan_for(audio, t, f, n_frames=b, cache=False, device=dev)
+    den, got, disp = frontend_run(torch, dev, lambda: spectrogram_denoise(spec, plan=aplan))
+    ran = KERNEL_COUNTER[aplan.backend]
+    per = -(-b // aplan.tile_for(b))
+    check(disp == 1, f"spectrogram_denoise: {disp} dispatches")
+    check_counts(got, {ran: disp * per}, "spectrogram_denoise")
+    ref = spectrogram_denoise(spec, plan=BGPlan(audio, backend="reference", device=dev))
+    level = float(spec.max() - spec.min()) / 255.0  # one intensity level of the scaled spectrogram
+    d = (den - ref).abs() / level
+    exact, lsb = float((d <= 1e-3).float().mean()), float(d.max())
+    check(den.shape == spec.shape and bool(torch.isfinite(den).all()), "spectrogram_denoise: shape/finite")
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB + 1e-3, f"spectrogram_denoise vs reference: {exact}, {lsb}")
+    a_ms = cuda_ms(torch, lambda: spectrogram_denoise(spec, plan=aplan), reps=5, warmup=1)
+    emit({"phase": "core_paths", "check": "spectrogram_denoise", "shape": list(SPEC_SHAPE),
+          "config": "(4, 2.0, 40.0)", "plan": aplan.describe(), "dispatches": disp, "launches": got,
+          "launches_per_dispatch": got[ran] / disp, "levels_within_1e-3_vs_reference": exact,
+          "max_levels_vs_reference": lsb, "ms": a_ms, "card": smi})
+    frames8 = x8[:b, :t, :f].contiguous()  # 8-bit noisy frames, cut to the spectrogram's shape
+    edges = zbin_boundary(torch, dev, frames8, audio, aplan)
+    emit({"phase": "core_paths", "check": "zbin_boundary", **edges, "card": smi})
+    check(edges["b4_counts_bitwise_plain"] and edges["b4_counts_bitwise_reference"],
+          f"z bins at the edges: B4's counts differ: {edges}")
+    for pair in ("kernel_vs_card_reference", "kernel_vs_cpu_reference", "card_reference_vs_cpu_reference"):
+        got = edges[pair]
+        check(got["levels_within_1e-3"] >= TOL_EXACT and got["max_levels"] <= TOL_LSB + 1e-3,
+              f"z bins at the edges, {pair}: {got}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "core_paths", "check": "done", "seconds": seconds, "card": smi})
+    return seconds
+
+
 def main() -> None:
     import torch
 
@@ -2046,6 +2278,8 @@ def main() -> None:
     check(vstats["retries"] == vstats["fallbacks"] == vstats["watchdog_trips"] == 0, f"serve_video: {vstats}")
     emit({"phase": "serve_video", "config": "PAPER_DEFAULT", "frame_hw": [H, W], "card": smi, **vstats})
     fleet_slice(torch, smi, dev)
+    # ---- phase 5: the rest of the image core and the frontends
+    core_paths(torch, smi, dev, clean, x8)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -6,8 +6,10 @@ card unless the caller passes ``device="cpu"``; with no card and no
 ``device="cpu"`` they raise.
 
 Ported (the frame- and video-serving paths at full width):
-  * ``core``: ``BGConfig`` and the whole-image GC / GF / TI, noise and the
-    synthetic scenes, MSSIM / PSNR;
+  * ``core``: ``BGConfig`` and the whole-image GC / GF / TI, the stripe
+    pipeline (``streaming``), the shift-only integer datapath
+    (``fixed_point``), the exact bilateral filter and ``gaussian_blur``,
+    noise and the synthetic scenes, MSSIM / PSNR;
   * ``kernels``: the six kernels of the JAX package, hand-written CUDA,
     each beside its plain PyTorch version: the fused GC -> GF -> TI filter
     (``kernels/csrc/bg_fused.cu``) per frame (B1) and with the in-kernel
@@ -16,8 +18,9 @@ Ported (the frame- and video-serving paths at full width):
     staged GC, GF and TI (``csrc/bg_create.cu``, ``bg_blur.cu``,
     ``bg_slice.cu``, B4-B6); and ``bilateral_grid_filter_pallas``; B1, B2
     and B3 in both storage forms, fp32 and bf16;
-  * ``plan``: ``BGPlan`` with the ``"reference"``, ``"fused"``,
-    ``"fused_streamed"`` and ``"staged"`` backends, per frame and temporal,
+  * ``plan``: ``BGPlan`` with the ``"reference"``, ``"streaming"``,
+    ``"fused"``, ``"fused_streamed"`` and ``"staged"`` backends, per frame
+    and temporal,
     fp32 and (but ``"staged"``, as in the JAX package) bf16 storage, one
     device, JSON payloads and hashes shared with the JAX package; its
     fallback ladder, provenance and dispatch hook; ``plan_for`` on an H100
@@ -35,10 +38,15 @@ Ported (the frame- and video-serving paths at full width):
     health and stats, the wire codec (the JAX package's bytes, bf16 by
     name), thread-hosted and subprocess workers, and the transport faults
     (``FaultInjector.on_transport``);
-  * ``data.pipeline.denoise_batch``, ``data.synthetic_video``,
+  * ``data``: ``denoise_batch`` and the [vlm] / [audio] frontends
+    (``patchify_embed``, ``vlm_preprocess``, ``spectrogram_denoise``),
+    ``synthetic_video``, ``vision_context``, ``audio_frames``;
     ``configs.bg_denoise`` and ``launch.serve --frames`` (``--stream-input``)
-    / ``--video`` (``--workers``, ``--worker-backend``).
+    / ``--video`` (``--workers``, ``--worker-backend``);
+  * ``examples``: ``quickstart``, ``denoise_stream``, ``denoise_video`` and
+    ``denoise_fleet`` (``python -m repro_torch.examples.<name>``).
 
-Not ported yet: the ``"streaming"`` backend (no kernel), mesh sharding,
-the rest of ``core``, ``data`` and ``launch``, and the LM substrate.
+Not ported yet: mesh sharding, the launcher's LM modes, and the LM
+substrate (with ``TokenStream``, ``lm_batches`` and the ``vlm_preprocess``
+example).
 """

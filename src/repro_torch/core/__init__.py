@@ -12,6 +12,8 @@ from .bilateral_grid import (
     grid_slice_homogeneous,
     quantize_intensity,
 )
+from .bilateral_filter import bilateral_filter, gaussian_blur
+from .fixed_point import bilateral_grid_filter_fixed, intensity_luts, pow2_shift
 from .metrics import mssim, psnr
 from .noise import (
     NOISE_SIGMA_PAPER,
@@ -20,11 +22,16 @@ from .noise import (
     synthetic_image,
     synthetic_image_np,
 )
+from .streaming import bilateral_grid_filter_streaming
 
 __all__ = [
     "BGConfig",
     "conv3_axis",
     "bilateral_grid_filter",
+    "bilateral_grid_filter_fixed",
+    "bilateral_grid_filter_streaming",
+    "bilateral_filter",
+    "gaussian_blur",
     "gaussian_taps",
     "grid_blur",
     "grid_create",
@@ -33,6 +40,8 @@ __all__ = [
     "grid_slice",
     "grid_slice_homogeneous",
     "quantize_intensity",
+    "intensity_luts",
+    "pow2_shift",
     "mssim",
     "psnr",
     "synthetic_image",

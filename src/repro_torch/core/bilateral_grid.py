@@ -57,6 +57,15 @@ def _wrap_negative(idx: torch.Tensor, size: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + size, idx)
 
 
+def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` in float32, rounded once, on every device, as jnp divides.
+    The divisor is a 0-dim tensor on ``x``'s device: torch's CUDA division
+    by a Python number multiplies by its float32 reciprocal instead, which
+    differs by an ulp and moves a value a few ulps below a bin edge into
+    the next bin (ROADMAP C4)."""
+    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+
+
 def quantize_intensity(out: torch.Tensor, cfg: "BGConfig") -> torch.Tensor:
     """The paper's output quantization: round-half-up, clip to the intensity
     range. Every pipeline exit of the port goes through this function."""
@@ -143,9 +152,9 @@ def gaussian_taps(cfg: BGConfig) -> torch.Tensor:
 def feature_coords(h: int, w: int, image: torch.Tensor, cfg: BGConfig):
     """fv(i) components: (ix/r, iy/r, f(i)/range_scale). Shapes (h,), (w,), (h,w)."""
     dev = image.device
-    fx = torch.arange(h, dtype=torch.float32, device=dev) / cfg.r
-    fy = torch.arange(w, dtype=torch.float32, device=dev) / cfg.r
-    fz = image.to(torch.float32) / cfg.range_scale
+    fx = _divide(torch.arange(h, dtype=torch.float32, device=dev), cfg.r)
+    fy = _divide(torch.arange(w, dtype=torch.float32, device=dev), cfg.r)
+    fz = _divide(image.to(torch.float32), cfg.range_scale)
     return fx, fy, fz
 
 

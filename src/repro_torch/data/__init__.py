@@ -1,5 +1,19 @@
 """Data-pipeline stages and synthetic data of the port."""
-from .pipeline import denoise_batch
-from .synthetic import synthetic_video, synthetic_video_np
+from .pipeline import (
+    denoise_batch,
+    patchify_embed,
+    spectrogram_denoise,
+    vlm_preprocess,
+)
+from .synthetic import audio_frames, synthetic_video, synthetic_video_np, vision_context
 
-__all__ = ["denoise_batch", "synthetic_video", "synthetic_video_np"]
+__all__ = [
+    "denoise_batch",
+    "patchify_embed",
+    "vlm_preprocess",
+    "spectrogram_denoise",
+    "synthetic_video",
+    "synthetic_video_np",
+    "vision_context",
+    "audio_frames",
+]

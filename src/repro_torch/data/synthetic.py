@@ -1,6 +1,8 @@
-"""Synthetic video: the port's own copy of the JAX package's
-``repro/data/synthetic.py::synthetic_video``, built in numpy exactly as
-there, so both packages see the same pixels."""
+"""Synthetic data: the port's own copies of the JAX package's
+``repro/data/synthetic.py``: ``synthetic_video`` and the stub modality
+inputs ``vision_context`` and ``audio_frames``, built in numpy exactly as
+there, so both packages see the same values. ``TokenStream`` and
+``lm_batches`` go with the LM substrate, not ported yet."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,7 +11,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.noise import synthetic_image_np
 
-__all__ = ["synthetic_video", "synthetic_video_np"]
+__all__ = ["synthetic_video", "synthetic_video_np", "vision_context", "audio_frames"]
 
 
 def synthetic_video_np(
@@ -46,3 +48,18 @@ def synthetic_video(
     the CUDA card)."""
     frames = synthetic_video_np(key, n_frames, h, w, motion)
     return torch.from_numpy(frames).to(resolve_device(device))
+
+
+def vision_context(batch: int, n_tokens: int, dim: int, seed: int = 0) -> np.ndarray:
+    """Stub precomputed patch embeddings, float32 numpy (batch, n_tokens, dim)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, n_tokens, dim)).astype(np.float32) * 0.02
+
+
+def audio_frames(batch: int, seq: int, dim: int, seed: int = 0) -> np.ndarray:
+    """Stub precomputed frame embeddings for the encoder-only audio arch,
+    float32 numpy (batch, seq, dim)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(seq)[None, :, None] / 50.0
+    base = np.sin(t * (1 + rng.random((batch, 1, dim)) * 4))
+    return (base + 0.1 * rng.standard_normal((batch, seq, dim))).astype(np.float32)

@@ -4,9 +4,9 @@ PyTorch version.
 The kernel (``csrc/bg_create.cu``, B4) replaces the JAX package's GC Pallas
 kernel (``repro/kernels/bg_create.py:68``): frames in, the ``(count, sum)``
 grid out in HBM, in the JAX layout ``(gx, gy, gz, 2)`` per frame. It bins as
-the fused kernel does (the same device function): z bin ``floor(px *
-fp32(1/rs) + 0.5)``, integer round-half-up row and column cells, pixels whose
-bin falls outside ``[0, gz)`` dropped. Each cell adds its pixels in a fixed
+the fused kernel does (the same device function): z bin ``floor(px / rs +
+0.5)``, the reference's rule, integer round-half-up row and column cells,
+pixels whose bin falls outside ``[0, gz)`` dropped. Each cell adds its pixels in a fixed
 order (``bg::gc_cell``'s, the fused kernels'), so a frame's grid does not
 depend on the batch, the launch or the split. A block walks a band of
 x-planes of one column tile, each plane's rows staged in shared memory;
@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.bilateral_grid import _divide
 from repro_torch.reliability.errors import KernelLaunchError
 
 from . import _build, _wrap
@@ -65,8 +66,11 @@ class CreateGeometry(NamedTuple):
     smem: int
 
 
-def _inv_rs(cfg: BGConfig) -> float:
-    return float(np.float32(1.0 / cfg.range_scale))
+def bin_divisor(cfg: BGConfig) -> Tuple[float, float]:
+    """``(rs, rcp_rs)`` the kernels' z bin divides by (``bg::gc_bin``): the
+    float32 range scale and its correctly rounded float32 reciprocal."""
+    rs = np.float32(cfg.range_scale)
+    return float(rs), float(np.float32(1.0) / rs)
 
 
 def bg_create_plain(image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
@@ -78,7 +82,7 @@ def bg_create_plain(image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:
     b, h, w = x.shape
     gx, gy, gz = grid_shape(h, w, cfg)
     dev = x.device
-    zbin = torch.floor(x * _inv_rs(cfg) + 0.5).long()
+    zbin = torch.floor(_divide(x, cfg.range_scale) + 0.5).long()
     inside = ((zbin >= 0) & (zbin < gz)).to(torch.float32)
     frame = torch.arange(b, device=dev)[:, None, None]
     xc = torch.as_tensor(gc_cells(h, cfg.r), device=dev)[None, :, None]
@@ -183,7 +187,7 @@ class CreateShape(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gx", "gy", "gz", "split", "band",
                                             "tile", "zgroup", "ring_rows")] + \
-               [("inv_rs", ctypes.c_float)] + \
+               [(f, ctypes.c_float) for f in ("rs", "rcp_rs")] + \
                [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
 
 
@@ -210,7 +214,7 @@ def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs) -> tu
     geo = create_geometry(b, h, w, cfg, num_sms, smem_limit, **dict(knobs))
     gx, gy, gz = grid_shape(h, w, cfg)
     shape = CreateShape(b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile,
-                        geo.zgroup, geo.ring_rows, _inv_rs(cfg), geo.smem, index)
+                        geo.zgroup, geo.ring_rows, *bin_divisor(cfg), geo.smem, index)
     return geo, shape, ctypes.addressof(shape)
 
 

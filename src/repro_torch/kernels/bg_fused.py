@@ -78,7 +78,7 @@ from repro_torch.reliability.errors import KernelLaunchError
 
 from . import _build, _wrap
 from .bg_blur import bg_blur_plain
-from .bg_create import bg_create_plain
+from .bg_create import bg_create_plain, bin_divisor
 from .bg_slice import bg_slice_plain
 from .common import BGConfig, gc_row_split, grid_shape, round_storage, storage_dtype, taps_np
 
@@ -167,8 +167,8 @@ def bg_fused_plain(
     Batched whole-image GC -> GF -> normalize -> TI in fp32 tensor ops: the
     staged plain versions (:func:`bg_create_plain`, :func:`bg_blur_plain`,
     ``grid_normalize``, :func:`bg_slice_plain`), which carry the kernels'
-    arithmetic: z bin ``floor(px * fp32(1/rs) + 0.5)``, integer row and
-    column cells, blur along x, then z, then y, and the kernels' TI lerp
+    arithmetic: z bin ``floor(px / rs + 0.5)`` (the reference's), integer
+    row and column cells, blur along x, then z, then y, and the kernels' TI lerp
     order. It uses no matmul and no convolution, so TF32 settings do not
     reach it. ``batch_tile`` bounds the frames per pass (memory only; the
     result does not depend on it). With ``carry`` and ``alpha`` it is the
@@ -408,7 +408,7 @@ class LaunchShape(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gx", "gy", "gz", "split", "band",
                                             "tile", "rows")] + \
-               [(f, ctypes.c_float) for f in ("inv_rs", "t0", "t1", "t2")] + \
+               [(f, ctypes.c_float) for f in ("inv_rs", "rs", "rcp_rs", "t0", "t1", "t2")] + \
                [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
 
 
@@ -430,7 +430,7 @@ class StreamShape(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gy", "gz", "split", "band", "tile",
                                             "chunk", "zgroup", "ring_rows")] + \
-               [(f, ctypes.c_float) for f in ("inv_rs", "t0", "t1", "t2")] + \
+               [(f, ctypes.c_float) for f in ("inv_rs", "rs", "rcp_rs", "t0", "t1", "t2")] + \
                [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
 
 
@@ -463,8 +463,8 @@ def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, temporal: bo
     gx, gy, gz = grid_shape(h, w, cfg)
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     shape = LaunchShape(b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile,
-                        geo.rows, float(np.float32(1.0 / cfg.range_scale)), t0, t1, t2,
-                        geo.smem, index)
+                        geo.rows, float(np.float32(1.0 / cfg.range_scale)), *bin_divisor(cfg),
+                        t0, t1, t2, geo.smem, index)
     return geo, shape, ctypes.addressof(shape)
 
 
@@ -523,7 +523,7 @@ def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs, esize
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     shape = StreamShape(b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile, geo.chunk,
                         geo.zgroup, geo.ring_rows, float(np.float32(1.0 / cfg.range_scale)),
-                        t0, t1, t2, geo.smem, index)
+                        *bin_divisor(cfg), t0, t1, t2, geo.smem, index)
     return geo, shape, ctypes.addressof(shape)
 
 

@@ -69,7 +69,7 @@ struct Args {
   float* grid;
   int h, w, r, gx, gy, gz, split;
   int band, tile, ring_rows;
-  float inv_rs;
+  float rs, rcp_rs;
 };
 
 // grid: (ceil(gx / band), ceil(gy / tile), frames). Shared memory, with
@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) bg_create_kernel(const Args a) {
         int at = s_lo * RW + lead + q;  // the ring index of row m
 #pragma unroll 4
         for (int m = 0; m < n; ++m) {
-          const unsigned z = static_cast<unsigned>(bg::gc_bin(ring[at], a.inv_rs));
+          const unsigned z = static_cast<unsigned>(bg::gc_bin(ring[at], a.rs, a.rcp_rs));
           zb[m * ZS] = static_cast<unsigned char>(z < static_cast<unsigned>(gz) ? z : 255u);
           at += RW;
           if (at >= RR * RW) at -= RR * RW;
@@ -270,7 +270,7 @@ int launch(const Args& a, int b, int smem_bytes, int device, void* stream) {
 // passed by pointer.
 struct CreateShape {
   int b, h, w, r, gx, gy, gz, split, band, tile, zgroup, ring_rows;
-  float inv_rs;
+  float rs, rcp_rs;
   int smem_bytes, device;
 };
 
@@ -296,7 +296,7 @@ int bg_create_smem_optin(int device) {
 // cudaGetLastError() after the launch (0 on success); never synchronizes.
 int bg_create_launch(const float* img, float* grid, const CreateShape* s, void* stream) {
   const Args a{img, grid, s->h, s->w, s->r, s->gx, s->gy, s->gz, s->split, s->band, s->tile,
-               s->ring_rows, s->inv_rs};
+               s->ring_rows, s->rs, s->rcp_rs};
   switch (s->zgroup) {
     case 1:
       return launch<1>(a, s->b, s->smem_bytes, s->device, stream);

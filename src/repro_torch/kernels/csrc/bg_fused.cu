@@ -117,7 +117,7 @@ struct Args {
   int h, w, r, gx, gy, gz, split;
   int band, tile, rows, n_stripes, n_cells;
   unsigned r_magic;  // ceil(2^32 / r): j / r == umulhi(j, r_magic) for r > 1
-  float inv_rs, t0, t1, t2;
+  float inv_rs, rs, rcp_rs, t0, t1, t2;
 };
 
 // x-mixed values of three raw planes held as [z][cell] with `stride` cells,
@@ -285,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) bg_fused_kernel(const Args<T> a) {
                         (par0 ^ ((first + m) & w & 1)) + cs - ja;
         for (int jj = jj_lo; jj < jj_hi; ++jj) {
           const float px = kF ? row[jj * SC] : bg::ld(trow + jj);
-          const int d = bg::gc_bin(px, a.inv_rs) - z0;
+          const int d = bg::gc_bin(px, a.rs, a.rcp_rs) - z0;
 #pragma unroll
           for (int k = 0; k < kZ; ++k) {
             if (d == k) {
@@ -436,7 +436,7 @@ int launch(const Args<T>& a, int b, int smem_bytes, int device, void* stream) {
 // host, and a launch of tens of microseconds must not wait on that).
 struct LaunchShape {
   int b, h, w, r, gx, gy, gz, split, band, tile, rows;
-  float inv_rs, t0, t1, t2;
+  float inv_rs, rs, rcp_rs, t0, t1, t2;
   int smem_bytes, device;
 };
 
@@ -448,7 +448,7 @@ static Args<T> make_args(const T* img, T* out, const float* yf, const float* xf,
   return Args<T>{img, out, yf, xf, carry_in, carry_out, alpha, s.h, s.w, r, s.gx, s.gy, s.gz,
               s.split, s.band, s.tile, s.rows, (s.h + r - 1) / r, (s.w + r - 1) / r,
               r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s.inv_rs,
-              s.t0, s.t1, s.t2};
+              s.rs, s.rcp_rs, s.t0, s.t1, s.t2};
 }
 
 extern "C" {

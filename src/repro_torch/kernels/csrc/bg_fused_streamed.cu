@@ -105,7 +105,7 @@ struct Args {
   int h, w, r, gy, gz, split;
   int band, tile, chunk, ring_rows, n_stripes, n_cells;
   unsigned r_magic;  // ceil(2^32 / r): j / r == umulhi(j, r_magic) for r > 1
-  float inv_rs, t0, t1, t2;
+  float inv_rs, rs, rcp_rs, t0, t1, t2;
 };
 
 // grid: (bands, tiles, frames). Shared memory, with NR = tile + 3 raw cells,
@@ -264,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args<
           for (int u = 0; u < 4; ++u) {
             const int col = col0 + u;
             const int z =
-                jj0 + u < r && col >= ja && col < jb ? bg::gc_bin(bg::ld(px + u), a.inv_rs) : -1;
+                jj0 + u < r && col >= ja && col < jb ? bg::gc_bin(bg::ld(px + u), a.rs, a.rcp_rs) : -1;
             word |= static_cast<unsigned>(z >= 0 && z < gz ? z : 255) << (8 * u);
           }
           zwords[(m * NR + yl) * CB + t - yl * CB] = word;
@@ -416,7 +416,7 @@ int launch(const Args<T>& a, int b, int smem_bytes, int device, void* stream) {
 // passed by pointer.
 struct StreamShape {
   int b, h, w, r, gy, gz, split, band, tile, chunk, zgroup, ring_rows;
-  float inv_rs, t0, t1, t2;
+  float inv_rs, rs, rcp_rs, t0, t1, t2;
   int smem_bytes, device;
 };
 
@@ -427,7 +427,7 @@ static int launch_shape(const T* img, T* out, const float* yf, const float* xf,
   const Args<T> a{img, out, yf, xf, s->h, s->w, r, s->gy, s->gz, s->split, s->band, s->tile,
                   s->chunk, s->ring_rows, (s->h + r - 1) / r, (s->w + r - 1) / r,
                   r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s->inv_rs,
-                  s->t0, s->t1, s->t2};
+                  s->rs, s->rcp_rs, s->t0, s->t1, s->t2};
   switch (s->zgroup) {
     case 1:
       return launch<1>(a, s->b, s->smem_bytes, s->device, stream);

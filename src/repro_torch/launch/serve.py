@@ -20,8 +20,11 @@ Both modes build their plan with ``plan_for`` (the JAX launcher's route):
 the measured-plan cache, else the cost model, picks backend and batch tile
 (fp32; ``--stream-input`` pins ``"fused_streamed"``), and the printed
 ``plan[...]`` names the route it came from (``src=cache``, ``src=model`` or
-``src=explicit``). The frame mode asks for a micro-batch of
-``--micro-batch`` frames, where the JAX launcher leaves the pack size open.
+``src=explicit``). The options the two launchers share have the JAX
+launcher's defaults (``--micro-batch 16``, ``--video-frames 24``, ...), so
+one command serves the same traffic in both. The frame mode gives
+``plan_for`` the pack size, ``n_frames=--micro-batch``, where the JAX
+launcher leaves it open.
 The fleet mode's plan comes from a ``PlanController`` (``plan_for`` for
 each worker's share of the streams), as in the JAX launcher. The JAX
 launcher's LM modes are not ported yet.
@@ -41,7 +44,7 @@ def serve_frames(
     frames: int,
     height: int,
     width: int,
-    micro_batch: int = 8,
+    micro_batch: int = 16,
     config: str = "serve",
     device=None,
     stream_input: bool | None = None,
@@ -342,16 +345,16 @@ def serve_fleet(
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group(required=True)
-    mode.add_argument("--frames", type=int, help="frames to serve")
-    mode.add_argument("--video", type=int, help="video streams to serve")
-    ap.add_argument("--video-frames", type=int, default=16, help="frames per stream")
+    mode.add_argument("--frames", type=int, default=0, help="frames to serve")
+    mode.add_argument("--video", type=int, default=0, help="video streams to serve")
+    ap.add_argument("--video-frames", type=int, default=24, help="frames per stream")
     ap.add_argument("--alpha", type=float, default=0.6, help="temporal EMA weight per stream")
     ap.add_argument("--fps", type=float, default=0.0, help="frames/s per stream (0: max)")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="latency budget per video frame (0: none)")
     ap.add_argument("--batch-window-ms", type=float, default=5.0, help="video batch window")
     ap.add_argument("--frame-hw", default="96x128", help="frame size HxW")
-    ap.add_argument("--micro-batch", type=int, default=8, help="frames per dispatch")
+    ap.add_argument("--micro-batch", type=int, default=16, help="frames per dispatch")
     ap.add_argument("--stream-input", action="store_true",
                     help="serve frames through the streamed fused kernel (each "
                     "frame read once through a ring of rows in shared memory)")
@@ -365,7 +368,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     h, w = (int(x) for x in args.frame_hw.split("x"))
-    if args.workers and args.video is None:
+    if args.frames < 1 and args.video < 1:
+        ap.error("--frames or --video needs a positive count")
+    if args.workers and not args.video:
         ap.error("--workers serves video streams: pass --video N")
     if args.workers:
         st = serve_fleet(
@@ -386,7 +391,7 @@ def main(argv=None) -> None:
             f"hash={st['plan_hash']}"
         )
         return
-    if args.video is not None:
+    if args.video:
         st = serve_video(
             args.video, args.video_frames, h, w, args.alpha, args.fps,
             args.deadline_ms or None, args.batch_window_ms, args.config, args.device,

@@ -11,6 +11,11 @@ equal plans share one executable.
   "reference"       whole-image GC -> GF -> TI per frame (``repro_torch.core``);
                     the numerical oracle. Temporal: the staged oracle
                     (``blurred_grid_batch`` -> EMA blend -> normalize -> slice)
+  "streaming"       the paper's stripe pipeline (``core/streaming.py``): a loop
+                    over stripes of r rows carrying three raw and two blurred
+                    grid planes, the whole batch per step. Plain tensor
+                    operations on the plan's device, as ``jnp`` in the JAX
+                    package (no kernel there either); fp32, not temporal
   "fused"           the fused CUDA kernel B1 (``kernels/bg_fused.py``), grid
                     kept in shared memory; its plain version on the CPU.
                     Temporal: the same kernel with the in-kernel grid EMA (B2)
@@ -33,9 +38,9 @@ frames to bf16 on the plan's device, run the bf16 entry points of B1, B2 and
 B3 (the contract is in ``kernels/bg_fused.py``), upcast the output to
 float32 before quantizing and keep the carry in bf16; the reference routes
 round the frames (and store the temporal carry) in bf16 and compute in
-fp32. The JAX package's ``"streaming"`` route and mesh sharding are valid
-plans there and raise ``NotImplementedError`` here until they are ported. A
-plan the JAX package rejects is rejected here with the same ``ValueError``.
+fp32. Mesh sharding is valid there and raises ``NotImplementedError`` here
+until it is ported. A plan the JAX package rejects is rejected here with the
+same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
 raises when there is none; ``device="cpu"`` runs the plain versions.
@@ -47,8 +52,8 @@ Plan selection (:func:`plan_for`)
 storage type) in the JAX package's order: pinned arguments first (provenance
 ``"explicit"``), then the measured-plan cache (:mod:`repro_torch.plan_cache`,
 ``"cache"``), then the cost model below (``"model"``). A plan built directly
-has provenance ``"default"``. It never picks ``"staged"`` or
-``"reference"``; they are reachable when pinned.
+has provenance ``"default"``. It never picks ``"staged"``, ``"streaming"``
+or ``"reference"``; they are reachable when pinned.
 
 The batch tile rule (:func:`auto_batch_tile`). On the TPU the tile was
 bounded by a per-step VMEM budget. On the H100 a block's shared memory does
@@ -114,7 +119,6 @@ __all__ = [
     "BGPlan",
     "BACKENDS",
     "PRECISIONS",
-    "PORTED_BACKENDS",
     "precision_bytes",
     "plan_for",
     "plan_cost",
@@ -140,7 +144,6 @@ _FUSED_BACKENDS = ("fused", "fused_streamed")
 _MESH_BACKENDS = ("streaming", "fused", "fused_streamed")
 _TEMPORAL_BACKENDS = ("reference", "fused")
 _BF16_BACKENDS = ("reference", "fused", "fused_streamed")
-PORTED_BACKENDS = ("reference", "fused", "fused_streamed", "staged")
 
 # ------------------------------------------------------- the H100 cost model
 # One H100 SXM: HBM rate and fp32 rate outside the tensor cores (data sheet).
@@ -236,8 +239,8 @@ def plan_cost_breakdown(plan: "BGPlan", h: int, w: int,
     ``steps`` (kernel launches), ``compute_s``, ``memory_s``,
     ``overhead_s``, ``bound_s`` (``max(compute, memory)``) and ``total_s``
     (the sum that ranks candidates). Covers the kernel backends only:
-    ``"reference"``, which :func:`plan_for` never ranks, raises
-    ``ValueError``."""
+    ``"reference"`` and ``"streaming"``, which :func:`plan_for` never
+    ranks, raise ``ValueError``."""
     cfg = plan.cfg
     b = 1 if n_frames is None else max(1, int(n_frames))
     gx, gy, gz = grid_shape(h, w, cfg)
@@ -336,8 +339,9 @@ class BGPlan:
 
     Fields:
       cfg:             the grid/window configuration (frozen ``BGConfig``).
-      backend:         ``"reference"``, ``"fused"``, ``"fused_streamed"`` or
-                       ``"staged"`` (module docstring).
+      backend:         ``"reference"``, ``"streaming"``, ``"fused"``,
+                       ``"fused_streamed"`` or ``"staged"`` (module
+                       docstring).
       temporal:        the video grid-EMA form: called with ``carry=`` and
                        ``alpha=``, returns ``(out, new_carry)``.
       batch_tile:      frames per kernel launch on the fused backends
@@ -406,9 +410,6 @@ class BGPlan:
                     f"temporal plans support backends {_TEMPORAL_BACKENDS}, "
                     f"got {self.backend!r}"
                 )
-        # valid in the JAX package, not ported yet
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(f"backend {self.backend!r} is not yet ported")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ------------------------------------------------------------ utilities
@@ -454,11 +455,13 @@ class BGPlan:
         """The degradation ladder for fault-tolerant serving: this plan
         first, then simpler variants, each on this plan's device. On the
         CPU it is the JAX package's (``fused_streamed -> fused ->
-        reference``; any other backend falls straight to ``reference``).
-        On a card it ends at the last kernel rung (``fused_streamed ->
-        fused``; any other backend alone): the ``reference`` rung there
-        would answer a failed kernel from plain PyTorch on the card, so a
-        card plan never degrades past its kernels. ``temporal`` and
+        reference``; any other backend, ``"streaming"`` too, falls straight
+        to ``reference``). On a card it ends at the last kernel rung
+        (``fused_streamed -> fused``; any other backend alone): the
+        ``reference`` rung there would answer a failed kernel from plain
+        PyTorch on the card, so a card plan never degrades past its
+        kernels, and a ``"streaming"`` plan, plain PyTorch by design, has
+        no rung below it there. ``temporal`` and
         ``precision`` survive every rung (``fused`` and ``reference`` both
         carry the grid EMA and both storage types); a ``reference`` rung's
         ``batch_tile`` normalizes away. Consumed by
@@ -490,8 +493,8 @@ class BGPlan:
     def from_json(cls, data: dict, *, device=None) -> "BGPlan":
         """Rebuild a plan from a version-1 payload, written by either package,
         bound to ``device``. ``interpret`` is a Pallas setting and is
-        ignored; fields this port does not run yet raise
-        ``NotImplementedError``."""
+        ignored; a mesh (``mesh_size > 1``), which this port does not run
+        yet, raises ``NotImplementedError``."""
         if int(data.get("version", 1)) != 1:
             raise ValueError(
                 f"unknown BGPlan serialization version {data.get('version')!r}"
@@ -839,6 +842,16 @@ def _plan_executable(plan: BGPlan):
             if frames.dim() == 3:
                 return torch.stack([single(f) for f in frames])
             return single(frames)
+
+        return fn
+
+    if plan.backend == "streaming":
+        from repro_torch.core.streaming import _streaming_batch
+
+        def fn(frames):
+            if frames.dim() == 3:
+                return _streaming_batch(frames, cfg, quant)
+            return _streaming_batch(frames[None], cfg, quant)[0]
 
         return fn
 

@@ -30,6 +30,7 @@ import torch
 from repro_torch.core.bilateral_grid import (
     BGConfig,
     _round_half_up,
+    _divide,
     _wrap_negative,
     conv3_axis,
     gaussian_taps,
@@ -65,11 +66,11 @@ def blurred_grid_batch(frames: torch.Tensor, cfg: BGConfig, precision: str = "fp
     n, h, w = frames.shape
     gx, gy, gz = grid_shape(h, w, cfg)
     dev = frames.device
-    xg = _round_half_up(torch.arange(h, dtype=torch.float32, device=dev) / cfg.r).long()
-    yg = _round_half_up(torch.arange(w, dtype=torch.float32, device=dev) / cfg.r).long()
+    xg = _round_half_up(_divide(torch.arange(h, dtype=torch.float32, device=dev), cfg.r)).long()
+    yg = _round_half_up(_divide(torch.arange(w, dtype=torch.float32, device=dev), cfg.r)).long()
     # a negative bin counts as bin + gz, and a pixel whose bin is still
     # outside [0, gz) is dropped, as in grid_create
-    zg = _wrap_negative(_round_half_up(frames / cfg.range_scale).long(), gz)
+    zg = _wrap_negative(_round_half_up(_divide(frames, cfg.range_scale)).long(), gz)
     inside = ((zg >= 0) & (zg < gz)).to(torch.float32)
     bi = torch.arange(n, device=dev)[:, None, None].expand(n, h, w)
     vals = torch.stack([inside, frames * inside], dim=-1)

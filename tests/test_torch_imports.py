@@ -52,9 +52,14 @@ PLAN_AND_RELIABILITY = ["plan_cache", "reliability.errors", "reliability.retry",
 # the fleet: every module of repro_torch.fleet, and the launcher that fronts it
 FLEET = ["fleet", "fleet.errors", "fleet.codec", "fleet.stats", "fleet.health", "fleet.worker",
          "fleet.controller", "fleet.router", "fleet.remote", "fleet.remote_worker"]
+# the rest of the image core, the data frontends and the examples
+CORE_AND_EXAMPLES = ["core.bilateral_filter", "core.fixed_point", "core.streaming", "core",
+                     "data.pipeline", "data.synthetic", "data", "examples", "examples.quickstart",
+                     "examples.denoise_stream", "examples.denoise_video", "examples.denoise_fleet"]
 
 
-@pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET)
+@pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET
+                         + CORE_AND_EXAMPLES)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, no ``ml_dtypes``, nothing of ``repro`` and no compiled kernel (the CPU host has no

@@ -71,6 +71,8 @@ PINNED = [
     dict(backend="reference"),
     dict(backend="reference", precision="fp32", n_frames=5),
     dict(backend="reference", temporal=True, precision="bf16"),
+    dict(backend="streaming"),
+    dict(backend="streaming", quantize_output=False, n_frames=3),
     dict(stream_input=True, batch_tile=2),
     dict(stream_input=False, batch_tile=6, precision="fp32"),
 ]
@@ -95,6 +97,7 @@ LADDER_PLANS = [
     dict(backend="fused", batch_tile=4, temporal=True),
     dict(backend="fused", temporal=True, precision="bf16"),
     dict(backend="staged"),
+    dict(backend="streaming"),
     dict(backend="reference"),
     dict(backend="reference", temporal=True, precision="bf16"),
 ]
@@ -117,7 +120,7 @@ def test_fallback_ladder_matches_jax(kw):
 def test_card_ladder_ends_at_the_last_kernel_rung(kw, monkeypatch):
     """On a card the ladder is the CPU's without its ``reference`` rung:
     plain PyTorch never answers for a kernel there (``fused_streamed ->
-    fused``; ``fused``, ``staged`` and ``reference`` alone). The card is
+    fused``; ``fused``, ``staged``, ``streaming`` and ``reference`` alone). The card is
     stood in for by letting ``BGPlan`` keep a CUDA device on this host."""
     import repro_torch.plan as P
 

@@ -13,12 +13,13 @@ import torch
 
 from repro.core import BGConfig as JBGConfig
 from repro.plan import BGPlan as JBGPlan
+from repro.plan import plan_for as jplan_for
 from repro.serving import FrameDenoiseEngine as JEngine
 from repro.serving import FrameRequest as JRequest
 from repro_torch.core import BGConfig, synthetic_image, synthetic_image_np
 from repro_torch.data.pipeline import denoise_batch
 from repro_torch.kernels import bilateral_grid_filter_pallas
-from repro_torch.plan import BGPlan
+from repro_torch.plan import BGPlan, plan_for
 from repro_torch.serving import AsyncFrameEngine, FrameDenoiseEngine, FrameRequest
 from repro_torch.video import MultiStreamPacker, carry_shape
 
@@ -52,9 +53,11 @@ REJECTED = [
     (dict(backend="fused_streamed", temporal=True), "stream_input"),
     (dict(backend="streaming", temporal=True), "temporal"),
 ]
+# valid JAX plans the port does not run yet: mesh plans (on a one-device
+# host the JAX plan_for degrades sharded=True to a plain plan)
 NOT_PORTED = [
-    dict(backend="streaming"),
-    dict(backend="streaming", quantize_output=False),
+    dict(backend="streaming", sharded=True),
+    dict(backend="fused", sharded=True, quantize_output=False),
 ]
 # valid JAX plans that were not ported before the bf16 storage form was
 BF16_PLANS = [
@@ -85,9 +88,9 @@ def test_plan_rejects_non_paper_kernel_backend():
 
 @pytest.mark.parametrize("kwargs", NOT_PORTED)
 def test_valid_jax_plans_not_yet_ported_raise(kwargs):
-    JBGPlan(cfg=JCFG, **kwargs)  # valid there
+    jplan_for(JCFG, 45, 64, **kwargs)  # valid there
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        BGPlan(cfg=CFG, device="cpu", **kwargs)
+        plan_for(CFG, 45, 64, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", BF16_PLANS)
@@ -154,8 +157,9 @@ def test_from_json_rejects_what_is_not_ported():
     payload = JBGPlan(cfg=JCFG, backend="fused").to_json()
     with pytest.raises(NotImplementedError, match="mesh"):
         BGPlan.from_json(dict(payload, mesh_size=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        BGPlan.from_json(dict(payload, backend="streaming"), device="cpu")
+    # a streaming payload is ported now: it loads as the same recipe
+    streaming = BGPlan.from_json(dict(payload, backend="streaming"), device="cpu")
+    assert streaming.plan_hash() == JBGPlan.from_json(dict(payload, backend="streaming")).plan_hash()
     # a bf16 payload is ported now: it loads, and goes back as the JAX recipe
     jbf16 = JBGPlan(cfg=JCFG, backend="fused_streamed", batch_tile=2, precision="bf16")
     plan = BGPlan.from_json(json.loads(json.dumps(jbf16.to_json())), device="cpu")
