@@ -39,7 +39,14 @@ snapshot; stateless micro-batches of 8 on B3 and of 1 on B1), and runs
 the rest of the image core (``core_paths``: the ``"streaming"`` plan
 against the reference plan and B1, fixed point on the card equal to the
 CPU's bits, the exact BF beside the BG plan at r = 4, 8, 12, 16, and the
-vlm and spectrogram frontends on ``plan_for``'s plans, B3 or B1 counted).
+vlm and spectrogram frontends on ``plan_for``'s plans, B3 or B1 counted),
+and shards batches over a mesh (``mesh_slice``: ``batch_mesh()`` over the
+host's cards, a size-1 mesh on one card being the plain plan; then a mesh
+naming the card twice, through which 8 frames go to B1 and B3 in fp32 and
+bf16 and a 4-stream pack to B2, cold then warm, each equal to the
+single-device plan bit for bit with one launch per shard and timed per
+dispatch beside it; the frame and async engines serving 16 host frames
+through it; a fleet payload with ``mesh_size=2`` bound to it in a worker).
 Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
@@ -1788,6 +1795,164 @@ def core_paths(torch, smi, dev, clean, x8) -> float:
     return seconds
 
 
+MESH_REPS = 10  # timed dispatches per route in mesh_slice
+
+
+def mesh_slice(torch, smi, dev, x8) -> float:
+    """Phase "mesh_slice": batch sharding on the card at 1080x1920,
+    ``PAPER_DEFAULT``. ``batch_mesh()`` over the host's cards (one card: the
+    plan degrades to the plain one, one launch per dispatch); then a mesh
+    naming the card twice (``BatchMesh((dev, dev))``), which drives pad ->
+    split -> dispatch -> gather -> trim through the kernels on one card: 8
+    frames through B1 and B3 in fp32 and bf16, a 4-stream temporal pack
+    through B2 cold then warm, each output (and carry) equal to the
+    single-device plan's bit for bit with one launch per shard, timed per
+    dispatch beside the single-device plan; ``FrameDenoiseEngine`` and
+    ``AsyncFrameEngine`` serving 16 host frames through the mesh, equal to
+    the single-device plan's quantized output; a fleet payload with
+    ``mesh_size=2`` bound to the mesh in a ``LocalWorker``, equal to a
+    single-device worker. The shards of a repeated device run one after the
+    other, so the times show the path's overhead, never a gain. Returns the
+    phase's seconds."""
+    from repro_torch.configs.bg_denoise import PAPER_DEFAULT
+    from repro_torch.fleet import LocalWorker, PlanController
+    from repro_torch.plan import BGPlan, plan_for
+    from repro_torch.serving import AsyncFrameEngine, FrameDenoiseEngine, FrameRequest
+    from repro_torch.sharding import BatchMesh, batch_mesh
+    from repro_torch.video import carry_shape
+
+    t_phase = time.perf_counter()
+    cfg = PAPER_DEFAULT.bg
+    count = torch.cuda.device_count()
+
+    # ---- the host's own cards: one card is a size-1 mesh, the plain plan
+    auto = batch_mesh()
+    plan = BGPlan(cfg, mesh=auto)
+    zero_counts()
+    out = plan(x8)
+    sync(torch, dev)
+    if count == 1:
+        check(plan.mesh is None and plan.device == dev, f"a size-1 mesh: {plan.describe()}")
+        check_counts(kernel_counts(), {"bg_fused.launches": 1}, "batch_mesh() on one card")
+    check(bool(torch.equal(out, BGPlan(cfg, device=dev)(x8))), "batch_mesh(): differs from the plain plan")
+    auto_pick = plan_for(cfg, H, W, n_frames=8, device="cuda", cache=False)
+    emit({"phase": "mesh_slice", "check": "batch_mesh", "count": count, "mesh_size": plan.mesh_size,
+          "plan": plan.describe(), "plan_for_mesh_size": auto_pick.mesh_size, "card": smi})
+    check(auto_pick.mesh_size == count, f"plan_for's auto-mesh: {auto_pick.describe()} on {count} card(s)")
+
+    # ---- a mesh naming the card twice: B1 and B3, fp32 and bf16, 8 frames
+    mesh = BatchMesh((dev, dev))
+    for backend, prec in (("fused", "fp32"), ("fused_streamed", "fp32"), ("fused", "bf16"),
+                          ("fused_streamed", "bf16")):
+        single = BGPlan(cfg, backend=backend, precision=prec, device=dev)
+        meshed = BGPlan(cfg, backend=backend, precision=prec, mesh=mesh)
+        ref = single(x8)
+        zero_counts()
+        got = meshed(x8)
+        sync(torch, dev)
+        counter = KERNEL_COUNTER[backend]
+        if prec == "bf16":
+            counter = counter.replace("bg_fused.", "bg_fused.bf16_")
+        check_counts(kernel_counts(), {counter: 2}, f"mesh of 2, {backend} {prec}")
+        bitwise = bool(torch.equal(got, ref))
+        emit({"phase": "mesh_slice", "check": "dispatch", "backend": backend, "precision": prec,
+              "mesh_size": meshed.mesh_size, "frames": 8, "frame_hw": [H, W], "config": "PAPER_DEFAULT",
+              "bitwise_single_device": bitwise, "launches_per_dispatch": 2,
+              "ms_per_dispatch": cuda_ms(torch, lambda: meshed(x8), reps=MESH_REPS),
+              "single_device_ms_per_dispatch": cuda_ms(torch, lambda: single(x8), reps=MESH_REPS),
+              "card": smi})
+        check(bitwise, f"mesh of 2, {backend} {prec}: differs from the single-device plan")
+
+    # ---- B2: a 4-stream pack, cold (zero carries, alpha 0), then warm
+    single = BGPlan(cfg, temporal=True, device=dev)
+    meshed = BGPlan(cfg, temporal=True, mesh=mesh)
+    x4 = x8[:4].contiguous()
+    carry = torch.zeros((4,) + carry_shape(H, W, cfg), device=dev)
+    for step, alpha in enumerate(([0.0] * 4, [0.0, 0.6, 0.4, 0.8])):
+        alpha = torch.tensor(alpha, device=dev)
+        x = x4 if step == 0 else x8[4:].contiguous()
+        ref_img, ref_carry = single(x, carry=carry, alpha=alpha)
+        zero_counts()
+        img, new_carry = meshed(x, carry=carry, alpha=alpha)
+        sync(torch, dev)
+        check_counts(kernel_counts(), {"bg_fused.temporal_launches": 2}, f"mesh of 2, temporal step {step}")
+        bitwise = bool(torch.equal(img, ref_img)) and bool(torch.equal(new_carry, ref_carry))
+        emit({"phase": "mesh_slice", "check": "temporal", "pack": "cold" if step == 0 else "warm",
+              "streams": 4, "mesh_size": 2, "frame_hw": [H, W], "config": "PAPER_DEFAULT",
+              "bitwise_single_device": bitwise, "launches_per_dispatch": 2,
+              "ms_per_dispatch": cuda_ms(torch, lambda: meshed(x, carry=carry, alpha=alpha), reps=MESH_REPS),
+              "single_device_ms_per_dispatch": cuda_ms(torch, lambda: single(x, carry=carry, alpha=alpha),
+                                                       reps=MESH_REPS),
+              "card": smi})
+        check(bitwise, f"mesh of 2, temporal step {step}: image or carry differs from the single-device plan")
+        carry = new_carry
+
+    # ---- the engines: 16 host frames through the mesh
+    host16 = torch.cat([x8, x8.flip(-1)]).cpu()
+    fplan = plan_for(cfg, H, W, n_frames=8, mesh=mesh, cache=False)
+    want = BGPlan(cfg, backend=fplan.backend, device=dev)(host16)
+    eng = FrameDenoiseEngine(plan=fplan, max_batch=8)
+    zero_counts()
+    for i in range(16):
+        eng.submit(FrameRequest(uid=i, frame=host16[i].numpy()))
+    done = eng.flush()
+    sync(torch, dev)
+    per = 2 * -(-4 // fplan.tile_for(8))  # two shards of 4 frames, in tiles
+    check_counts(kernel_counts(), {KERNEL_COUNTER[fplan.backend]: 2 * per}, "FrameDenoiseEngine on the mesh")
+    f_equal = len(done) == 16 and all(bool(torch.equal(r.result, want[r.uid])) for r in done)
+    check(f_equal, "FrameDenoiseEngine on the mesh: differs from the single-device plan")
+    aplan = BGPlan(cfg, backend=fplan.backend, mesh=mesh)  # whole shards: one launch per shard
+    zero_counts()
+    with AsyncFrameEngine(plan=aplan, max_batch=8, batch_window_ms=2.0) as aeng:
+        res = [f.result(timeout=120) for f in [aeng.submit(host16[i].numpy()) for i in range(16)]]
+        ast = aeng.stats()
+    a_equal = all(bool(torch.equal(r, want[i])) for i, r in enumerate(res))
+    check_counts(kernel_counts(), {KERNEL_COUNTER[aplan.backend]: 2 * ast.dispatches}, "AsyncFrameEngine on the mesh")
+    check(a_equal and ast.failed == 0, f"AsyncFrameEngine on the mesh: equal={a_equal}, failed={ast.failed}")
+    check(ast.retries == ast.fallbacks == ast.watchdog_trips == 0, f"AsyncFrameEngine on the mesh: {ast}")
+    emit({"phase": "mesh_slice", "check": "engines", "frames": 16, "frame_hw": [H, W],
+          "frame_engine_plan": fplan.describe(), "frame_engine_max_batch": eng.max_batch,
+          "frame_engine_n_devices": eng.n_devices, "frame_engine_bitwise": f_equal,
+          "frame_engine_launches_per_dispatch": per, "async_plan": aplan.describe(),
+          "async_dispatches": ast.dispatches, "async_mean_batch": ast.mean_batch, "async_bitwise": a_equal,
+          "card": smi})
+
+    # ---- a fleet payload with mesh_size=2, bound to the mesh in a worker
+    ctl = PlanController(BGPlan(cfg, temporal=True, mesh=mesh))
+    payload = ctl.payload()
+    check(payload["plan"]["mesh_size"] == 2, f"fleet payload: {payload['plan']}")
+    if count < 2:
+        try:
+            BGPlan.from_json(payload["plan"])
+            check(False, "a 2-device payload bound on one card without mesh=")
+        except ValueError:
+            pass
+    frames3 = [x8[i].cpu().numpy() for i in range(3)]
+    outs, launches = [], []
+    for pl, kw in ((payload, dict(mesh=mesh)),
+                   (PlanController(BGPlan(cfg, temporal=True, device=dev)).payload(), dict(device=dev))):
+        w = LocalWorker(0, pl, **kw)
+        try:
+            w.open_stream("s", alpha=0.6)
+            outs.append([w.submit(f, stream_id="s").result(timeout=120) for f in frames3])
+            launches.append((w.launches(), w.stats().dispatches))
+        finally:
+            w.close()
+    w_equal = all(bool(torch.equal(a, b)) for a, b in zip(*outs))
+    (mesh_launches, mesh_disp), (one_launches, one_disp) = launches
+    emit({"phase": "mesh_slice", "check": "fleet_payload", "mesh_size": 2, "plan_hash": ctl.plan_hash,
+          "plan": ctl.plan.describe(), "frames": 3, "bitwise_single_device_worker": w_equal,
+          "worker_launches": mesh_launches, "worker_dispatches": mesh_disp,
+          "single_device_worker_launches": one_launches, "card": smi})
+    check(w_equal, "the mesh worker differs from the single-device worker")
+    check(mesh_launches == {"bg_fused.temporal_launches": 2 * mesh_disp}
+          and one_launches == {"bg_fused.temporal_launches": one_disp},
+          f"worker launches: mesh {mesh_launches} in {mesh_disp}, one device {one_launches} in {one_disp}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "mesh_slice", "check": "done", "seconds": seconds, "card": smi})
+    return seconds
+
+
 def main() -> None:
     import torch
 
@@ -2280,6 +2445,8 @@ def main() -> None:
     fleet_slice(torch, smi, dev)
     # ---- phase 5: the rest of the image core and the frontends
     core_paths(torch, smi, dev, clean, x8)
+    # ---- phase 6: batch sharding (a mesh naming the card twice)
+    mesh_slice(torch, smi, dev, x8)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

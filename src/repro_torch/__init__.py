@@ -21,8 +21,9 @@ Ported (the frame- and video-serving paths at full width):
   * ``plan``: ``BGPlan`` with the ``"reference"``, ``"streaming"``,
     ``"fused"``, ``"fused_streamed"`` and ``"staged"`` backends, per frame
     and temporal,
-    fp32 and (but ``"staged"``, as in the JAX package) bf16 storage, one
-    device, JSON payloads and hashes shared with the JAX package; its
+    fp32 and (but ``"staged"``, as in the JAX package) bf16 storage, on one
+    device or split over a batch mesh, JSON payloads and hashes shared with
+    the JAX package; its
     fallback ladder, provenance and dispatch hook; ``plan_for`` on an H100
     cost model; ``plan_cache``, the measured-plan cache and its CLI;
   * ``video``: ``temporal_denoise``, ``blurred_grid_batch``,
@@ -43,10 +44,15 @@ Ported (the frame- and video-serving paths at full width):
     ``synthetic_video``, ``vision_context``, ``audio_frames``;
     ``configs.bg_denoise`` and ``launch.serve --frames`` (``--stream-input``)
     / ``--video`` (``--workers``, ``--worker-backend``);
+  * ``sharding``: ``BatchMesh``, ``batch_mesh``, ``shard_batch_call``,
+    ``bg_denoise_sharded`` and ``bg_temporal_sharded``: the frame and stream
+    batch axis split over several devices (pad, split, dispatch per
+    device, gather, trim; no collectives), through every entry point that
+    takes a mesh in the JAX package;
   * ``examples``: ``quickstart``, ``denoise_stream``, ``denoise_video`` and
     ``denoise_fleet`` (``python -m repro_torch.examples.<name>``).
 
-Not ported yet: mesh sharding, the launcher's LM modes, and the LM
-substrate (with ``TokenStream``, ``lm_batches`` and the ``vlm_preprocess``
-example).
+Not ported yet: the launcher's LM modes and the LM substrate (with
+``TokenStream``, ``lm_batches``, the ``vlm_preprocess`` example and the LM
+sharding modules).
 """

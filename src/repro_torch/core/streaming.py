@@ -67,17 +67,23 @@ def bilateral_grid_filter_streaming(
     Accepts a single (h, w) frame or a (b, h, w) batch. Preferred form: pass
     a :class:`repro_torch.plan.BGPlan` with ``backend="streaming"`` via
     ``plan=``; otherwise one is built from ``cfg`` on ``device`` (the CUDA
-    card unless ``device="cpu"``). ``sharded=True`` or a ``mesh`` raise
-    ``NotImplementedError``: mesh sharding is not ported yet.
+    card unless ``device="cpu"``). Legacy ``sharded=True`` splits the batch
+    axis over ``mesh`` (default: every card, when the caller wants the card
+    and more than one is visible; ``repro_torch.sharding``), the same
+    collective-free data parallelism as the fused routes; a ``mesh``
+    without ``sharded=True`` is ignored, as in the JAX package.
     """
     from repro_torch.plan import BGPlan
 
     if plan is None:
         if cfg is None:
             raise TypeError("bilateral_grid_filter_streaming needs cfg= or plan=")
-        if sharded or mesh is not None:
-            raise NotImplementedError("mesh sharding is not yet ported; plans are single-device")
-        plan = BGPlan(cfg=cfg, backend="streaming", quantize_output=quantize_output, device=device)
+        if sharded and mesh is None:
+            from repro_torch.sharding.bg_shard import _service_mesh
+
+            mesh = _service_mesh(None, device)
+        plan = BGPlan(cfg=cfg, backend="streaming", quantize_output=quantize_output, device=device,
+                      mesh=mesh if sharded else None)
     return plan(image)
 
 

@@ -7,19 +7,19 @@ denoising before patch/frame embedding. Every stage dispatches through a
 plans launch B1 or B3), or through the JAX package's legacy keywords, which
 build the equivalent plan: ``cfg=`` alone the ``"reference"`` plan,
 ``use_kernels=True`` ``"fused"`` (``"fused_streamed"`` with
-``stream_input=True``), on ``device`` (the CUDA card unless
-``device="cpu"``).
+``stream_input=True``), ``sharded=True`` the fused plan with its batch axis
+split over ``mesh`` (default: every card, when the caller wants the card and
+more than one is visible; ``repro_torch.sharding``), on ``device`` (the CUDA
+card unless ``device="cpu"``). A ``mesh`` without ``sharded=True`` is
+ignored, as in the JAX package.
 
-Divergences on purpose from ``repro/data/pipeline.py``:
-
-  * ``sharded=True`` or a ``mesh`` raise ``NotImplementedError`` until mesh
-    sharding is ported.
-  * :func:`patchify_embed`'s default projection is drawn from a CPU
-    ``torch.Generator`` seeded with ``seed`` (the same numbers on every
-    device); JAX draws it from ``jax.random.normal``, which torch cannot
-    reproduce, so the same seed gives a different default projection. Pass
-    ``proj=`` (for example JAX's matrix as a numpy array) to compute what
-    the JAX function computes.
+Divergence on purpose from ``repro/data/pipeline.py``:
+:func:`patchify_embed`'s default projection is drawn from a CPU
+``torch.Generator`` seeded with ``seed`` (the same numbers on every device);
+JAX draws it from ``jax.random.normal``, which torch cannot reproduce, so
+the same seed gives a different default projection. Pass ``proj=`` (for
+example JAX's matrix as a numpy array) to compute what the JAX function
+computes.
 """
 from __future__ import annotations
 
@@ -42,11 +42,15 @@ __all__ = [
 def _legacy_plan(cfg: BGConfig, use_kernels: bool, sharded: bool, mesh, stream_input: bool,
                  device):
     """Map the JAX package's legacy keywords onto a plan: reference by
-    default, fused with ``use_kernels`` (streamed with ``stream_input``)."""
+    default, fused with ``use_kernels`` (streamed with ``stream_input``),
+    and with ``sharded`` fused over ``mesh``."""
     from repro_torch.plan import BGPlan
 
-    if sharded or mesh is not None:
-        raise NotImplementedError("mesh sharding is not yet ported; plans are single-device")
+    if sharded:
+        from repro_torch.sharding.bg_shard import _service_mesh
+
+        backend = "fused_streamed" if stream_input else "fused"
+        return BGPlan(cfg=cfg, backend=backend, device=device, mesh=_service_mesh(mesh, device))
     if use_kernels:
         backend = "fused_streamed" if stream_input else "fused"
         return BGPlan(cfg=cfg, backend=backend, device=device)
@@ -122,8 +126,9 @@ def vlm_preprocess(
     """
     dev = plan.device if plan is not None else resolve_device(device)
     if denoise:
+        # the caller's device: "the card" may auto-mesh (sharded=True)
         images = denoise_batch(images, bg_cfg, use_kernels=use_kernels, sharded=sharded,
-                               mesh=mesh, plan=plan, device=dev)
+                               mesh=mesh, plan=plan, device=device)
     return patchify_embed(images, patch, dim, proj=proj, device=dev)
 
 
@@ -151,5 +156,5 @@ def spectrogram_denoise(
     hi = torch.max(spec)
     scaled = (spec - lo) / torch.clamp(hi - lo, min=1e-9) * 255.0
     den = denoise_batch(scaled, bg_cfg, use_kernels=use_kernels, sharded=sharded, mesh=mesh,
-                        plan=plan, device=dev)
+                        plan=plan, device=device)
     return den / 255.0 * (hi - lo) + lo

@@ -91,10 +91,12 @@ counters plus ``restores`` / ``restore_staleness_p99`` / ``reconnects`` /
 ``worker_restarts``. ``Worker.launches()`` gives each worker's kernel
 launches (a child's over the stats RPC).
 
-Where the port differs from the JAX fleet: workers take ``device=`` where
-the JAX workers take ``mesh=`` (mesh plans raise ``NotImplementedError``);
-a subprocess child loads the port's kernel libraries before READY; results
-from a child are host arrays, a local worker's tensors on its device.
+Where the port differs from the JAX fleet: workers take ``device=`` beside
+the JAX workers' ``mesh=`` (``"auto"``: a payload's ``mesh_size`` over the
+host's first cards; a local worker also takes an explicit
+``repro_torch.sharding.BatchMesh``); a subprocess child loads the port's
+kernel libraries before READY; results from a child are host arrays, a
+local worker's tensors on its device (a mesh plan's first).
 """
 from .controller import PlanController
 from .errors import (

@@ -121,6 +121,7 @@ class PlanController:
             width,
             n_frames=streams_per_worker,
             temporal=self.plan.temporal,
+            mesh_size=self.plan.mesh_size,
             device=self.plan.device,
         )
         PlanCache(path).record(

@@ -70,9 +70,11 @@ wire. Results come back as host arrays (numpy, as they cross the wire),
 where a :class:`LocalWorker`'s futures hold tensors on the plan's device.
 
 Port notes: ``device=`` (a string: ``"cuda"``, the default, or ``"cpu"``)
-goes to the child in the PLAN message, where the JAX worker takes
-``mesh="auto"``; a child asked for the card on a host without one answers
-ERROR and exits 1, it never serves on the CPU. The child loads the port's
+goes to the child in the PLAN message, beside the JAX worker's
+``mesh="auto"``, the only mesh taken here, as there: the child binds the
+payload's ``mesh_size`` over its host's first cards (``BGPlan.from_json``)
+and answers ERROR when it has fewer; a child asked for the card on a host
+without one answers ERROR and exits 1, it never serves on the CPU. The child loads the port's
 kernel libraries (building them with nvcc if the checkout has no build)
 before READY, so ``start_timeout_s`` covers the build and no sweep timer
 runs during it. A send, or a read mid-message, tears on either side only
@@ -157,6 +159,7 @@ class SubprocessWorker(Worker):
         payload: dict,
         *,
         device=None,
+        mesh="auto",
         max_batch: int = 32,
         max_queue: int = 256,
         batch_window_ms: float = 2.0,
@@ -177,6 +180,11 @@ class SubprocessWorker(Worker):
             raise TypeError(
                 f"SubprocessWorker wid must be JSON-plain (str/int), "
                 f"got {type(wid).__name__}"
+            )
+        if not (isinstance(mesh, str) and mesh == "auto"):
+            raise ValueError(
+                "SubprocessWorker resolves its mesh in the child process; "
+                "only mesh='auto' is supported"
             )
         if transport not in ("unix", "tcp"):
             raise ValueError(f"transport must be 'unix' or 'tcp', got {transport!r}")

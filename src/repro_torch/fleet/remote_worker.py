@@ -386,7 +386,7 @@ def main(argv=None) -> int:
                     kw["engine_kwargs"] = kw.get("engine_kwargs") or None
                     worker = LocalWorker(
                         wid, hdr["payload"], device=hdr.get("device", "cuda"),
-                        snapshots=True, **kw,
+                        mesh="auto", snapshots=True, **kw,
                     )
                     # before READY: the parent's start timeout covers an
                     # nvcc build, no sweep timer runs during it

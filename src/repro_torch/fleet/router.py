@@ -52,8 +52,8 @@ built from a controller), re-arming its health breaker; :meth:`crash_worker`
 is the unannounced SIGKILL of a subprocess worker.
 
 Port note: the workers' device goes in ``worker_kwargs`` (``device=``, the
-card unless ``"cpu"`` is asked for), where the JAX router's workers take a
-mesh.
+card unless ``"cpu"`` is asked for), beside the mesh the JAX router's
+workers take (``mesh=``, ``"auto"`` by default).
 """
 from __future__ import annotations
 

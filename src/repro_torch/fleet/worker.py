@@ -25,10 +25,12 @@ Admission runs once, at the router (``validate_frame``), so workers are
 built with ``admission_checks=False``: the protocol's equivalent of a
 trusted internal network behind a validating front door.
 
-Where the port differs from the JAX worker: it takes ``device=`` where the
-JAX worker takes ``mesh=`` (the card unless ``"cpu"`` is asked for; a
-payload with ``mesh_size > 1`` raises ``NotImplementedError`` until mesh
-sharding is ported), and its futures hold tensors on the plan's device.
+Where the port differs from the JAX worker: it takes ``device=`` (the card
+unless ``"cpu"`` is asked for) beside the JAX worker's ``mesh=``
+(``"auto"``: a payload's ``mesh_size`` over this host's first cards,
+``ValueError`` when it has fewer; a ``BatchMesh`` or ``None`` rebinds, and
+the rebuilt plan must still hash as the payload claims), and its futures
+hold tensors on the plan's device (a mesh plan's first).
 A carry snapshot is host data in the plan's storage type: a float32 numpy
 array for fp32, a CPU ``torch.bfloat16`` tensor for bf16 (numpy has no
 bfloat16), so a bf16 fleet ships half the carry bytes, as the JAX fleet
@@ -179,7 +181,10 @@ class LocalWorker(Worker):
     plans, its ``MultiStreamPacker``) behind the :class:`Worker` protocol.
 
     ``device`` is where the plan runs: ``None`` is the CUDA card (raising
-    when there is none), ``"cpu"`` runs the plain versions.
+    when there is none), ``"cpu"`` runs the plain versions. ``mesh`` binds a
+    payload's mesh (``BGPlan.from_json``): ``"auto"`` over this host's
+    cards, or a :class:`repro_torch.sharding.BatchMesh` whose first device
+    is ``device`` (or with ``device=None``).
     ``streams_served`` counts accepted submissions per stream: the
     router's affinity invariant ("a warm stream never runs on two workers
     without an intervening quarantine") is asserted against it in tests.
@@ -191,6 +196,7 @@ class LocalWorker(Worker):
         payload: dict,
         *,
         device=None,
+        mesh="auto",
         max_batch: int = 32,
         max_queue: int = 256,
         batch_window_ms: float = 2.0,
@@ -204,7 +210,7 @@ class LocalWorker(Worker):
         # quarantine); True enables live-read snapshots so the router's
         # restore path runs without a subprocess.
         self.snapshots = bool(snapshots)
-        plan = BGPlan.from_json(payload["plan"], device=device)
+        plan = BGPlan.from_json(payload["plan"], mesh=mesh, device=device)
         want = payload.get("plan_hash")
         if want is not None and plan.plan_hash() != want:
             raise PlanMismatch(

@@ -1,8 +1,9 @@
 """Frame- and video-serving launcher: stream synthetic noisy frames through
-the micro-batching frame engine, or synthetic video streams through the
-async engine and the multi-stream packer, on one device; ``--workers N``
-fronts the video streams with a ``repro_torch.fleet.FleetRouter`` over N
-workers instead of one bare engine.
+the mesh-divisible micro-batching frame engine, or synthetic video streams
+through the async engine and the multi-stream packer, sharded over every
+local card (one card: the plain single-device plan); ``--workers N`` fronts
+the video streams with a ``repro_torch.fleet.FleetRouter`` over N workers
+instead of one bare engine.
 
     python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
         --micro-batch 8 --config paper-default
@@ -20,7 +21,10 @@ Both modes build their plan with ``plan_for`` (the JAX launcher's route):
 the measured-plan cache, else the cost model, picks backend and batch tile
 (fp32; ``--stream-input`` pins ``"fused_streamed"``), and the printed
 ``plan[...]`` names the route it came from (``src=cache``, ``src=model`` or
-``src=explicit``). The options the two launchers share have the JAX
+``src=explicit``) and its mesh size (``mesh=N``: ``plan_for`` meshes the
+batch axis over every card when the device is the card, ``--device cuda``,
+and more than one is visible, as the JAX launcher meshes over every local
+device). The options the two launchers share have the JAX
 launcher's defaults (``--micro-batch 16``, ``--video-frames 24``, ...), so
 one command serves the same traffic in both. The frame mode gives
 ``plan_for`` the pack size, ``n_frames=--micro-batch``, where the JAX
@@ -53,8 +57,10 @@ def serve_frames(
     would send them) through the plan ``plan_for`` gives for micro-batches
     of ``micro_batch`` frames, and return ``{"frames",
     "seconds", "frames_per_s", "dispatches", "backend", "batch_tile",
-    "provenance", "bg_fused_launches", "bg_fused_streamed_launches",
-    "device", "plan"}``, the launches counted over the timed run.
+    "provenance", "n_devices", "micro_batch", "bg_fused_launches",
+    "bg_fused_streamed_launches", "device", "plan"}``, the launches counted
+    over the timed run (one per shard and tile on a mesh), ``micro_batch``
+    the engine's, rounded to a multiple of the mesh's ``n_devices``.
     ``stream_input`` goes to ``plan_for`` as it is: ``None`` lets the plan
     layer choose, ``True`` (the JAX launcher's ``--stream-input``) pins
     ``"fused_streamed"``, ``False`` pins ``"fused"``. The timed loop starts
@@ -93,8 +99,8 @@ def serve_frames(
         if eng.pending() >= eng.max_batch:
             done.extend(eng.step())
             dispatches += 1
-    while eng.pending():
-        done.extend(eng.step())
+    while eng.pending():  # the ragged tail, forced (the mesh pads it)
+        done.extend(eng.step(force=True))
         dispatches += 1
     sync()
     dt = time.perf_counter() - t0
@@ -108,6 +114,8 @@ def serve_frames(
         "backend": plan.backend,
         "batch_tile": plan.batch_tile,
         "provenance": plan.provenance,
+        "n_devices": eng.n_devices,
+        "micro_batch": eng.max_batch,
         "bg_fused_launches": bg_fused.launches - b1,
         "bg_fused_streamed_launches": bg_fused.streamed_launches - b3,
         "device": str(plan.device),
@@ -138,8 +146,9 @@ def serve_video(
     The plan is ``plan_for``'s for packs of ``streams`` temporal frames.
     Returns frames/s, fps per stream, p50/p99 latency (submit to
     completion), dispatches, mean batch, deadline misses, shed and failed
-    requests, the engine's retries, fallbacks and watchdog trips, and the
-    per-frame (B1) and temporal (B2) kernel launches of the timed run."""
+    requests, the engine's retries, fallbacks and watchdog trips, the
+    per-frame (B1) and temporal (B2) kernel launches of the timed run, and
+    the plan's ``mesh_size``."""
     from repro_torch.configs.bg_denoise import PAPER_DEFAULT, SERVE_CONFIG
     from repro_torch.data import synthetic_video_np
     from repro_torch.kernels import bg_fused
@@ -203,6 +212,7 @@ def serve_video(
         "watchdog_trips": st.watchdog_trips,
         "bg_fused_launches": bg_fused.launches - b1,
         "bg_fused_temporal_launches": bg_fused.temporal_launches - b2,
+        "mesh_size": plan.mesh_size,
         "device": str(plan.device),
         "plan": plan.describe(),
     }
@@ -336,6 +346,7 @@ def serve_fleet(
         "watchdog_trips": m.watchdog_trips,
         "worker_launches": launches,
         "worker_wire": wire,
+        "mesh_size": controller.plan.mesh_size,
         "device": str(dev),
         "plan": controller.plan.describe(),
         "plan_hash": controller.plan_hash,
@@ -380,8 +391,8 @@ def main(argv=None) -> None:
         )
         print(
             f"[serve] fleet: {st['frames']} frames ({st['streams']} streams) {h}x{w} over "
-            f"{st['workers_alive']}/{st['workers']} {st['worker_backend']} workers on "
-            f"{st['device']} in {st['seconds']:.3f}s ({st['frames_per_s']:.1f} frames/s, "
+            f"{st['workers_alive']}/{st['workers']} {st['worker_backend']} workers x "
+            f"{st['mesh_size']} device(s) on {st['device']} in {st['seconds']:.3f}s ({st['frames_per_s']:.1f} frames/s, "
             f"{st['fps_per_stream']:.1f} fps/stream) p50={st['latency_ms_p50']:.1f}ms "
             f"p99={st['latency_ms_p99']:.1f}ms (merged reservoirs; client "
             f"p50={st['client_latency_ms_p50']:.1f}ms p99={st['client_latency_ms_p99']:.1f}ms) "
@@ -398,7 +409,7 @@ def main(argv=None) -> None:
         )
         print(
             f"[serve] video: {st['frames']} frames ({st['streams']} streams) {h}x{w} "
-            f"on {st['device']} in {st['seconds']:.3f}s ({st['frames_per_s']:.1f} "
+            f"on {st['device']} x {st['mesh_size']} device(s) in {st['seconds']:.3f}s ({st['frames_per_s']:.1f} "
             f"frames/s, {st['fps_per_stream']:.1f} fps/stream) "
             f"p50={st['latency_ms_p50']:.1f}ms p99={st['latency_ms_p99']:.1f}ms "
             f"dispatches={st['dispatches']} mean_batch={st['mean_batch']:.1f} "
@@ -413,7 +424,8 @@ def main(argv=None) -> None:
         True if args.stream_input else None,
     )
     print(
-        f"[serve] {stats['frames']} frames {h}x{w} on {stats['device']} "
+        f"[serve] {stats['frames']} frames {h}x{w} on {stats['device']}, micro-batch "
+        f"{stats['micro_batch']} (mesh-divisible by {stats['n_devices']}), "
         f"in {stats['seconds']:.3f}s ({stats['frames_per_s']:.1f} frames/s, "
         f"{stats['dispatches']} dispatches, launches b1={stats['bg_fused_launches']} "
         f"b3={stats['bg_fused_streamed_launches']}, plan[{stats['plan']}])"

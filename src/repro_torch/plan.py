@@ -38,12 +38,19 @@ frames to bf16 on the plan's device, run the bf16 entry points of B1, B2 and
 B3 (the contract is in ``kernels/bg_fused.py``), upcast the output to
 float32 before quantizing and keep the carry in bf16; the reference routes
 round the frames (and store the temporal carry) in bf16 and compute in
-fp32. Mesh sharding is valid there and raises ``NotImplementedError`` here
-until it is ported. A plan the JAX package rejects is rejected here with the
-same ``ValueError``.
+fp32, with or without a mesh. A plan the JAX package rejects is rejected
+here with the same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
 raises when there is none; ``device="cpu"`` runs the plain versions.
+
+``mesh`` (a :class:`repro_torch.sharding.BatchMesh`) splits the frame or
+stream batch axis of the ``"streaming"``, ``"fused"`` and
+``"fused_streamed"`` routes over its devices: pure data parallelism, no
+collectives (:func:`_mesh_call`, ``repro_torch.sharding.bg_shard``). A
+mesh plan's ``device`` is the mesh's first device, where its outputs are
+gathered; its inputs stay where the caller has them and each shard moves
+to its own device. A size-1 mesh degrades to the plain call on its device.
 
 Plan selection (:func:`plan_for`)
 ---------------------------------
@@ -114,6 +121,7 @@ from repro_torch.core.bilateral_grid import (
     quantize_intensity,
 )
 from repro_torch.kernels.common import PRECISIONS, precision_bytes, round_storage, storage_dtype
+from repro_torch.sharding.bg_shard import BatchMesh
 
 __all__ = [
     "BGPlan",
@@ -240,14 +248,18 @@ def plan_cost_breakdown(plan: "BGPlan", h: int, w: int,
     ``overhead_s``, ``bound_s`` (``max(compute, memory)``) and ``total_s``
     (the sum that ranks candidates). Covers the kernel backends only:
     ``"reference"`` and ``"streaming"``, which :func:`plan_for` never
-    ranks, raise ``ValueError``."""
+    ranks, raise ``ValueError``. A mesh plan is costed on one device's
+    shard ``ceil(n_frames / mesh_size)``, as in the JAX package (distinct
+    devices run their shards at once; a mesh that repeats a device runs
+    them one after the other, which scales every candidate alike)."""
     cfg = plan.cfg
-    b = 1 if n_frames is None else max(1, int(n_frames))
+    n = 1 if n_frames is None else max(1, int(n_frames))
+    b = -(-n // plan.mesh_size)  # one device's shard
     gx, gy, gz = grid_shape(h, w, cfg)
     cells = gx * gy * gz
     esize = precision_bytes(plan.precision)
     if plan.backend in _FUSED_BACKENDS:
-        steps = -(-b // plan.tile_for(b))
+        steps = -(-b // plan.tile_for(n))
         hbm, flops = fused_work(b, h, w, cfg, esize, plan.temporal)
         hbm += (steps - 1) * (w + cfg.r) * 4  # each launch reads the TI fractions
         if plan.backend == "fused":
@@ -355,7 +367,14 @@ class BGPlan:
                        docstring).
       device:          where the plan runs; ``None`` resolves to the CUDA
                        card (raising if there is none), ``"cpu"`` runs the
-                       plain versions.
+                       plain versions. With a mesh: the mesh's first device
+                       (``None`` or that device may be passed).
+      mesh:            a :class:`repro_torch.sharding.BatchMesh` splitting the
+                       frame / stream batch axis over its devices, or
+                       ``None`` for one device. A size-1 mesh becomes
+                       ``None`` (the plain call on its device); the
+                       ``"reference"`` and ``"staged"`` backends do not
+                       shard (``ValueError``), as in the JAX package.
     """
 
     cfg: BGConfig
@@ -365,6 +384,7 @@ class BGPlan:
     quantize_output: bool = True
     precision: str = "fp32"
     device: Union[str, torch.device, None] = None
+    mesh: Optional[BatchMesh] = None
 
     def __post_init__(self):
         # the JAX package's validation (repro/plan.py BGPlan.__post_init__)
@@ -410,9 +430,42 @@ class BGPlan:
                     f"temporal plans support backends {_TEMPORAL_BACKENDS}, "
                     f"got {self.backend!r}"
                 )
-        object.__setattr__(self, "device", resolve_device(self.device))
+        device = self.device
+        if self.mesh is not None:
+            if not isinstance(self.mesh, BatchMesh):
+                raise TypeError(
+                    f"mesh must be a repro_torch.sharding.BatchMesh or None, got "
+                    f"{type(self.mesh).__name__}"
+                )
+            first = self.mesh.devices[0]
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != first.type
+                                     or want.index not in (None, first.index)):
+                raise ValueError(
+                    f"a mesh plan runs on its mesh's first device {first}, got device={device}"
+                )
+            device = first
+            if self.mesh.size == 1:
+                object.__setattr__(self, "mesh", None)  # degrade to plain
+            elif self.backend not in _MESH_BACKENDS:
+                raise ValueError(
+                    f"backend {self.backend!r} does not shard over a mesh; "
+                    f"mesh plans need one of {_MESH_BACKENDS}"
+                )
+        object.__setattr__(self, "device", resolve_device(device))
 
     # ------------------------------------------------------------ utilities
+    @property
+    def mesh_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def input_device(self) -> Optional[torch.device]:
+        """Where a dispatch takes its inputs: the plan's device, or ``None``
+        for a mesh plan, whose inputs stay where the caller has them (host
+        staging too) and whose shards each move to their own device."""
+        return self.device if self.mesh is None else None
+
     @property
     def storage_dtype(self) -> torch.dtype:
         """The dtype frames, scratch and the temporal carry are held in:
@@ -428,11 +481,12 @@ class BGPlan:
         return np.dtype(np.float32)
 
     def tile_for(self, n_frames: int) -> int:
-        """Frames per kernel launch for an ``n_frames`` pack: the whole pack
-        when ``batch_tile`` is ``None``, else ``batch_tile`` cut to the pack.
-        The video packer asks the plan for it per pack."""
-        n = max(1, int(n_frames))
-        return n if self.batch_tile is None else min(self.batch_tile, n)
+        """Frames per kernel launch for an ``n_frames`` pack: the per-device
+        shard ``ceil(n_frames / mesh_size)`` (the whole pack on one device)
+        when ``batch_tile`` is ``None``, else ``batch_tile`` cut to the
+        shard. The video packer asks the plan for it per pack."""
+        shard = -(-max(1, int(n_frames)) // self.mesh_size)
+        return shard if self.batch_tile is None else min(self.batch_tile, shard)
 
     def with_tile(self, batch_tile: int) -> "BGPlan":
         """This plan with ``batch_tile`` pinned (cached: per-pack hot path)."""
@@ -463,44 +517,61 @@ class BGPlan:
         kernels, and a ``"streaming"`` plan, plain PyTorch by design, has
         no rung below it there. ``temporal`` and
         ``precision`` survive every rung (``fused`` and ``reference`` both
-        carry the grid EMA and both storage types); a ``reference`` rung's
-        ``batch_tile`` normalizes away. Consumed by
+        carry the grid EMA and both storage types); a ``reference`` rung
+        sheds the mesh (it does not shard; it runs on the mesh's first
+        device) and its ``batch_tile`` normalizes away. Consumed by
         ``repro_torch.reliability.GuardedDispatch``."""
         ladder = [self]
         if self.backend == "fused_streamed":
             ladder.append(self.with_options(backend="fused"))
         if self.backend != "reference" and self.device.type == "cpu":
-            ladder.append(self.with_options(backend="reference", batch_tile=None))
+            ladder.append(self.with_options(backend="reference", mesh=None, batch_tile=None))
         return tuple(ladder)
 
     # -------------------------------------------------------- serialization
     def to_json(self) -> dict:
         """The JAX package's version-1 payload (``repro.plan.BGPlan.to_json``).
-        The device is not part of it: a loading host binds its own."""
+        The devices are not part of it, the mesh's size is: a loading host
+        binds its own (:meth:`from_json`)."""
         return {
             "version": 1,
             "cfg": dataclasses.asdict(self.cfg),
             "backend": self.backend,
             "temporal": self.temporal,
             "batch_tile": self.batch_tile,
-            "mesh_size": 1,
+            "mesh_size": self.mesh_size,
             "quantize_output": self.quantize_output,
             "interpret": None,
             "precision": self.precision,
         }
 
     @classmethod
-    def from_json(cls, data: dict, *, device=None) -> "BGPlan":
+    def from_json(cls, data: dict, *, mesh="auto", device=None) -> "BGPlan":
         """Rebuild a plan from a version-1 payload, written by either package,
-        bound to ``device``. ``interpret`` is a Pallas setting and is
-        ignored; a mesh (``mesh_size > 1``), which this port does not run
-        yet, raises ``NotImplementedError``."""
+        bound to ``device``. ``mesh="auto"`` builds a mesh of the payload's
+        ``mesh_size`` over this host's first cards (``batch_mesh``),
+        raising ``ValueError`` when the host has fewer (a silently shrunk
+        mesh would shift the dispatch geometry the hash vouches for); pass a
+        ``BatchMesh``, or ``None`` for one device, to rebind. ``interpret``
+        is a Pallas setting and is ignored."""
         if int(data.get("version", 1)) != 1:
             raise ValueError(
                 f"unknown BGPlan serialization version {data.get('version')!r}"
             )
-        if int(data.get("mesh_size", 1)) > 1:
-            raise NotImplementedError("mesh plans are not yet ported")
+        if isinstance(mesh, str) and mesh == "auto":
+            ms = int(data.get("mesh_size", 1))
+            if ms <= 1:
+                mesh = None
+            else:
+                count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+                if count < ms:
+                    raise ValueError(
+                        f"serialized plan wants a {ms}-device mesh but only {count} "
+                        f"card(s) are visible; pass mesh= explicitly to rebind"
+                    )
+                from repro_torch.sharding.bg_shard import batch_mesh
+
+                mesh = batch_mesh(ms)
         return cls(
             cfg=BGConfig(**data["cfg"]),
             backend=data["backend"],
@@ -509,6 +580,7 @@ class BGPlan:
             quantize_output=bool(data.get("quantize_output", True)),
             precision=data.get("precision", "fp32"),
             device=device,
+            mesh=mesh,
         )
 
     def plan_hash(self) -> str:
@@ -530,7 +602,7 @@ class BGPlan:
     def describe(self) -> str:
         """One-line dispatch summary for logs."""
         return (
-            f"backend={self.backend} bt={self.batch_tile} mesh=1 "
+            f"backend={self.backend} bt={self.batch_tile} mesh={self.mesh_size} "
             f"temporal={int(self.temporal)} prec={self.precision} "
             f"src={self.provenance} device={self.device}"
         )
@@ -546,7 +618,9 @@ class BGPlan:
         """Denoise a (h, w) frame, a (b, h, w) batch or a (b, h, w, c) color
         batch (channels are folded into the batch: each gets its own grid).
         Frames (numpy or tensor) are moved to the plan's device as float32;
-        the result stays there, float32.
+        the result stays there, float32. A mesh plan leaves the frames where
+        they are and moves each shard to its own device; the result is
+        gathered on the plan's device (the mesh's first).
 
         A temporal plan takes (h, w) or (n, h, w) frames with ``carry`` (the
         ``(n, gx, gy, gz, 2)`` carries, moved to the device in the storage
@@ -560,13 +634,14 @@ class BGPlan:
         exception it raises aborts the dispatch."""
         if _DISPATCH_HOOK is not None:
             _DISPATCH_HOOK(self)
-        frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+        dev = self.input_device
+        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
         if self.temporal:
             if carry is None or alpha is None:
                 raise ValueError("temporal plan dispatch needs both carry= and alpha=")
             if not isinstance(carry, torch.Tensor):
                 carry = torch.as_tensor(np.asarray(carry, np.float32))
-            carry = carry.to(device=self.device, dtype=self.storage_dtype)
+            carry = carry.to(device=dev or carry.device, dtype=self.storage_dtype)
             squeeze = frames.dim() == 2
             if squeeze:
                 frames, carry = frames[None], carry[None]
@@ -577,14 +652,14 @@ class BGPlan:
                 )
             n = frames.shape[0]
             if isinstance(alpha, torch.Tensor):
-                alpha = alpha.to(device=self.device, dtype=torch.float32)
+                alpha = alpha.to(device=dev or alpha.device, dtype=torch.float32)
                 if alpha.dim() == 0:
                     alpha = alpha.expand(n)
             else:
                 alpha_np = np.broadcast_to(np.asarray(alpha, np.float32), (n,))
                 if (alpha_np < 0.0).any() or (alpha_np >= 1.0).any():
                     raise ValueError(f"temporal alpha must be in [0, 1), got {alpha}")
-                alpha = torch.as_tensor(alpha_np.copy(), device=self.device)
+                alpha = torch.as_tensor(alpha_np.copy(), device=dev)
             out, new_carry = self.executable()(
                 frames.contiguous(), carry.contiguous(), alpha.contiguous()
             )
@@ -614,12 +689,14 @@ def _variant(plan: BGPlan, field: str, value) -> BGPlan:
 def candidate_plans(cfg: BGConfig, height: int, width: int, *, n_frames: Optional[int] = None,
                     temporal: bool = False, backends=("fused", "fused_streamed"),
                     precisions=PRECISIONS, batch_tile: Optional[int] = None,
-                    quantize_output: bool = True, device=None) -> list:
+                    quantize_output: bool = True, device=None, mesh=None) -> list:
     """The grid :func:`plan_for`'s model ranks: ``backends`` x the tile
     ladder up to :func:`auto_batch_tile` (or the pinned ``batch_tile``) x
-    ``precisions``, in that order, on ``device``. ``chip_smoke.py``'s
+    ``precisions``, in that order, on ``device`` (or over ``mesh``, the
+    ladder then up to the per-device shard). ``chip_smoke.py``'s
     ``plan_sweep`` times the same grid."""
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else None
+    mesh_size = 1 if mesh is None else mesh.size
     plans = []
     for prec in precisions:
         for be in backends:
@@ -627,10 +704,11 @@ def candidate_plans(cfg: BGConfig, height: int, width: int, *, n_frames: Optiona
                 tiles = [batch_tile]
             else:
                 cap = auto_batch_tile(cfg, height, width, n_frames, stream_input=be == "fused_streamed",
-                                      temporal=temporal, precision=prec)
+                                      mesh_size=mesh_size, temporal=temporal, precision=prec)
                 tiles = sorted({t for t in _TILE_LADDER if t < cap} | {cap})
             plans.extend(BGPlan(cfg=cfg, backend=be, temporal=temporal, batch_tile=t,
-                                quantize_output=quantize_output, precision=prec, device=device)
+                                quantize_output=quantize_output, precision=prec, device=device,
+                                mesh=mesh)
                          for t in tiles)
     return plans
 
@@ -678,11 +756,16 @@ def plan_for(
     A cached bf16 winner is used only under ``"auto"`` or ``"bf16"``.
 
     ``device`` is the plan's device (``None``: the CUDA card); the cache key
-    carries its fingerprint. The plan is single-device: ``sharded=None``
-    stays on one device whatever ``torch.cuda.device_count()`` says, and
-    ``sharded=True`` or a ``mesh`` raise ``NotImplementedError`` until mesh
-    sharding is ported (``sharded=True`` on a backend that does not shard
-    raises the JAX package's ``ValueError`` first).
+    carries its fingerprint and the mesh size. ``sharded=None`` auto-meshes
+    over every card (``repro_torch.sharding.batch_mesh``) when the caller
+    wants the card (``device`` ``None`` or ``"cuda"``), more than one is
+    visible and every candidate backend shards (``"reference"`` and
+    ``"staged"`` stay on one device); ``sharded=False`` forces one device;
+    ``sharded=True`` needs a backend that shards (``ValueError``) and
+    meshes as ``None`` does; an explicit ``mesh`` wins (a size-1 mesh is
+    its device). A ``batch_tile`` above the per-device shard
+    ``ceil(n_frames / mesh_size)`` raises ``ValueError``, and the cost model
+    ranks the per-device shard, as in the JAX package.
     """
     if precision not in (None, "auto") and precision not in PRECISIONS:
         raise ValueError(
@@ -715,13 +798,38 @@ def plan_for(
         raise ValueError(
             f"sharded=True needs a mesh-capable backend {_MESH_BACKENDS}, got {backend!r}"
         )
-    if sharded or mesh is not None:
-        raise NotImplementedError("mesh sharding is not yet ported; plans are single-device")
+    if sharded is False:
+        mesh = None
+    elif mesh is None and mesh_capable:
+        # auto-mesh only for backends that shard; an explicit mesh on a
+        # backend that does not falls through to BGPlan's ValueError
+        from repro_torch.sharding.bg_shard import _service_mesh
+
+        mesh = _service_mesh(None, device)
+    if mesh is not None:
+        if not isinstance(mesh, BatchMesh):
+            raise TypeError(f"mesh must be a repro_torch.sharding.BatchMesh, got {type(mesh).__name__}")
+        if device is None:
+            device = mesh.devices[0]
+        if mesh.size == 1:
+            mesh = None
     device = resolve_device(device)
+    mesh_size = 1 if mesh is None else mesh.size
+
+    if batch_tile is not None and mesh_size > 1 and n_frames is not None:
+        shard = -(-int(n_frames) // mesh_size)
+        if batch_tile > shard:
+            raise ValueError(
+                f"batch_tile={batch_tile} exceeds the {shard} frame(s) each of the "
+                f"{mesh_size} mesh devices receives for n_frames={n_frames}; the kernel "
+                f"would clamp the tile (shifting the temporal-carry dispatch geometry): "
+                f"use batch_tile<={shard} or batch_tile=None (auto)"
+            )
 
     def build(be, bt, prec):
         return BGPlan(cfg=cfg, backend=be, temporal=temporal, batch_tile=bt,
-                      quantize_output=quantize_output, precision=prec, device=device)
+                      quantize_output=quantize_output, precision=prec, device=device,
+                      mesh=mesh)
 
     fused_family = all(b in _FUSED_BACKENDS for b in candidates)
     if precision == "bf16":
@@ -742,7 +850,8 @@ def plan_for(
         from repro_torch.plan_cache import get_default_cache, workload_key
 
         pc = get_default_cache() if cache is None else cache
-        ent = pc.lookup(workload_key(cfg, height, width, n_frames, temporal, 1, device=device))
+        ent = pc.lookup(workload_key(cfg, height, width, n_frames, temporal, mesh_size,
+                                     device=device))
         if ent is not None:
             try:
                 pj = ent["plan"]
@@ -750,7 +859,10 @@ def plan_for(
                 prec = pj.get("precision", "fp32")
                 # a cached bf16 winner must not reach a caller that did not
                 # opt into reduced precision
-                if be in candidates and prec in precisions:
+                ok = be in candidates and prec in precisions
+                if ok and bt is not None and mesh_size > 1 and n_frames is not None:
+                    ok = bt <= -(-int(n_frames) // mesh_size)
+                if ok:
                     return _stamp(build(be, bt, prec), "cache")
             except (KeyError, TypeError, ValueError):
                 pass  # stale or incompatible entry: the model decides
@@ -758,7 +870,7 @@ def plan_for(
     # ---- the cost model over the legal candidate grid
     plans = candidate_plans(cfg, height, width, n_frames=n_frames, temporal=temporal,
                             backends=candidates, precisions=precisions, batch_tile=batch_tile,
-                            quantize_output=quantize_output, device=device)
+                            quantize_output=quantize_output, device=device, mesh=mesh)
     n_eval = int(n_frames) if n_frames is not None else max(p.batch_tile for p in plans)
     best = min(
         plans,
@@ -790,14 +902,57 @@ def set_dispatch_hook(hook):
     return prev
 
 
+def _mesh_call(inner, mesh: BatchMesh, n_in: int, n_out: int):
+    """The shared mesh composition (the JAX package's ``_mesh_call``, with a
+    loop over devices for ``shard_map``): split every input's leading axis
+    into ``mesh.size`` equal shards, the last ones zero-padded (``_row_pad``)
+    on their own device, run ``inner`` on each shard with its device
+    current, and gather the shards' real rows onto the mesh's first device
+    in order. Returns ``fn(*tensors) -> output`` (a tuple for ``n_out >
+    1``). Shard inputs move by ``non_blocking`` copies: from pinned host
+    memory they overlap the launches, so the caller keeps such a buffer
+    unchanged until the dispatch completes (``AsyncFrameEngine`` keeps its
+    staging until the batch's event). Each shard's outputs are copied to the
+    first device, a copy PyTorch orders after the shard's work, so that
+    device's current stream covers every shard."""
+    from repro_torch.sharding.bg_shard import _on, _pad_rows, _row_pad
+
+    devices = mesh.devices
+    first = devices[0]
+
+    def call(*tensors):
+        if len(tensors) != n_in:
+            raise TypeError(f"a mesh dispatch takes {n_in} tensor(s), got {len(tensors)}")
+        n = tensors[0].shape[0]
+        per = (n + _row_pad(len(devices), n)) // len(devices)
+        parts = []
+        for k, dev in enumerate(devices):
+            lo, hi = min(k * per, n), min((k + 1) * per, n)
+            with _on(dev):
+                shard = [_pad_rows(t[lo:hi].to(dev, non_blocking=True), per - (hi - lo))
+                         for t in tensors]
+                out = inner(*shard)
+            outs = (out,) if n_out == 1 else tuple(out)
+            parts.append([o[:hi - lo] for o in outs])
+        with _on(first):
+            gathered = tuple(torch.cat([p[i].to(first, non_blocking=True) for p in parts])
+                             for i in range(n_out))
+        return gathered[0] if n_out == 1 else gathered
+
+    return call
+
+
 @functools.lru_cache(maxsize=256)
 def _plan_executable(plan: BGPlan):
     """ONE callable per plan: the compute route plus output quantization.
-    Under ``precision="fp32"`` every storage cast below is the identity."""
+    Under ``precision="fp32"`` every storage cast below is the identity. A
+    mesh plan runs the same route per shard (:func:`_mesh_call`) and
+    quantizes the gathered output."""
     cfg = plan.cfg
     quant = plan.quantize_output
     prec = plan.precision
     sdt = plan.storage_dtype
+    mesh = plan.mesh
 
     def _maybe_quantize(out):
         out = out.to(torch.float32)  # the kernels' bf16 output, upcast
@@ -823,11 +978,15 @@ def _plan_executable(plan: BGPlan):
     if plan.temporal:
         from repro_torch.kernels.bg_fused import bg_fused
 
+        def inner_temporal(frames, carry, alpha):
+            return bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, carry=carry,
+                            alpha=alpha, precision=prec)
+
+        if mesh is not None:
+            inner_temporal = _mesh_call(inner_temporal, mesh, n_in=3, n_out=2)
+
         def fn(frames, carry, alpha):
-            out, new_carry = bg_fused(
-                frames.to(sdt), cfg, batch_tile=plan.batch_tile, carry=carry, alpha=alpha,
-                precision=prec,
-            )
+            out, new_carry = inner_temporal(frames, carry, alpha)
             return _maybe_quantize(out), new_carry
 
         return fn
@@ -848,10 +1007,16 @@ def _plan_executable(plan: BGPlan):
     if plan.backend == "streaming":
         from repro_torch.core.streaming import _streaming_batch
 
+        def batch(frames):
+            return _streaming_batch(frames, cfg, quant)
+
+        meshed = batch if mesh is None else _mesh_call(batch, mesh, n_in=1, n_out=1)
+
         def fn(frames):
             if frames.dim() == 3:
-                return _streaming_batch(frames, cfg, quant)
-            return _streaming_batch(frames[None], cfg, quant)[0]
+                return meshed(frames)
+            # a single frame: the plain stripe loop on the plan's device
+            return _streaming_batch(frames[None].to(plan.device), cfg, quant)[0]
 
         return fn
 
@@ -867,10 +1032,22 @@ def _plan_executable(plan: BGPlan):
 
     stream_input = plan.backend == "fused_streamed"
 
+    def inner(frames):
+        return bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, stream_input=stream_input,
+                        precision=prec)
+
+    if mesh is None:
+
+        def fn(frames):
+            return _maybe_quantize(inner(frames))
+
+        return fn
+
+    meshed = _mesh_call(inner, mesh, n_in=1, n_out=1)
+
     def fn(frames):
-        return _maybe_quantize(
-            bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, stream_input=stream_input,
-                     precision=prec)
-        )
+        squeeze = frames.dim() == 2
+        out = _maybe_quantize(meshed(frames[None] if squeeze else frames))
+        return out[0] if squeeze else out
 
     return fn

@@ -31,6 +31,14 @@ same-stream repeat is deferred to the next batch. Every pack is one
 dispatch: the temporal kernel B2 when a stream of the pack is warm, the
 per-frame kernel B1 otherwise.
 
+Mesh plans (``mesh=`` on the legacy constructor, or a plan or packer whose
+plan carries a ``repro_torch.sharding.BatchMesh``): the pinned staging is
+not copied to the first card whole; each shard goes from it to its own
+device (``repro_torch.plan._mesh_call``), as the JAX engine skips its
+``device_put`` for mesh plans. The outputs are gathered on the first device,
+a copy ordered after every shard's work, so the batch's event, recorded on
+that device's stream after the dispatch, covers every shard.
+
 Fault tolerance (the ``repro_torch.reliability`` wiring, as in the JAX
 engine):
 
@@ -244,9 +252,11 @@ class AsyncFrameEngine:
 
     Pass ``packer=`` (video mode: the packer's plan dispatches), ``plan=``
     (a :class:`repro_torch.plan.BGPlan` that quantizes its output), or
-    ``cfg=`` and optionally ``device=`` for the fused plan
-    (``stream_input=True``: the ``"fused_streamed"`` plan); like the JAX
-    engine it builds a plain ``BGPlan``, not ``plan_for``'s. A bf16 plan or
+    ``cfg=`` and optionally ``device=`` and ``mesh=`` for the fused plan
+    (``stream_input=True``: the ``"fused_streamed"`` plan; ``mesh=None``
+    meshes over every card when the caller wants the card and more than one
+    is visible); like the JAX engine it builds a plain ``BGPlan``, not
+    ``plan_for``'s. A bf16 plan or
     a packer on one serves like any other: the pinned staging stays float32,
     as the frames arrive, and the plan casts to bf16 on the card.
 
@@ -267,6 +277,7 @@ class AsyncFrameEngine:
         packer=None,
         plan=None,
         device=None,
+        mesh=None,
         fault_injector=None,
         watchdog_ms: Optional[float] = None,
         retry_policy: Optional[RetryPolicy] = None,
@@ -281,10 +292,12 @@ class AsyncFrameEngine:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if watchdog_ms is not None and watchdog_ms <= 0:
             raise ValueError(f"watchdog_ms must be > 0 or None, got {watchdog_ms}")
-        if (packer is not None or plan is not None) and (device is not None or stream_input):
+        if (packer is not None or plan is not None) and (
+            device is not None or stream_input or mesh is not None
+        ):
             raise ValueError(
-                "pass device= and stream_input= with cfg=; a plan carries its "
-                "own device and backend"
+                "pass device=, mesh= and stream_input= with cfg=; a plan carries "
+                "its own device, mesh and backend"
             )
         if packer is not None:
             # video mode dispatches through the packer's own plan
@@ -298,9 +311,11 @@ class AsyncFrameEngine:
             if cfg is None:
                 raise TypeError("AsyncFrameEngine needs cfg=, plan= or packer=")
             from repro_torch.plan import BGPlan
+            from repro_torch.sharding.bg_shard import _service_mesh
 
             backend = "fused_streamed" if stream_input else "fused"
-            plan = BGPlan(cfg=cfg, backend=backend, quantize_output=True, device=device)
+            plan = BGPlan(cfg=cfg, backend=backend, quantize_output=True, device=device,
+                          mesh=_service_mesh(mesh, device))
         if not plan.quantize_output:
             raise ValueError(
                 "AsyncFrameEngine serves quantized frames; build the plan "
@@ -584,7 +599,9 @@ class AsyncFrameEngine:
     def _stage(self, batch: List[AsyncFrameRequest]):
         """Stack one micro-batch into a (pinned) host buffer and copy it to
         the plan's device without blocking; once per batch, whatever rung
-        then dispatches it. Returns ``(staging, frames on the device)``."""
+        then dispatches it. Returns ``(staging, frames on the device)``; for
+        a mesh plan the frames are the staging itself, from which each shard
+        is copied to its own device."""
         shapes = {tuple(np.shape(r.frame)) for r in batch}
         if len(shapes) != 1 or len(next(iter(shapes))) != 2:
             raise ValueError(f"a micro-batch needs equal (h, w) frames, got {sorted(shapes)}")
@@ -595,7 +612,9 @@ class AsyncFrameEngine:
         )
         for i, r in enumerate(batch):
             staging[i].copy_(torch.as_tensor(r.frame))
-        return staging, (staging.to(dev, non_blocking=True) if on_card else staging)
+        if not on_card or self.plan.mesh is not None:
+            return staging, staging
+        return staging, staging.to(dev, non_blocking=True)
 
     def _launch_with(self, plan, batch: List[AsyncFrameRequest], staging, x) -> _InFlight:
         """Dispatch the staged batch ``x`` through ``plan`` (a fallback

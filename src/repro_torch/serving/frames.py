@@ -1,13 +1,14 @@
-"""Frame-denoise serving engine: synchronous micro-batched dispatch on one
-device.
+"""Frame-denoise serving engine: mesh-divisible micro-batched dispatch.
 
-Clients submit frames one at a time; ``step()`` dispatches up to
-``max_batch`` queued frames as one batch through the engine's
-:class:`repro_torch.plan.BGPlan` (with the ``"fused"`` or ``"fused_streamed"``
-backend on a CUDA device, one kernel launch per dispatch), as the JAX
-package's engine does
-on one device. ``flush()`` drains the queue in such batches, the last one
-ragged. Results stay on the plan's device.
+Clients submit frames one at a time; ``step()`` dispatches a micro-batch
+through the engine's :class:`repro_torch.plan.BGPlan` (with the ``"fused"``
+or ``"fused_streamed"`` backend on a CUDA device, one kernel launch per
+dispatch and device) when a count divisible by the device count of the
+plan's batch mesh is queued, so every shard is equal-sized and no data
+crosses devices (``repro_torch.sharding``). ``step(force=True)`` /
+``flush()`` dispatch the ragged tail too; the mesh pads it with zero frames.
+On one device every count divides. Results are on the plan's device (the
+mesh's first).
 """
 from __future__ import annotations
 
@@ -30,15 +31,20 @@ class FrameRequest:
 
 
 class FrameDenoiseEngine:
-    """Micro-batching front for the bilateral-grid plan, single device.
+    """Micro-batching front for the bilateral-grid plan, sharded over the
+    plan's batch mesh.
 
-    Pass ``plan=`` (it must quantize its output, and it names the device),
-    or ``cfg=`` and optionally ``device=`` to build the ``"fused"`` plan
-    (``stream_input=True``: the ``"fused_streamed"`` plan, as the JAX
-    engine builds it). ``max_batch`` must be >= 1 (0 or negative is
-    rejected, not clamped); it caps frames per dispatch. A bf16 plan
-    (``precision="bf16"``) serves like any other: frames go to the card as
-    float32 and the plan casts them to bf16 there.
+    Pass ``plan=`` (it must quantize its output, and it names the device and
+    mesh), or ``cfg=`` and optionally ``device=`` and ``mesh=`` to build the
+    ``"fused"`` plan (``stream_input=True``: the ``"fused_streamed"`` plan,
+    as the JAX engine builds it); ``mesh=None`` meshes over every card when
+    the caller wants the card and more than one is visible (one card: the
+    plain plan). ``max_batch`` must be >= 1 (0 or negative is rejected, not
+    clamped); it caps frames per dispatch and is rounded down to a multiple
+    of the device count ``n_devices``, but never below it (the smallest
+    batch that shards evenly). A bf16 plan (``precision="bf16"``) serves
+    like any other: frames go to the card as float32 and the plan casts
+    them to bf16 there.
     """
 
     def __init__(
@@ -49,6 +55,7 @@ class FrameDenoiseEngine:
         *,
         plan=None,
         device=None,
+        mesh=None,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -56,13 +63,14 @@ class FrameDenoiseEngine:
             if cfg is None:
                 raise TypeError("FrameDenoiseEngine needs cfg= or plan=")
             from repro_torch.plan import BGPlan
+            from repro_torch.sharding.bg_shard import _service_mesh
 
             backend = "fused_streamed" if stream_input else "fused"
-            plan = BGPlan(cfg=cfg, backend=backend, device=device)
-        elif device is not None or stream_input:
+            plan = BGPlan(cfg=cfg, backend=backend, device=device, mesh=_service_mesh(mesh, device))
+        elif device is not None or stream_input or mesh is not None:
             raise ValueError(
-                "pass device= and stream_input= with cfg=; a plan carries its "
-                "own device and backend"
+                "pass device=, mesh= and stream_input= with cfg=; a plan carries "
+                "its own device, mesh and backend"
             )
         elif not plan.quantize_output:
             raise ValueError(
@@ -70,7 +78,8 @@ class FrameDenoiseEngine:
                 "with quantize_output=True"
             )
         self.plan = plan
-        self.max_batch = max_batch
+        self.n_devices = plan.mesh_size
+        self.max_batch = max(1, max_batch // self.n_devices) * self.n_devices
         self._queue: Deque[FrameRequest] = deque()
 
     @property
@@ -81,6 +90,10 @@ class FrameDenoiseEngine:
     def device(self) -> torch.device:
         return self.plan.device
 
+    @property
+    def mesh(self):
+        return self.plan.mesh
+
     def submit(self, req: FrameRequest) -> None:
         """Queue one frame; it is denoised at the next ``step``."""
         self._queue.append(req)
@@ -88,16 +101,21 @@ class FrameDenoiseEngine:
     def pending(self) -> int:
         return len(self._queue)
 
-    def step(self) -> List[FrameRequest]:
-        """Dispatch up to ``max_batch`` queued frames as one batch and return
-        the completed requests (empty when nothing is queued). The JAX
-        package's ``force=`` exists for multi-device ragged tails; on one
-        device every count divides evenly, so the port has none."""
-        k = min(len(self._queue), self.max_batch)
+    def step(self, force: bool = False) -> List[FrameRequest]:
+        """Dispatch one micro-batch if a mesh-divisible count is queued (up to
+        ``max_batch``) and return the completed requests (empty while still
+        accumulating). ``force=True`` dispatches a ragged tail too; the
+        mesh pads it with zero frames. The frames stack on the plan's device,
+        or for a mesh plan where they are (host frames on the host), and
+        each shard moves to its own device."""
+        n = len(self._queue)
+        k = min((n // self.n_devices) * self.n_devices, self.max_batch)
+        if k == 0 and force and n:
+            k = min(n, self.max_batch)
         if k == 0:
             return []
         reqs = [self._queue.popleft() for _ in range(k)]
-        dev = self.plan.device
+        dev = self.plan.input_device
         batch = torch.stack(
             [torch.as_tensor(r.frame, dtype=torch.float32, device=dev) for r in reqs]
         )
@@ -110,5 +128,5 @@ class FrameDenoiseEngine:
         """Drain the queue completely (forced ragged dispatches)."""
         done: List[FrameRequest] = []
         while self._queue:
-            done.extend(self.step())
+            done.extend(self.step(force=True))
         return done

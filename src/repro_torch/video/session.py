@@ -9,6 +9,10 @@ tensor, and a per-stream alpha vector lets warm streams (``a_s``), cold
 streams and first-frame streams (forced ``a = 0``) share it. Row i of the
 stacked carry is read and written only by stream i. Carries live on the
 plan's device in its storage type (``torch.bfloat16`` for a bf16 plan).
+With a mesh plan the pack's stream axis is split over the mesh: each
+stream's frame, carry row and alpha go to its shard's device, and the
+outputs and advanced carries are gathered back on the plan's device (the
+mesh's first); the per-pack tile is the plan's, clamped to the shard.
 
 Every pack is one dispatch: on the card, one launch of the temporal kernel
 B2, or of the per-frame kernel B1 when no stream in the pack is warm (no
@@ -61,7 +65,9 @@ class MultiStreamPacker:
 
     Construct with ``plan=`` (a :class:`repro_torch.plan.BGPlan`; the packer
     asks it for each pack's tile and derives its temporal variant), or with
-    ``cfg=`` and optionally ``device=`` for the fused plan.
+    ``cfg=`` and optionally ``device=`` and ``mesh=`` for the fused plan
+    (``mesh=None``: every card when the caller wants the card and more than
+    one is visible).
     """
 
     def __init__(
@@ -71,17 +77,22 @@ class MultiStreamPacker:
         *,
         plan=None,
         device=None,
+        mesh=None,
     ):
         if plan is None:
             if cfg is None:
                 raise TypeError("MultiStreamPacker needs cfg= or plan=")
             from repro_torch.plan import BGPlan
+            from repro_torch.sharding.bg_shard import _service_mesh
 
             plan = BGPlan(
-                cfg=cfg, backend="fused", quantize_output=quantize_output, device=device
+                cfg=cfg, backend="fused", quantize_output=quantize_output, device=device,
+                mesh=_service_mesh(mesh, device),
             )
-        elif device is not None:
-            raise ValueError("pass device= with cfg=; a plan carries its own device")
+        elif device is not None or mesh is not None:
+            raise ValueError(
+                "pass device= and mesh= with cfg=; a plan carries its own device and mesh"
+            )
         if plan.backend == "fused_streamed":
             raise ValueError(
                 "MultiStreamPacker needs a temporal-capable plan; "
@@ -228,7 +239,9 @@ class MultiStreamPacker:
             raise KeyError(f"streams not open: {missing!r}")
         sids = sorted(frames, key=repr)
         dev = self.plan.device
-        arrs = {s: torch.as_tensor(frames[s], dtype=torch.float32, device=dev) for s in sids}
+        # a mesh plan takes the frames where they are: each shard moves itself
+        arrs = {s: torch.as_tensor(frames[s], dtype=torch.float32, device=self.plan.input_device)
+                for s in sids}
         shapes = {tuple(a.shape) for a in arrs.values()}
         if len(shapes) != 1 or len(next(iter(shapes))) != 2:
             raise ValueError(f"pack needs equal (h, w) frames, got {sorted(shapes)}")

@@ -88,10 +88,16 @@ def blurred_grid_batch(frames: torch.Tensor, cfg: BGConfig, precision: str = "fp
 
 
 @functools.lru_cache(maxsize=64)
-def _cfg_plan(cfg: BGConfig, quantize_output: bool, device):
+def _legacy_plan(cfg: BGConfig, quantize_output: bool, device, mesh):
+    """The fused plan the keyword form names, cached (``temporal_denoise``
+    sits on a per-pack path); ``mesh`` as the JAX package's ``_legacy_plan``
+    takes it (``None``: every card when the caller wants the card and more
+    than one is visible)."""
     from repro_torch.plan import BGPlan
+    from repro_torch.sharding.bg_shard import _service_mesh
 
-    return BGPlan(cfg=cfg, backend="fused", quantize_output=quantize_output, device=device)
+    return BGPlan(cfg=cfg, backend="fused", quantize_output=quantize_output, device=device,
+                  mesh=_service_mesh(mesh, device))
 
 
 def temporal_denoise(
@@ -103,6 +109,7 @@ def temporal_denoise(
     quantize_output: bool = True,
     plan=None,
     device=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One temporal step for a pack of streams: denoise and advance the carry.
 
@@ -114,9 +121,10 @@ def temporal_denoise(
         inside a warm pack pass a zero carry row and a zero alpha entry.
       alpha: scalar or length-n host-side blend weights in ``[0, 1)``.
       plan: a base :class:`repro_torch.plan.BGPlan` that fixes the dispatch
-        (backend, batch tile, quantization, device); its temporal or
+        (backend, batch tile, quantization, device, mesh); its temporal or
         per-frame variant is derived here per pack. Without it, ``cfg``
-        (with ``quantize_output`` and ``device``) names the fused plan.
+        (with ``quantize_output``, ``device`` and ``mesh``) names the fused
+        plan; with a mesh the stream axis is split over it.
 
     Returns ``(out, new_carry)``. With no carry and every alpha zero the
     per-frame plan runs and ``new_carry`` is ``None``. Otherwise the
@@ -126,12 +134,10 @@ def temporal_denoise(
     if plan is None:
         if cfg is None:
             raise TypeError("temporal_denoise needs cfg= or plan=")
-        from repro_torch._device import resolve_device
-
-        plan = _cfg_plan(cfg, quantize_output, resolve_device(device))
-    elif device is not None:
-        raise ValueError("pass device= with cfg=; a plan carries its own device")
-    frames = torch.as_tensor(frames, dtype=torch.float32, device=plan.device)
+        plan = _legacy_plan(cfg, quantize_output, device, mesh)
+    elif device is not None or mesh is not None:
+        raise ValueError("pass device= and mesh= with cfg=; a plan carries its own device and mesh")
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=plan.input_device)
     squeeze = frames.dim() == 2
     if squeeze:
         frames = frames[None]
@@ -156,6 +162,6 @@ def temporal_denoise(
         alpha_np = np.zeros((n,), np.float32)
     if carry.shape[0] != n:
         raise ValueError(f"carry leading axis {carry.shape[0]} != n frames {n}")
-    alpha_t = torch.as_tensor(alpha_np.copy(), device=plan.device)  # checked above
+    alpha_t = torch.as_tensor(alpha_np.copy(), device=plan.input_device)  # checked above
     out, new_carry = plan.as_temporal(True)(frames, carry=carry, alpha=alpha_t)
     return (out[0] if squeeze else out), new_carry

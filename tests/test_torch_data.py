@@ -20,6 +20,7 @@ import repro.data as JD
 import repro_torch.core as T
 import repro_torch.data as TD
 from repro_torch.plan import BGPlan
+from repro_torch.sharding import BatchMesh
 
 CFG = T.BGConfig(4, 3.0, 50.0)
 JCFG = J.BGConfig(4, 3.0, 50.0)
@@ -96,10 +97,24 @@ def test_denoise_batch_legacy_keywords(kwargs, backend):
 
 @pytest.mark.parametrize("kw", [dict(sharded=True), dict(mesh="batch"), dict(use_kernels=True, sharded=True)])
 def test_denoise_batch_mesh_raises_until_ported(kw):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TD.denoise_batch(noisy_np((2, 20, 24)), CFG, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TD.vlm_preprocess(noisy_np((2, 20, 24)), CFG, 4, 8, device="cpu", **kw)
+    """Mesh sharding is ported (the name is from before it was): as in the
+    JAX package, ``sharded=True`` is the fused plan, on one device when
+    there is no card to auto-mesh over and over an explicit mesh bit for bit
+    the same, and a ``mesh`` without ``sharded`` is ignored (the reference
+    plan); ``vlm_preprocess`` forwards both, and each output holds the
+    quantized contract against the JAX function's."""
+    x = noisy_np((3, 20, 24))
+    want = BGPlan(CFG, backend="fused" if kw.get("sharded") else "reference", device="cpu")(x)
+    assert torch.equal(TD.denoise_batch(x, CFG, device="cpu", **kw), want)
+    if kw.get("sharded"):
+        meshed = TD.denoise_batch(x, CFG, device="cpu", **dict(kw, mesh=BatchMesh(("cpu",) * 2)))
+        assert torch.equal(meshed, want)
+    emb = TD.vlm_preprocess(x, CFG, 4, 8, device="cpu", **kw)
+    assert torch.equal(emb, TD.patchify_embed(want, 4, 8, device="cpu"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # JAX's legacy-keyword notice
+        theirs = np.asarray(JD.denoise_batch(jnp.asarray(x), JCFG, **kw))
+    quantized_contract(want.numpy(), theirs)
 
 
 def test_denoise_batch_needs_cfg_or_plan():

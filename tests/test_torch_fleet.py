@@ -53,6 +53,7 @@ from repro_torch.plan import BGPlan, plan_for
 from repro_torch.plan_cache import CACHE_ENV_VAR, PlanCache
 from repro_torch.reliability import Fault, FaultInjector, FaultPlan
 from repro_torch.serving import EngineStats
+from repro_torch.sharding import BatchMesh
 
 CFG = BGConfig(r=4, sigma_s=4.0, sigma_r=60.0)
 H, W = 24, 32
@@ -667,15 +668,27 @@ def test_launch_counters_exact_under_threads():
 
 def test_local_worker_runs_on_the_card_unless_asked_for_cpu():
     """``device=None`` is the card: with no card the worker raises instead
-    of serving on the CPU; a mesh payload raises until sharding is
-    ported."""
+    of serving on the CPU. A mesh payload (ported now) binds this host's
+    cards with ``mesh="auto"`` and raises ``ValueError`` when it has too
+    few; an explicit mesh rebinds it and the worker serves through it."""
     payload = _controller().payload()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LocalWorker(0, payload)
-    mesh = dict(payload, plan=dict(payload["plan"], mesh_size=2), plan_hash=None)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LocalWorker(0, mesh, device="cpu")
+    plan2 = dict(payload["plan"], mesh_size=2)
+    meshed = dict(payload, plan=plan2, plan_hash=BGPlan.from_json(plan2, mesh=BatchMesh(("cpu",) * 2)).plan_hash())
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="2-device mesh"):
+            LocalWorker(0, meshed, device="cpu")
+    w = LocalWorker(0, meshed, mesh=BatchMesh(("cpu",) * 2))
+    try:
+        assert (w.plan.mesh_size, w.plan_hash) == (2, meshed["plan_hash"])
+        w.open_stream(0, alpha=ALPHA)
+        frame = np.full((H, W), 100.0, np.float32)
+        out = w.submit(frame, stream_id=0).result(timeout=WAIT_S)
+        assert tuple(out.shape) == (H, W) and out.device.type == "cpu"
+    finally:
+        w.close()
 
 
 # ----------------------------------------------------------- cross-package

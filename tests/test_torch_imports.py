@@ -56,10 +56,12 @@ FLEET = ["fleet", "fleet.errors", "fleet.codec", "fleet.stats", "fleet.health", 
 CORE_AND_EXAMPLES = ["core.bilateral_filter", "core.fixed_point", "core.streaming", "core",
                      "data.pipeline", "data.synthetic", "data", "examples", "examples.quickstart",
                      "examples.denoise_stream", "examples.denoise_video", "examples.denoise_fleet"]
+# batch sharding: the mesh module and the package that exports it
+SHARDING = ["sharding", "sharding.bg_shard"]
 
 
 @pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET
-                         + CORE_AND_EXAMPLES)
+                         + CORE_AND_EXAMPLES + SHARDING)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, no ``ml_dtypes``, nothing of ``repro`` and no compiled kernel (the CPU host has no

@@ -31,6 +31,7 @@ from repro_torch.plan import (
     staged_work,
 )
 from repro_torch.plan_cache import CACHE_ENV_VAR, PlanCache, set_default_cache, workload_key
+from repro_torch.sharding import BatchMesh
 from repro_torch.video import MultiStreamPacker
 
 ARGS = (4, 3.0, 50.0)
@@ -336,11 +337,20 @@ def test_no_tpu_constant_in_the_cost_model():
 
 
 def test_plan_for_is_single_device():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _pf(n_frames=4, sharded=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """(The name is from before mesh sharding was ported.) With no card to
+    auto-mesh over, ``sharded=True`` is one device, as on a one-device JAX
+    host; ``sharded=False`` forces one device over an explicit mesh; an
+    explicit ``BatchMesh`` is taken, its first device the plan's; anything
+    else as a mesh is a ``TypeError``; a backend that does not shard raises
+    the JAX package's ``ValueError``."""
+    assert _pf(n_frames=4, sharded=True).mesh is None
+    mesh = BatchMesh(("cpu",) * 2)
+    assert _pf(n_frames=4, sharded=False, mesh=mesh).mesh is None
+    plan = _pf(n_frames=4, mesh=mesh)
+    assert (plan.mesh, plan.mesh_size, plan.device.type) == (mesh, 2, "cpu")
+    assert "mesh=2" in plan.describe() and plan.to_json()["mesh_size"] == 2
+    with pytest.raises(TypeError, match="BatchMesh"):
         _pf(n_frames=4, mesh=object())
-    # the JAX package's error first for a backend that does not shard
     with pytest.raises(ValueError, match="mesh-capable"):
         _pf(backend="reference", sharded=True)
     assert _pf(backend="reference").to_json()["mesh_size"] == 1

@@ -21,6 +21,7 @@ from repro_torch.data.pipeline import denoise_batch
 from repro_torch.kernels import bilateral_grid_filter_pallas
 from repro_torch.plan import BGPlan, plan_for
 from repro_torch.serving import AsyncFrameEngine, FrameDenoiseEngine, FrameRequest
+from repro_torch.sharding import BatchMesh
 from repro_torch.video import MultiStreamPacker, carry_shape
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,8 +54,9 @@ REJECTED = [
     (dict(backend="fused_streamed", temporal=True), "stream_input"),
     (dict(backend="streaming", temporal=True), "temporal"),
 ]
-# valid JAX plans the port does not run yet: mesh plans (on a one-device
-# host the JAX plan_for degrades sharded=True to a plain plan)
+# valid JAX plans the port did not run before mesh sharding was ported:
+# mesh plans (on a one-device host the JAX plan_for degrades sharded=True to
+# a plain plan, and so does the port's on the CPU)
 NOT_PORTED = [
     dict(backend="streaming", sharded=True),
     dict(backend="fused", sharded=True, quantize_output=False),
@@ -88,9 +90,24 @@ def test_plan_rejects_non_paper_kernel_backend():
 
 @pytest.mark.parametrize("kwargs", NOT_PORTED)
 def test_valid_jax_plans_not_yet_ported_raise(kwargs):
-    jplan_for(JCFG, 45, 64, **kwargs)  # valid there
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        plan_for(CFG, 45, 64, device="cpu", **kwargs)
+    """These mesh plans are ported now (the name is from before they were).
+    With one device (JAX's host here, the port's CPU) ``sharded=True`` is
+    the plain plan in both packages, and the outputs agree (the quantized
+    contract, or atol 5e-3 unquantized, tests/test_kernels.py); over an
+    explicit 2-handle mesh the port's output is its plain plan's bit for
+    bit."""
+    jplan = jplan_for(JCFG, 45, 64, **kwargs)  # valid there
+    plan = plan_for(CFG, 45, 64, device="cpu", **kwargs)
+    assert (plan.mesh, jplan.mesh) == (None, None)
+    assert (plan.backend, plan.quantize_output) == (jplan.backend, jplan.quantize_output)
+    x = frames_np(3)
+    mine, theirs = plan(x), np.asarray(jplan(x))
+    if plan.quantize_output:
+        quantized_contract(mine.numpy(), theirs)
+    else:
+        np.testing.assert_allclose(mine.numpy(), theirs, atol=5e-3)
+    meshed = plan_for(CFG, 45, 64, device="cpu", mesh=BatchMesh(("cpu",) * 2), **kwargs)
+    assert meshed.mesh_size == 2 and torch.equal(meshed(x), mine)
 
 
 @pytest.mark.parametrize("kwargs", BF16_PLANS)
@@ -155,8 +172,14 @@ def test_from_json_of_a_jax_payload_gives_the_same_output():
 
 def test_from_json_rejects_what_is_not_ported():
     payload = JBGPlan(cfg=JCFG, backend="fused").to_json()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh payload is ported now: "auto" wants that many cards (none on
+    # the CPU), an explicit mesh rebinds it as the same recipe, mesh=None to
+    # one device
+    with pytest.raises(ValueError, match="2-device mesh"):
         BGPlan.from_json(dict(payload, mesh_size=2), device="cpu")
+    meshed = BGPlan.from_json(dict(payload, mesh_size=2), mesh=BatchMesh(("cpu",) * 2))
+    assert meshed.to_json() == dict(payload, mesh_size=2) and meshed.device.type == "cpu"
+    assert BGPlan.from_json(dict(payload, mesh_size=2), mesh=None, device="cpu").mesh_size == 1
     # a streaming payload is ported now: it loads as the same recipe
     streaming = BGPlan.from_json(dict(payload, backend="streaming"), device="cpu")
     assert streaming.plan_hash() == JBGPlan.from_json(dict(payload, backend="streaming")).plan_hash()

@@ -13,6 +13,7 @@ import repro.core as J
 from repro.plan import BGPlan as JBGPlan
 import repro_torch.core as T
 from repro_torch.plan import BGPlan, plan_cost_breakdown, plan_for
+from repro_torch.sharding import BatchMesh
 
 ATOL = 1e-3
 
@@ -97,11 +98,27 @@ def test_streaming_entry_point_and_plan_agree():
 
 @pytest.mark.parametrize("kw", [dict(sharded=True), dict(mesh="batch")])
 def test_streaming_mesh_raises_until_ported(kw):
+    """Mesh sharding of the stripe pipeline is ported (the name is from
+    before it was): as in the JAX package, ``sharded=True`` with no card to
+    auto-mesh over is the one-device plan, a ``mesh`` without ``sharded`` is
+    ignored, and over an explicit 3-handle mesh (a ragged split of 2
+    frames) the output is the one-device output bit for bit, also through
+    ``plan_for``."""
     cfg = T.BGConfig(4, 3.0, 50.0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.bilateral_grid_filter_streaming(noisy_np((2, 20, 24)), cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        plan_for(cfg, 20, 24, backend="streaming", device="cpu", **kw)
+    x = noisy_np((2, 20, 24))
+    want = BGPlan(cfg, backend="streaming", device="cpu")(x)
+    assert torch.equal(T.bilateral_grid_filter_streaming(x, cfg, device="cpu", **kw), want)
+    mesh = BatchMesh(("cpu",) * 3)
+    meshed = T.bilateral_grid_filter_streaming(x, cfg, device="cpu", **dict(kw, sharded=True, mesh=mesh))
+    assert torch.equal(meshed, want)
+    if kw.get("sharded"):
+        assert plan_for(cfg, 20, 24, backend="streaming", device="cpu", **kw).mesh is None
+    else:
+        with pytest.raises(TypeError, match="BatchMesh"):
+            plan_for(cfg, 20, 24, backend="streaming", device="cpu", **kw)
+    plan = plan_for(cfg, 20, 24, backend="streaming", device="cpu", mesh=mesh)
+    assert (plan.mesh_size, plan.to_json()["mesh_size"]) == (3, 3)
+    assert torch.equal(plan(x), want)
 
 
 def test_streaming_plan_is_pinned_never_ranked():
