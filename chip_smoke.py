@@ -46,8 +46,15 @@ naming the card twice, through which 8 frames go to B1 and B3 in fp32 and
 bf16 and a 4-stream pack to B2, cold then warm, each equal to the
 single-device plan bit for bit with one launch per shard and timed per
 dispatch beside it; the frame and async engines serving 16 host frames
-through it; a fleet payload with ``mesh_size=2`` bound to it in a worker).
-Every served
+through it; a fleet payload with ``mesh_size=2`` bound to it in a worker),
+and serves LMs (``lm_slice``: every arch's smoke config on the card held
+to the CPU, ``ServeEngine``'s tokens on the card equal to the CPU's, yi-6b
+at full width served through the launcher's LM mode with its tokens/s,
+prefill and decode times, peak memory and bytes per decode step, and the
+vlm example's images denoised by B1 or B3 (held to the reference plan's
+frames) into the vision model's
+cross-attention context; plain PyTorch on the LM path, as the JAX package
+has no kernel there). Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
@@ -62,6 +69,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -856,6 +864,13 @@ def guarded_dispatch(torch, frames, smi, dev):
                           watchdog_ms=watchdog_ms) as eng:
         got = rounds(eng, batches)
         st = eng.stats()
+    # the timed-out wait's helper thread sleeps on, then synchronizes its
+    # event: a CUDA call that breaks any graph capture it overlaps (the
+    # later phases time kernels in graphs), so wait for it here
+    for t in threading.enumerate():
+        if t.name == "bg-frame-await":
+            t.join(4 * hang_s)
+            check(not t.is_alive(), "hung completion: the helper thread ends with its sleep")
     sync(torch, dev)
     counts = kernel_counts()
     check_counts(counts, {counter[(plan.backend, False)]: 3 * -(-8 // plan.tile_for(8))},
@@ -1953,6 +1968,310 @@ def mesh_slice(torch, smi, dev, x8) -> float:
     return seconds
 
 
+# ---- the LM serving substrate (phase "lm_slice"): plain PyTorch, no kernel
+# of the port's on its path (the JAX package has no Pallas kernel there)
+LM_TOL = 1e-4  # fp32 smoke logits, aux and caches: the CPU tests' (tests/test_torch_models.py)
+LM_CONSISTENCY_TOL = 5e-2  # prefill + decode vs train forward, the JAX package's tests/test_arch_smoke.py:103
+LM_BATCH, LM_SEQ, LM_MAX_LEN = 2, 16, 64
+# the JAX package's engine cases, tests/test_serving.py:40-64
+LM_ENGINE_PROMPTS = ([1, 2, 3, 4], [9, 8, 7], [5, 5, 5, 5, 5])
+# yi-6b served through the launcher at the JAX launcher's LM defaults
+LM_SERVE = dict(slots=4, max_len=256, requests=8, max_tokens=16)
+
+
+def lm_close(torch, mine, ref, path=""):
+    """(max abs difference, within rtol/atol LM_TOL) of two trees of tensors
+    (card and CPU); int8 leaves may differ by one step at a rounding
+    boundary (counted in the third value)."""
+    if isinstance(ref, tuple):
+        mine, ref = dict(enumerate(mine)), dict(enumerate(ref))
+    if isinstance(ref, dict):
+        worst, ok, steps = 0.0, True, 0
+        for k in ref:
+            w, o, n = lm_close(torch, mine[k], ref[k], f"{path}/{k}")
+            worst, ok, steps = max(worst, w), ok and o, steps + n
+        return worst, ok, steps
+    a, b = mine.detach().cpu(), ref.detach()
+    if a.dtype == torch.int8:
+        d = (a.int() - b.int()).abs()
+        return float(d.max()), int(d.max()) <= 1, int((d != 0).sum())
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()), bool(torch.allclose(a, b, rtol=LM_TOL, atol=LM_TOL)), 0
+
+
+def lm_runs(torch, cfg, params, kw, dev):
+    """Train, prefill and one greedy decode step of the port's model."""
+    from repro_torch.models import forward, init_caches
+
+    out = {"train": forward(params, cfg, mode="train", **kw)[::2]}
+    if not cfg.encoder_only:
+        lp, caches, _ = forward(params, cfg, mode="prefill", caches=init_caches(cfg, LM_BATCH, LM_MAX_LEN, device=dev),
+                                **kw)
+        nxt = torch.argmax(lp[:, -1], -1)[:, None]
+        pos = torch.full((LM_BATCH, 1), LM_SEQ, dtype=torch.int32, device=dev)
+        ld, c2, _ = forward(params, cfg, mode="decode", caches=caches, positions=pos, **dict(kw, tokens=nxt))
+        out.update(prefill=(lp, caches), decode=(ld, c2), next=nxt)
+    return out
+
+
+def lm_engine_tokens(cfg, params, dev):
+    """The JAX package's engine cases on one device: three prompts batched
+    in 3 slots (6 tokens each); two slots, a third request refused then
+    admitted into a freed slot (3 tokens each). Returns the tokens."""
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_slots=3, max_len=64, device=dev)
+    reqs = [Request(uid=i, prompt=list(p), max_tokens=6) for i, p in enumerate(LM_ENGINE_PROMPTS)]
+    check(all(eng.submit(r) for r in reqs), "ServeEngine: 3 requests into 3 slots")
+    eng.run_to_completion()
+    eng = ServeEngine(cfg, params, max_slots=2, max_len=64, device=dev)
+    reuse = [Request(uid=i, prompt=[2 * i + 1, 2 * i + 2], max_tokens=3) for i in range(3)]
+    check(eng.submit(reuse[0]) and eng.submit(reuse[1]) and not eng.submit(reuse[2]), "ServeEngine: admission")
+    eng.run_to_completion()
+    check(eng.submit(reuse[2]), "ServeEngine: a freed slot takes the third request")
+    eng.run_to_completion()
+    return [r.generated for r in reqs + reuse]
+
+
+LM_PROFILE_STEPS = 3
+
+
+def lm_decode_profile(torch, cfg, params, prompts, dev) -> dict:
+    """Where a full-width decode step's device time goes: ``ServeEngine``
+    with 4 slots filled from ``prompts``, two warm-up steps, then
+    ``LM_PROFILE_STEPS`` steps under ``torch.profiler``: the kernels'
+    summed device time per step (one stream, so kernels do not overlap),
+    kernel launches per step and the six kernels with the most device
+    time. ``profiler_saw_device`` is False where the profiler recorded no
+    device time (then the numbers are not measured). The caller sets the
+    busy time against the unprofiled step: the profiler's own host work
+    lengthens the profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_slots=4, max_len=LM_SERVE["max_len"], device=dev)
+    for i, prompt in enumerate(prompts[:4]):
+        check(eng.submit(Request(uid=i, prompt=prompt, max_tokens=10_000)), "profile: a slot")
+    for _ in range(2):
+        eng.step()
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_PROFILE_STEPS):
+            eng.step()
+        sync(torch, dev)
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:6]
+    return {"profiled_steps": LM_PROFILE_STEPS, "profiler_saw_device": busy_us > 0,
+            "device_busy_ms_per_step": busy_us / LM_PROFILE_STEPS / 1e3,
+            "kernel_launches_per_step": sum(c for _, _, c in kernels) / LM_PROFILE_STEPS,
+            "top_kernels": [{"name": n[:90], "ms_per_step": t / LM_PROFILE_STEPS / 1e3,
+                             "launches_per_step": c / LM_PROFILE_STEPS} for n, t, c in top]}
+
+
+def lm_slice(torch, smi, dev) -> float:
+    """Phase "lm_slice": the LM serving substrate on the card. (1) Every
+    arch's smoke config in fp32 on the card and on the CPU with the same
+    port parameters (the CPU's, copied over) and inputs: train logits and
+    aux, prefill logits and every cache leaf, one decode step, held to
+    rtol/atol ``LM_TOL`` (qwen1.5-110b also with int8 KV caches, whose
+    values may differ by one step at a rounding boundary: counted); and
+    prefill + decode against the train forward on the card
+    (``LM_CONSISTENCY_TOL``). (2) yi-6b smoke through ``ServeEngine``: the
+    card's tokens equal the CPU's on the JAX package's engine cases.
+    (3) yi-6b at full width (32 layers, d_model 4096, vocab 64000, fp32
+    params, bf16 activations) served through the launcher's LM mode at the
+    JAX launcher's defaults, after one warm-up request: tokens/s, prefill
+    ms at batch 1, decode ms per step, peak memory, the bytes a decode step
+    must move and the least time the card could take for them, and one
+    profiled pass of the step's device time; every request finishes with
+    ``max_tokens`` tokens, each request's first token equals its prompt
+    prefilled alone, and prefill + decode against the train forward is
+    reported. No kernel of the port runs on this path (the counters stay
+    at 0). (4) The ``vlm_preprocess`` example on the card: B1 or B3
+    denoises the images (counted) within the quantized contract of the
+    reference plan on the same frames, logits finite, denoised embeddings
+    nearer the clean ones than the noisy. Returns the phase's seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHS, get_config, get_smoke_config
+    from repro_torch.examples import vlm_preprocess as vlm_example
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import forward, init_caches, init_params, tree_map
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is off for the fp32 comparisons")
+    cpu = torch.device("cpu")
+
+    # ---- (1) every smoke arch, card against CPU, fp32
+    variants = [(a, get_smoke_config(a)) for a in ARCHS]
+    variants.append(("qwen1.5-110b int8 kv",
+                     dataclasses.replace(get_smoke_config("qwen1.5-110b"), kv_cache_dtype="int8")))
+    for label, cfg in variants:
+        params = init_params(0, cfg, device=cpu)
+        rng = np.random.default_rng(1)
+        kw = {}
+        if cfg.frontend == "audio":
+            kw["embeds"] = torch.from_numpy(rng.standard_normal((LM_BATCH, LM_SEQ, cfg.d_model)).astype(np.float32))
+        else:
+            kw["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)))
+        if cfg.frontend == "vision":
+            kw["cross_ctx"] = torch.from_numpy(
+                rng.standard_normal((LM_BATCH, cfg.cross_attn_tokens, cfg.d_model)).astype(np.float32))
+        zero_counts()
+        card = lm_runs(torch, cfg, tree_map(lambda t: t.to(dev), params), {k: v.to(dev) for k, v in kw.items()}, dev)
+        sync(torch, dev)
+        check_counts(kernel_counts(), {}, f"{label}: plain PyTorch, no kernel")
+        ref = lm_runs(torch, cfg, params, kw, cpu)
+        row = {"phase": "lm_slice", "check": "smoke_card_vs_cpu", "arch": label, "dtype": "float32",
+               "tolerance": LM_TOL, "card": smi}
+        ok = True
+        for part in ref:
+            if part == "next":
+                same = bool(torch.equal(card["next"].cpu(), ref["next"]))
+                row["decode_input_tokens_equal"] = same
+                ok = ok and same
+                continue
+            err, within, steps = lm_close(torch, card[part], ref[part])
+            row[f"{part}_max_abs_err"] = err
+            if steps:
+                row[f"{part}_int8_values_one_step_apart"] = steps
+            ok = ok and within
+        check(card["train"][0].is_cuda and bool(torch.isfinite(card["train"][0]).all()), f"{label}: finite on the card")
+        if not cfg.encoder_only and "int8" not in label:
+            drop = tuple(dataclasses.replace(b, moe=dataclasses.replace(b.moe, capacity_factor=8.0))
+                         if b.moe is not None else b for b in cfg.pattern)
+            dcfg = dataclasses.replace(cfg, pattern=drop)
+            dparams = tree_map(lambda t: t.to(dev), params)
+            dkw = {k: v.to(dev) for k, v in kw.items()}
+            lp, caches, _ = forward(dparams, dcfg, mode="prefill",
+                                    caches=init_caches(dcfg, LM_BATCH, LM_MAX_LEN, device=dev), **dkw)
+            nxt = torch.argmax(lp[:, -1], -1)[:, None]
+            ld, _, _ = forward(dparams, dcfg, mode="decode", caches=caches,
+                               positions=torch.full((LM_BATCH, 1), LM_SEQ, dtype=torch.int32, device=dev),
+                               **dict(dkw, tokens=nxt))
+            lf, _, _ = forward(dparams, dcfg, mode="train", **dict(dkw, tokens=torch.cat([dkw["tokens"], nxt], 1)))
+            row["prefill_decode_vs_train_max_abs_diff"] = float((lf[:, -1] - ld[:, 0]).abs().max())
+            row["consistency_tolerance"] = LM_CONSISTENCY_TOL
+            ok = ok and row["prefill_decode_vs_train_max_abs_diff"] < LM_CONSISTENCY_TOL
+        emit(row)
+        check(ok, f"{label}: card differs from the CPU: {row}")
+
+    # ---- (2) yi-6b smoke through ServeEngine: the card's tokens are the CPU's
+    cfg = get_smoke_config("yi-6b")
+    params = init_params(0, cfg, device=cpu)
+    zero_counts()
+    card_tokens = lm_engine_tokens(cfg, tree_map(lambda t: t.to(dev), params), dev)
+    check_counts(kernel_counts(), {}, "ServeEngine: plain PyTorch, no kernel")
+    cpu_tokens = lm_engine_tokens(cfg, params, cpu)
+    emit({"phase": "lm_slice", "check": "engine_card_vs_cpu", "arch": cfg.name, "tokens_equal": card_tokens == cpu_tokens,
+          "card_tokens": card_tokens, "card": smi})
+    check(card_tokens == cpu_tokens, f"ServeEngine: card {card_tokens} != CPU {cpu_tokens}")
+
+    # ---- (3) yi-6b at full width through the launcher's LM mode
+    full = get_config("yi-6b")
+    check((full.n_layers, full.d_model, full.vocab_size, full.act_dtype, full.param_dtype)
+          == (32, 4096, 64000, "bfloat16", "float32"), f"yi-6b full config: {full}")
+    torch.cuda.empty_cache()
+    zero_counts()
+    st = serve_lm("yi-6b", device=dev, warmup=1, **LM_SERVE)
+    check_counts(kernel_counts(), {}, "yi-6b serving: plain PyTorch, no kernel")
+    check([len(g) for g in st["generated"]] == [LM_SERVE["max_tokens"]] * LM_SERVE["requests"],
+          f"yi-6b: every request finishes with max_tokens tokens: {[len(g) for g in st['generated']]}")
+    from repro_torch.plan import HBM_BYTES_PER_S
+
+    # the least a decode step must move: every fp32 weight once but the
+    # embedding table's (4 rows gathered, one per slot; the head is its
+    # own matrix), and the K and V of the positions each slot holds, at
+    # least its shortest prompt and first token, and the logits written; the step as written also
+    # casts each weight to bf16 and reads the copy (ROADMAP R6): 4 + 2 + 2
+    # bytes per weight
+    check(not full.tie_embeddings, "yi-6b: an untied head")
+    slots, table = LM_SERVE["slots"], full.vocab_size * full.d_model
+    weight_bytes = 4 * (full.param_count() - table) + 4 * slots * full.d_model
+    kv_bytes = (2 * full.n_layers * slots * (min(len(p) for p in st["prompts"]) + 1)
+                * full.n_kv_heads * full.head_dim * 2)
+    step_bytes = weight_bytes + kv_bytes + slots * full.vocab_size * 2  # + the bf16 logits
+    cast_bytes = 8 * (full.param_count() - table)
+    decode_med = float(np.median(st["decode_ms"]))
+    prefill_med = float(np.median(st["prefill_ms"]))
+    # every first token against its prompt prefilled alone; prefill +
+    # decode against the train forward on one prompt; on fresh parameters
+    # drawn from the same seed on the same card (the launcher's are gone)
+    params = init_params(0, full, device=dev)
+    firsts, finite = [], True
+    for prompt in st["prompts"]:
+        toks = torch.tensor([prompt], device=dev)
+        lp, _, _ = forward(params, full, tokens=toks, mode="prefill",
+                           caches=init_caches(full, 1, LM_SERVE["max_len"], device=dev))
+        finite = finite and bool(torch.isfinite(lp).all())
+        firsts.append(int(torch.argmax(lp[:, -1], -1)[0]))
+    prompt = st["prompts"][-1]
+    toks = torch.tensor([prompt], device=dev)
+    lp, caches, _ = forward(params, full, tokens=toks, mode="prefill",
+                            caches=init_caches(full, 1, LM_SERVE["max_len"], device=dev))
+    nxt = torch.argmax(lp[:, -1], -1)[:, None]
+    ld, _, _ = forward(params, full, tokens=nxt, mode="decode", caches=caches,
+                       positions=torch.tensor([[len(prompt)]], dtype=torch.int32, device=dev))
+    lf, _, _ = forward(params, full, tokens=torch.cat([toks, nxt], 1), mode="train")
+    full_diff = float((lf[:, -1].float() - ld[:, 0].float()).abs().max())
+    finite = finite and bool(torch.isfinite(ld).all()) and bool(torch.isfinite(lf).all())
+    del caches
+    # the device's share of a served step: busy time from one profiled
+    # pass over the unprofiled median step of the run above
+    prof = lm_decode_profile(torch, full, params, st["prompts"], dev)
+    prof["device_busy_share_of_served_step"] = prof["device_busy_ms_per_step"] / decode_med
+    del params
+    torch.cuda.empty_cache()
+    first_equal = firsts == [g[0] for g in st["generated"]]
+    emit({"phase": "lm_slice", "check": "yi-6b full width", "arch": st["arch"], "layers": full.n_layers,
+          "d_model": full.d_model, "vocab": full.vocab_size, "param_dtype": full.param_dtype,
+          "act_dtype": full.act_dtype, "param_count": st["param_count"], **LM_SERVE, "warmup_requests": 1,
+          "tokens": st["tokens"], "seconds": st["seconds"], "tokens_per_s": st["tokens_per_s"],
+          "prefill_ms_batch1_median": prefill_med, "prefill_ms_batch1": st["prefill_ms"],
+          "decode_ms_per_step_median": decode_med, "decode_ms_per_step": st["decode_ms"], "steps": st["steps"],
+          "max_memory_allocated": st["max_memory_allocated"],
+          "decode_step_bytes": step_bytes, "decode_step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+          "decode_step_bytes_moved_with_cast": cast_bytes,
+          "decode_step_profile": prof,
+          "first_tokens_equal_prefill_alone": first_equal, "logits_finite": finite,
+          "prefill_decode_vs_train_max_abs_diff_bf16": full_diff, "generated": st["generated"][:2],
+          "card": smi})
+    check(first_equal, f"yi-6b: first tokens {[g[0] for g in st['generated']]} != prefilled alone {firsts}")
+    check(finite, "yi-6b: logits finite")
+
+    # ---- (4) the vlm example: B1 or B3 denoises, the model reads the context
+    zero_counts()
+    res = vlm_example.main(["--device", str(dev)])
+    sync(torch, dev)
+    got = kernel_counts()
+    ran = KERNEL_COUNTER[res["backend"]]
+    check(got[ran] > 0, f"vlm example: {ran} never launched: {got}")
+    check_counts(got, {ran: got[ran]}, "vlm example")
+    # the kernel's frames, at the example's shape, against the reference
+    # plan's on the same noisy frames: the quantized contract
+    from repro_torch.data import denoise_batch
+    from repro_torch.plan import BGPlan
+
+    ref = denoise_batch(res["noisy"], plan=BGPlan(res["bg"], backend="reference", device=dev))
+    exact, lsb = quantized_agreement(res["denoised"], ref)
+    emit({"phase": "lm_slice", "check": "vlm_preprocess example", "backend": res["backend"], "launches": got,
+          "frames_hw": list(res["denoised"].shape), "quantized_exact_vs_reference": exact,
+          "quantized_max_diff_vs_reference": lsb, "d_noisy": res["d_noisy"], "d_denoised": res["d_denoised"],
+          "logits_shape": list(res["logits_shape"]), "logits_finite": res["finite"], "card": smi})
+    check(exact >= TOL_EXACT and lsb <= TOL_LSB, f"vlm example frames vs reference: {exact}, {lsb}")
+    check(res["finite"] and res["d_denoised"] < res["d_noisy"] and res["logits"].is_cuda,
+          f"vlm example: finite {res['finite']}, {res['d_denoised']} vs {res['d_noisy']}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_slice", "check": "done", "seconds": seconds, "card": smi})
+    return seconds
+
+
 def main() -> None:
     import torch
 
@@ -2447,6 +2766,9 @@ def main() -> None:
     core_paths(torch, smi, dev, clean, x8)
     # ---- phase 6: batch sharding (a mesh naming the card twice)
     mesh_slice(torch, smi, dev, x8)
+    # ---- phase 7: the LM serving substrate (smoke archs card vs CPU, the
+    # engine, yi-6b at full width through the launcher, the vlm example)
+    lm_slice(torch, smi, dev)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

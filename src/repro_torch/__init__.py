@@ -49,10 +49,17 @@ Ported (the frame- and video-serving paths at full width):
     batch axis split over several devices (pad, split, dispatch per
     device, gather, trim; no collectives), through every entry point that
     takes a mesh in the JAX package;
-  * ``examples``: ``quickstart``, ``denoise_stream``, ``denoise_video`` and
-    ``denoise_fleet`` (``python -m repro_torch.examples.<name>``).
+  * ``examples``: ``quickstart``, ``denoise_stream``, ``denoise_video``,
+    ``denoise_fleet``, ``serve_lm`` and ``vlm_preprocess`` (``python -m
+    repro_torch.examples.<name>``);
+  * the LM serving substrate: ``configs`` (the ten archs, ``SHAPES``, the
+    registry), ``models`` (layers, attention with its caches, MoE, the
+    recurrent mixers, blocks, the pattern model, the stub frontends,
+    ``params_from_jax`` / ``caches_from_jax``), ``serving.ServeEngine`` and
+    the samplers, ``TokenStream`` / ``lm_batches``, and ``launch.serve
+    --arch``: plain PyTorch, as the JAX package has no kernel there.
 
-Not ported yet: the launcher's LM modes and the LM substrate (with
-``TokenStream``, ``lm_batches``, the ``vlm_preprocess`` example and the LM
-sharding modules).
+Not ported yet: LM training and checkpoints (``train``, ``checkpoint``,
+``launch.train``, the launcher's ``--ckpt-dir``), the LM sharding modules
+and the dry-run / roofline tooling (``ROADMAP.md`` A11b to A11d).
 """

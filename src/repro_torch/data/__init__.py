@@ -5,9 +5,18 @@ from .pipeline import (
     spectrogram_denoise,
     vlm_preprocess,
 )
-from .synthetic import audio_frames, synthetic_video, synthetic_video_np, vision_context
+from .synthetic import (
+    TokenStream,
+    audio_frames,
+    lm_batches,
+    synthetic_video,
+    synthetic_video_np,
+    vision_context,
+)
 
 __all__ = [
+    "TokenStream",
+    "lm_batches",
     "denoise_batch",
     "patchify_embed",
     "vlm_preprocess",

@@ -1,9 +1,11 @@
 """Synthetic data: the port's own copies of the JAX package's
-``repro/data/synthetic.py``: ``synthetic_video`` and the stub modality
-inputs ``vision_context`` and ``audio_frames``, built in numpy exactly as
-there, so both packages see the same values. ``TokenStream`` and
-``lm_batches`` go with the LM substrate, not ported yet."""
+``repro/data/synthetic.py``: the LM token streams ``TokenStream`` and
+``lm_batches``, ``synthetic_video`` and the stub modality inputs
+``vision_context`` and ``audio_frames``, built in numpy exactly as there,
+so both packages see the same values."""
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -11,7 +13,40 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.noise import synthetic_image_np
 
-__all__ = ["synthetic_video", "synthetic_video_np", "vision_context", "audio_frames"]
+__all__ = ["TokenStream", "lm_batches", "synthetic_video", "synthetic_video_np", "vision_context",
+           "audio_frames"]
+
+
+class TokenStream:
+    """Deterministic pseudo-language: t_{i} = (a*t_{i-1} + b*t_{i-2} +
+    c*t_{i-3} + noise) mod V with segment resets."""
+
+    def __init__(self, vocab: int, seed: int = 0, noise: float = 0.05):
+        self.vocab = vocab
+        self.rng = np.random.default_rng(seed)
+        self.noise = noise
+        self.coef = (3, 5, 7)
+
+    def sample(self, batch: int, seq: int) -> np.ndarray:
+        V = self.vocab
+        out = np.empty((batch, seq + 1), np.int32)
+        state = self.rng.integers(0, V, size=(batch, 3))
+        a, b, c = self.coef
+        for t in range(seq + 1):
+            nxt = (a * state[:, -1] + b * state[:, -2] + c * state[:, -3]) % V
+            flip = self.rng.random(batch) < self.noise
+            nxt = np.where(flip, self.rng.integers(0, V, batch), nxt)
+            out[:, t] = nxt
+            state = np.concatenate([state[:, 1:], nxt[:, None]], axis=1)
+        return out
+
+
+def lm_batches(vocab: int, batch: int, seq: int, steps: int, seed: int = 0) -> Iterator[dict]:
+    """Yields {tokens, labels} numpy batches for `steps` steps."""
+    stream = TokenStream(vocab, seed)
+    for _ in range(steps):
+        toks = stream.sample(batch, seq)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def synthetic_video_np(

@@ -1,9 +1,10 @@
-"""Frame- and video-serving launcher: stream synthetic noisy frames through
-the mesh-divisible micro-batching frame engine, or synthetic video streams
+"""Serving launcher: stream synthetic noisy frames through the
+mesh-divisible micro-batching frame engine, or synthetic video streams
 through the async engine and the multi-stream packer, sharded over every
 local card (one card: the plain single-device plan); ``--workers N`` fronts
 the video streams with a ``repro_torch.fleet.FleetRouter`` over N workers
-instead of one bare engine.
+instead of one bare engine; ``--arch`` serves LM requests through the
+continuous-batching ``ServeEngine`` (the JAX launcher's LM mode).
 
     python -m repro_torch.launch.serve --frames 32 --frame-hw 1080x1920 \\
         --micro-batch 8 --config paper-default
@@ -16,6 +17,8 @@ instead of one bare engine.
         --frame-hw 36x48 --device cpu
     python -m repro_torch.launch.serve --video 4 --workers 2 \\
         --worker-backend subprocess --frame-hw 1080x1920
+    python -m repro_torch.launch.serve --arch yi-6b
+    python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu
 
 Both modes build their plan with ``plan_for`` (the JAX launcher's route):
 the measured-plan cache, else the cost model, picks backend and batch tile
@@ -30,8 +33,14 @@ one command serves the same traffic in both. The frame mode gives
 ``plan_for`` the pack size, ``n_frames=--micro-batch``, where the JAX
 launcher leaves it open.
 The fleet mode's plan comes from a ``PlanController`` (``plan_for`` for
-each worker's share of the streams), as in the JAX launcher. The JAX
-launcher's LM modes are not ported yet.
+each worker's share of the streams), as in the JAX launcher.
+
+The LM mode serves ``--requests`` requests (the JAX launcher's mix: request
+i's prompt is ``(7 i + j) mod vocab`` for ``j < 4 + i mod 5``) of
+``--max-tokens`` tokens each through ``--slots`` slots of ``--max-len``
+tokens, on the port's own seeded parameters: restoring a checkpoint
+(``--ckpt-dir``) comes with the port's checkpoint slice and raises until
+then.
 """
 from __future__ import annotations
 
@@ -353,11 +362,110 @@ def serve_fleet(
     }
 
 
+def serve_lm(
+    arch: str,
+    smoke: bool = False,
+    slots: int = 4,
+    max_len: int = 256,
+    requests: int = 8,
+    max_tokens: int = 16,
+    device=None,
+    ckpt_dir: str | None = None,
+    warmup: int = 0,
+) -> dict:
+    """Serve ``requests`` LM requests of ``arch`` (its smoke config with
+    ``smoke``) through ``ServeEngine`` with ``slots`` slots of ``max_len``
+    tokens, on parameters drawn from seed 0 on ``device`` (default: the
+    CUDA card), as the JAX launcher's LM mode serves them: each loop
+    admits what fits (one batch-1 prefill each), then decodes one step.
+    ``warmup`` throwaway requests (the first prompt, 2 tokens each) run to
+    completion on the same engine before the timed window: a first
+    prefill and decode step carry one-time costs (library handles, the
+    allocator's first blocks). Their tokens and times are not returned.
+
+    Returns the tokens and seconds of the run (parameter init excluded),
+    tokens/s, the prefill ms of each request (batch 1) and the decode ms of
+    each step (the host's clock, each ending where its sampled tokens reach
+    the host), the engine steps, ``max_memory_allocated`` on a card (after
+    a reset at the start), and each request's prompt and generated tokens.
+    """
+    from repro_torch._device import resolve_device
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    if ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir restores a checkpoint, which needs the port's checkpoint/ "
+            "(ROADMAP A11b, not ported yet)")
+    dev = resolve_device(device)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(0, cfg, device=dev)
+    eng = ServeEngine(cfg, params, max_slots=slots, max_len=max_len, device=dev)
+    pending = [
+        Request(uid=i, prompt=[(7 * i + j) % cfg.vocab_size for j in range(4 + i % 5)],
+                max_tokens=max_tokens)
+        for i in range(requests)
+    ]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for i in range(warmup):
+        eng.submit(Request(uid=-1 - i, prompt=list(pending[0].prompt), max_tokens=2))
+        eng.run_to_completion()
+    sync()
+    prefill_ms, decode_ms = [], []
+    t0 = time.perf_counter()
+    done = 0
+    queue = list(pending)
+    while done < len(pending):
+        while queue:
+            t = time.perf_counter()
+            if not eng.submit(queue[0]):
+                break
+            prefill_ms.append((time.perf_counter() - t) * 1e3)
+            queue.pop(0)
+        t = time.perf_counter()
+        decoding = any(eng.active)
+        done += len(eng.step())
+        if decoding:
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+    sync()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.generated) for r in pending)
+    return {
+        "arch": cfg.name,
+        "requests": len(pending),
+        "tokens": toks,
+        "seconds": dt,
+        "tokens_per_s": toks / dt,
+        "prefill_ms": prefill_ms,
+        "decode_ms": decode_ms,
+        "steps": len(decode_ms),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        "param_count": cfg.param_count(),
+        "prompts": [r.prompt for r in pending],
+        "generated": [r.generated for r in pending],
+        "device": str(dev),
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--frames", type=int, default=0, help="frames to serve")
     mode.add_argument("--video", type=int, default=0, help="video streams to serve")
+    mode.add_argument("--arch", default=None, help="LM arch to serve (omit with --frames)")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-tokens", type=int, default=16)
     ap.add_argument("--video-frames", type=int, default=24, help="frames per stream")
     ap.add_argument("--alpha", type=float, default=0.6, help="temporal EMA weight per stream")
     ap.add_argument("--fps", type=float, default=0.0, help="frames/s per stream (0: max)")
@@ -378,6 +486,15 @@ def main(argv=None) -> None:
                     help="fleet workers: threads in this process, or one child process each")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.arch is not None:
+        st = serve_lm(args.arch, args.smoke, args.slots, args.max_len, args.requests,
+                      args.max_tokens, args.device, args.ckpt_dir)
+        print(f"[serve] {st['arch']} on {st['device']}, random params (seed 0): "
+              f"{st['requests']} requests, {st['tokens']} tokens in {st['seconds']:.2f}s "
+              f"({st['tokens_per_s']:.1f} tok/s)")
+        for prompt, gen in list(zip(st["prompts"], st["generated"]))[:4]:
+            print(f"  prompt={prompt} -> {gen}")
+        return
     h, w = (int(x) for x in args.frame_hw.split("x"))
     if args.frames < 1 and args.video < 1:
         ap.error("--frames or --video needs a positive count")

@@ -1,0 +1,29 @@
+"""Model stack of the port: layers, attention, recurrent mixers, MoE and
+pattern models, the JAX package's ``repro/models`` in plain PyTorch (the JAX
+package has no kernel on this path either: attention, MoE dispatch and the
+recurrences are ``jnp`` there).
+
+Parameters and caches are nested dicts of tensors in the JAX layout;
+:func:`params_from_jax` and :func:`caches_from_jax` carry the JAX
+package's trees over, :func:`init_params` draws the port's own."""
+from .model import (
+    caches_from_jax,
+    forward,
+    init_caches,
+    init_params,
+    model_flops_per_token,
+    params_from_jax,
+    splice_cache,
+    tree_map,
+)
+
+__all__ = [
+    "caches_from_jax",
+    "forward",
+    "init_caches",
+    "init_params",
+    "model_flops_per_token",
+    "params_from_jax",
+    "splice_cache",
+    "tree_map",
+]

@@ -1,0 +1,153 @@
+"""Basic layers as plain functions over nested dicts of tensors: the port of
+the JAX package's ``repro/models/layers.py``.
+
+Every layer has an ``init_*(gen, ..., lead=(), device=)`` that draws its
+parameters from a ``torch.Generator`` (``lead`` prepends stacked axes: the
+model stacks each pattern block's parameters along a leading ``n_repeats``
+axis, as the JAX package does with ``jax.vmap``) and an apply function.
+The parameters of the JAX package come across with
+:func:`repro_torch.models.params_from_jax`; the port's own init draws other
+numbers from the same shapes and scales.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "dtype_of",
+    "init_dense",
+    "dense",
+    "init_norm",
+    "apply_norm",
+    "init_embedding",
+    "rope_angles",
+    "apply_rope",
+    "cross_entropy_loss",
+]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
+def normal(gen: torch.Generator, shape, scale, dtype, device) -> torch.Tensor:
+    """Standard normal numbers from ``gen`` in float32, times ``scale``, cast
+    to ``dtype`` (the JAX package's ``(normal(key, shape) * scale).astype``)."""
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def init_dense(gen, in_dim, out_shape, bias=False, scale=None, dtype=torch.float32, lead=(),
+               device=None):
+    """Dense kernel of shape ``(*lead, in_dim, *out_shape)`` with fan-in init."""
+    if isinstance(out_shape, int):
+        out_shape = (out_shape,)
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    p = {"kernel": normal(gen, (*lead, in_dim, *out_shape), scale, dtype, device)}
+    if bias:
+        p["bias"] = torch.zeros((*lead, *out_shape), dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x: torch.Tensor, act_dtype=None) -> torch.Tensor:
+    """x @ kernel (+ bias); contraction over the last axis of x.
+
+    With ``act_dtype`` the kernel is cast to it on every call, as in the JAX
+    package (a float32 kernel read, an ``act_dtype`` copy written and read).
+    Without it, mixed operands promote as ``jnp`` promotes them."""
+    kernel = p["kernel"]
+    if act_dtype is not None:
+        kernel = kernel.to(act_dtype)
+        x = x.to(act_dtype)
+    else:
+        dt = torch.promote_types(x.dtype, kernel.dtype)
+        kernel, x = kernel.to(dt), x.to(dt)
+    out_shape = kernel.shape[1:]
+    y = (x.reshape(-1, x.shape[-1]) @ kernel.reshape(kernel.shape[0], -1)).reshape(
+        *x.shape[:-1], *out_shape
+    )
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def init_norm(dim, kind="rmsnorm", lead=(), device=None):
+    ones = torch.ones((*lead, dim), dtype=torch.float32, device=device)
+    if kind == "layernorm":
+        return {"scale": ones, "bias": torch.zeros_like(ones)}
+    return {"scale": ones}
+
+
+def apply_norm(p, x: torch.Tensor, kind="rmsnorm", eps=1e-6) -> torch.Tensor:
+    """Normalization in float32 (mixed-precision safe), cast back to x.dtype.
+    LayerNorm's variance is the population variance, as ``jnp.var``'s."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    if kind == "layernorm":
+        mu = torch.mean(x32, -1, keepdim=True)
+        var = torch.var(x32, -1, keepdim=True, correction=0)
+        y = (x32 - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"] + p["bias"]
+    else:
+        ms = torch.mean(x32 * x32, -1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + eps)
+        scale = p["scale"]
+        if kind == "rmsnorm_p1":  # gemma: (1 + w)
+            scale = 1.0 + scale
+        y = y * scale
+    return y.to(dt)
+
+
+def init_embedding(gen, vocab, dim, dtype=torch.float32, lead=(), device=None):
+    return {"table": normal(gen, (*lead, vocab, dim), 0.02, dtype, device)}
+
+
+# ----------------------------------------------------------------- RoPE
+def rope_angles(positions: torch.Tensor, head_dim, theta=10000.0, fraction=1.0):
+    """(B,S) int positions -> (B,S,rot/2) cos/sin tables.
+
+    fraction < 1 rotates only the first rot = fraction*head_dim dims
+    (stablelm partial rotary)."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=positions.device) / rot
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * freqs  # (B,S,rot/2)
+    return torch.cos(ang), torch.sin(ang), rot
+
+
+def apply_rope(x: torch.Tensor, cos, sin, rot) -> torch.Tensor:
+    """x: (B,S,H,D). Rotate first `rot` dims pairwise (interleaved halves)."""
+    if rot == 0:
+        return x
+    xr = x[..., :rot]
+    xp = x[..., rot:]
+    x1, x2 = torch.chunk(xr, 2, dim=-1)
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    return torch.cat([y1, y2, xp], dim=-1)
+
+
+def cross_entropy_loss(logits, labels, mask=None, z_loss=1e-4) -> torch.Tensor:
+    """Mean token cross-entropy in fp32, with optional z-loss regularizer
+    (forward only: training is a later slice of the port)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse**2
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")

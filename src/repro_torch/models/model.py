@@ -1,0 +1,218 @@
+"""Top-level model: a pattern of blocks repeated ``n_repeats`` times, then
+the tail blocks: the port of the JAX package's ``repro/models/model.py``.
+
+Parameters and caches keep the JAX layout: every leaf of a pattern block
+has a leading ``n_repeats`` axis (JAX stacks them with ``jax.vmap`` and
+scans over them with ``jax.lax.scan``); the port loops over the repeats in
+Python, indexing the stacked tensors, so the JAX package's trees carry over
+as a pure relabel (:func:`params_from_jax`, :func:`caches_from_jax`). The
+logical sharding axes (``param_logical_axes``, ``cache_logical_axes``) come
+with the LM sharding slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+from .blocks import block_apply, init_block, init_block_cache
+from .layers import apply_norm, dense, dtype_of, init_dense, init_embedding, init_norm
+
+__all__ = [
+    "init_params",
+    "init_caches",
+    "splice_cache",
+    "forward",
+    "model_flops_per_token",
+    "params_from_jax",
+    "caches_from_jax",
+    "tree_map",
+]
+
+
+# ------------------------------------------------------------- trees
+def tree_map(fn, tree):
+    """``fn`` over every tensor of a nested dict (``None`` stays ``None``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def _stack(trees):
+    """Stack a list of equal nested dicts leaf by leaf along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+# ------------------------------------------------------------------- init
+def init_params(seed: int, cfg: ModelConfig, device=None):
+    """Parameters of ``cfg`` drawn from ``seed`` on ``device`` (default: the
+    CUDA card). Each pattern leaf is drawn whole, ``(n_repeats, ...)``, so a
+    full-width model is never held twice. The port's own numbers: the JAX
+    package's come across with :func:`params_from_jax`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = dtype_of(cfg.param_dtype)
+    params = {}
+    if cfg.frontend is None or cfg.frontend == "vision":
+        params["embed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, device=dev)
+    # audio frontend: inputs arrive as precomputed frame embeddings (stub)
+    if cfg.n_repeats > 0:
+        params["pattern"] = {
+            f"block{i}": init_block(gen, cfg, spec, lead=(cfg.n_repeats,), device=dev)
+            for i, spec in enumerate(cfg.pattern)
+        }
+    if cfg.tail:
+        params["tail"] = {f"tail{i}": init_block(gen, cfg, spec, device=dev)
+                          for i, spec in enumerate(cfg.tail)}
+    params["final_norm"] = init_norm(cfg.d_model, cfg.norm, device=dev)
+    if not cfg.tie_embeddings:
+        params["head"] = init_dense(gen, cfg.d_model, cfg.vocab_size, dtype=dt, device=dev)
+    return params
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, by name: two bytes each
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(tree, device=None):
+    """The JAX package's parameter tree (its leaves as numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them) as the port's tensors
+    on ``device`` (default: the CUDA card), same dtypes, same shapes: the
+    stacked leading ``n_repeats`` axis stays."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, dev), tree)
+
+
+def caches_from_jax(tree, device=None):
+    """The JAX package's decode caches (numpy leaves: bf16, fp32, int8 and
+    int32) as the port's tensors on ``device``, same layout."""
+    return params_from_jax(tree, device)
+
+
+# ----------------------------------------------------------------- caches
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Decode caches for ``batch`` rows of up to ``max_len`` tokens on
+    ``device`` (default: the CUDA card); pattern leaves carry the leading
+    ``n_repeats`` axis."""
+    dev = resolve_device(device)
+    caches = {}
+    if cfg.n_repeats > 0:
+        caches["pattern"] = {
+            f"block{i}": init_block_cache(cfg, spec, batch, max_len, lead=(cfg.n_repeats,), device=dev)
+            for i, spec in enumerate(cfg.pattern)
+        }
+    if cfg.tail:
+        caches["tail"] = {f"tail{i}": init_block_cache(cfg, spec, batch, max_len, device=dev)
+                          for i, spec in enumerate(cfg.tail)}
+    return caches
+
+
+def splice_cache(batched, single, slot: int):
+    """A copy of ``batched`` with a batch=1 cache (e.g. from a fresh
+    prefill) in row ``slot``. Pattern-stacked leaves carry a leading repeats
+    axis, so the batch axis is 1 there and 0 for tail leaves."""
+    out = {}
+    for part, tree in batched.items():
+        def upd(c, n, part=part):
+            c = c.clone()
+            if part == "pattern":
+                c[:, slot] = n[:, 0].to(c.dtype)
+            else:
+                c[slot] = n[0].to(c.dtype)
+            return c
+
+        out[part] = _zip_map(upd, tree, single[part])
+    return out
+
+
+def _zip_map(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+# ---------------------------------------------------------------- forward
+def forward(
+    params,
+    cfg: ModelConfig,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    mode: str = "train",
+    caches: Optional[dict] = None,
+    cross_ctx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Returns (logits, new_caches (None in train mode), aux_loss). Runs
+    where ``params`` live; the caller's ``caches`` are left as they were."""
+    act = dtype_of(cfg.act_dtype)
+    if embeds is not None:
+        x = embeds.to(act)
+    else:
+        x = params["embed"]["table"][tokens.long()].to(act)
+    if cfg.emb_scale:
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model), device=x.device)).to(act)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    if cross_ctx is not None:
+        cross_ctx = cross_ctx.to(act)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = {}
+
+    if cfg.n_repeats > 0:
+        per_repeat = []
+        for r in range(cfg.n_repeats):
+            new_bc = {}
+            for i, spec in enumerate(cfg.pattern):
+                name = f"block{i}"
+                bc = None if not caches else tree_map(lambda t: t[r], caches["pattern"][name])
+                x, nc, a = block_apply(tree_map(lambda t: t[r], params["pattern"][name]), x, cfg,
+                                       spec, positions, mode=mode, cache=bc, cross_ctx=cross_ctx)
+                aux_total = aux_total + a
+                if nc is not None:
+                    new_bc[name] = nc
+            per_repeat.append(new_bc)
+        if per_repeat[0]:
+            new_caches["pattern"] = _stack(per_repeat)
+
+    for i, spec in enumerate(cfg.tail):
+        name = f"tail{i}"
+        bc = None if not caches else caches["tail"][name]
+        x, nc, a = block_apply(params["tail"][name], x, cfg, spec, positions, mode=mode, cache=bc,
+                               cross_ctx=cross_ctx)
+        aux_total = aux_total + a
+        if nc is not None:
+            new_caches.setdefault("tail", {})[name] = nc
+
+    if mode == "prefill" and not cfg.encoder_only:
+        # serving prefill only needs next-token logits: slice before the
+        # O(S*vocab) head product
+        x = x[:, -1:]
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x.to(act), params["embed"]["table"].to(act))
+    else:
+        logits = dense(params["head"], x, act)
+    if cfg.logit_softcap > 0.0:
+        logits = cfg.logit_softcap * torch.tanh(logits.to(torch.float32) / cfg.logit_softcap)
+    return logits, (new_caches if new_caches else None), aux_total
+
+
+def model_flops_per_token(cfg: ModelConfig, train: bool = True) -> float:
+    """MODEL_FLOPS: 6*N*D per token (dense) / 6*N_active*D (MoE); 2*N for
+    forward-only (serving)."""
+    n = cfg.active_param_count()
+    return (6.0 if train else 2.0) * n
+
+

@@ -175,3 +175,22 @@ def test_spectrogram_denoise_matches_jax():
     assert torch.equal(mine, TD.spectrogram_denoise(spec, T.BGConfig(4, 2.0, 40.0), device="cpu"))
     plan = BGPlan(T.BGConfig(4, 2.0, 40.0), backend="reference", device="cpu")
     assert torch.equal(mine, TD.spectrogram_denoise(spec, plan=plan))
+
+
+@pytest.mark.parametrize("args", [(256, 0, 0.05), (50304, 7, 0.3)])
+def test_token_stream_bit_equal(args):
+    vocab, seed, noise = args
+    mine, theirs = TD.TokenStream(vocab, seed, noise), JD.TokenStream(vocab, seed, noise)
+    for shape in ((3, 17), (1, 5)):
+        a, b = mine.sample(*shape), theirs.sample(*shape)
+        assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
+
+
+def test_lm_batches_bit_equal():
+    got = list(TD.lm_batches(300, 2, 9, steps=3, seed=4))
+    want = list(JD.lm_batches(300, 2, 9, steps=3, seed=4))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == {"tokens", "labels"}
+        assert all(np.array_equal(g[k], w[k]) for k in g)
+        assert np.array_equal(g["tokens"][:, 1:], g["labels"][:, :-1])

@@ -5,7 +5,7 @@ import importlib
 
 import pytest
 
-EXAMPLES = ("quickstart", "denoise_stream", "denoise_video", "denoise_fleet")
+EXAMPLES = ("quickstart", "denoise_stream", "denoise_video", "denoise_fleet", "serve_lm", "vlm_preprocess")
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -59,3 +59,51 @@ def test_denoise_fleet():
     # every stream of the killed worker moved to a survivor
     assert sorted(s for s, _ in res["moved"]) == res["victim_streams"]
     assert all(w != res["victim"] for _, w in res["moved"])
+
+
+def test_serve_lm(capsys):
+    from repro_torch.examples import serve_lm
+
+    res = serve_lm.main(["--device", "cpu", "--requests", "5", "--max-tokens", "4"])
+    assert res["requests"] == 5 and res["tokens"] == 20
+    assert all(len(g) == 4 for g in res["generated"])
+    assert "5 requests / 20 tokens" in capsys.readouterr().out
+
+
+def test_vlm_preprocess_gives_jax_logits():
+    """With the JAX package's projection and parameters carried over
+    (``proj=``, ``params=``; D1), the example's logits are JAX's for the
+    same noisy images and tokens (rtol/atol 1e-4); denoising pulls the
+    patch embeddings toward the clean ones; its denoised frames are the JAX
+    plan's within the quantized contract (>= 99.5 % equal, <= 1 LSB)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import repro.configs.registry as JR
+    import repro.data as JD
+    import repro.models as JM
+    import repro_torch.models as TM
+    from repro.core import BGConfig
+    from repro.plan import plan_for
+    from repro_torch.examples import vlm_preprocess
+
+    cfg = JR.get_smoke_config("llama-3.2-vision-11b")
+    key = jax.random.PRNGKey(0)
+    proj = np.array(jax.random.normal(key, (14 * 14, cfg.d_model), jnp.float32) * (1.0 / 14.0))
+    jp = jax.jit(lambda k: JM.init_params(k, cfg))(key)
+    res = vlm_preprocess.main(["--device", "cpu", "--size", "56"], proj=proj,
+                              params=TM.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
+    assert res["finite"] and res["logits_shape"] == (2, 12, cfg.vocab_size)
+    assert res["d_denoised"] < res["d_noisy"]
+    noisy = jnp.asarray(res["noisy"].numpy())
+    bg = BGConfig(r=4, sigma_s=3.0, sigma_r=50.0)
+    jplan = plan_for(bg, 56, 56, n_frames=2)
+    d = np.abs(res["denoised"].numpy() - np.asarray(JD.denoise_batch(noisy, plan=jplan)))
+    assert (d == 0).mean() >= 0.995 and d.max() <= 1.0
+    ctx = JD.vlm_preprocess(noisy, bg, 14, cfg.d_model, plan=jplan)
+    n = cfg.cross_attn_tokens
+    ctx = jnp.pad(ctx[:, :n], ((0, 0), (0, n - min(n, ctx.shape[1])), (0, 0)))
+    np.testing.assert_allclose(res["ctx"].numpy(), np.asarray(ctx), rtol=1e-4, atol=1e-4)
+    logits, _, _ = JM.forward(jp, cfg, tokens=jnp.asarray(res["tokens"].numpy()), cross_ctx=ctx, mode="train")
+    np.testing.assert_allclose(res["logits"].numpy(), np.asarray(logits), rtol=1e-4, atol=1e-4)

@@ -58,10 +58,14 @@ CORE_AND_EXAMPLES = ["core.bilateral_filter", "core.fixed_point", "core.streamin
                      "examples.denoise_stream", "examples.denoise_video", "examples.denoise_fleet"]
 # batch sharding: the mesh module and the package that exports it
 SHARDING = ["sharding", "sharding.bg_shard"]
+# the LM serving substrate: the registry (every arch config), the model
+# stack (every models module), the engine and samplers, the LM examples
+LM_SERVING = ["configs.registry", "models.model", "models.frontends", "serving.engine",
+              "examples.serve_lm", "examples.vlm_preprocess"]
 
 
 @pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET
-                         + CORE_AND_EXAMPLES + SHARDING)
+                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, no ``ml_dtypes``, nothing of ``repro`` and no compiled kernel (the CPU host has no

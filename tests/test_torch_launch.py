@@ -37,11 +37,12 @@ def test_shared_options_have_the_jax_defaults(monkeypatch):
     jax_opts = _parser_of(JS.main, monkeypatch)
     port_opts = _parser_of(TS.main, monkeypatch, argv=[])
     shared = sorted(set(jax_opts) & set(port_opts) - {"-h", "--help"})
-    # the serving options of both launchers; the JAX LM options and the
-    # port's --config / --device are each one package's own
+    # the serving options of both launchers, the LM mode's included; the
+    # port's --config / --device are its own
     assert set(shared) >= {
         "--frames", "--video", "--video-frames", "--micro-batch", "--frame-hw", "--stream-input",
         "--alpha", "--fps", "--deadline-ms", "--batch-window-ms", "--workers", "--worker-backend",
+        "--arch", "--smoke", "--ckpt-dir", "--slots", "--max-len", "--requests", "--max-tokens",
     }, shared
     for opt in shared:
         j, t = jax_opts[opt], port_opts[opt]
@@ -50,6 +51,7 @@ def test_shared_options_have_the_jax_defaults(monkeypatch):
         ), opt
     assert port_opts["--video-frames"].default == 24
     assert port_opts["--micro-batch"].default == 16
+    assert (port_opts["--requests"].default, port_opts["--max-tokens"].default) == (8, 16)
 
 
 def test_serve_frames_default_micro_batch_is_the_cli_default(monkeypatch):
@@ -65,3 +67,23 @@ def test_cli_needs_a_positive_mode_count():
         TS.main(["--frames", "0", "--device", "cpu"])
     with pytest.raises(SystemExit):
         TS.main(["--frames", "2", "--workers", "2", "--device", "cpu"])
+
+
+def test_lm_mode_serves_on_the_cpu(capsys):
+    TS.main(["--arch", "yi-6b", "--smoke", "--requests", "3", "--max-tokens", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out and "on cpu" in out
+
+
+def test_lm_warmup_leaves_the_served_tokens_as_they_are():
+    kw = dict(smoke=True, requests=5, max_tokens=4, device="cpu")
+    cold, warm = TS.serve_lm("yi-6b", **kw), TS.serve_lm("yi-6b", warmup=2, **kw)
+    assert warm["generated"] == cold["generated"] and warm["tokens"] == 20
+    assert len(warm["prefill_ms"]) == 5 and warm["steps"] == cold["steps"]
+
+
+def test_lm_mode_ckpt_dir_raises_until_ported():
+    with pytest.raises(NotImplementedError, match="A11b"):
+        TS.main(["--arch", "yi-6b", "--smoke", "--ckpt-dir", "ckpt", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # one mode at a time
+        TS.main(["--arch", "yi-6b", "--frames", "2", "--device", "cpu"])
