@@ -54,7 +54,12 @@ prefill and decode times, peak memory and bytes per decode step, and the
 vlm example's images denoised by B1 or B3 (held to the reference plan's
 frames) into the vision model's
 cross-attention context; plain PyTorch on the LM path, as the JAX package
-has no kernel there). Every served
+has no kernel there), and trains LMs (``train_slice``: one train step of
+every smoke arch on the card held to the CPU, stablelm-1.6b at full width
+through the train launcher's ``train_lm`` with its step times, tokens/s,
+6N-FLOP share, peak memory and checkpoint seconds, remat against none,
+its checkpoint restored leaf for leaf and served through ``serve_lm``, and
+the ``train_lm`` example). Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
@@ -2272,6 +2277,279 @@ def lm_slice(torch, smi, dev) -> float:
     return seconds
 
 
+# phase "train_slice": LM training and checkpoints
+TRAIN_BATCH, TRAIN_SEQ = 4, 16  # the smoke steps, card against CPU
+# a train step's loss and parameters, card against CPU: the loss within
+# rel 1e-4, the parameters within max abs 1e-3 (tests/test_train_substrate.py:83,
+# scaled by lr: Adam's first step amplifies summation noise)
+TRAIN_LOSS_REL, TRAIN_PARAM_ABS = 1e-4, 1e-3
+# stablelm-1.6b at full width: train_4k's sequence length, its global batch
+# of 256 cut to 2 to fit one card. One checkpoint, the final synchronous
+# save (ckpt_every is the launcher's default, 100): a full-width checkpoint
+# is 19.7 GB, the card host's disk takes about 45 GiB of writes per run, and
+# a save every 2 steps writes three (steps 2 and 4, then step 4 again at the
+# end, as the JAX Trainer does); the async saves run in the example (5)
+TRAIN_FULL = dict(batch=2, seq=4096, steps=4, ckpt_every=100)
+# remat against none, one sequence of each length: without remat 4096 does
+# not fit; at 512 the peak is set where the gradients are stacked, at 2048
+# by the activations
+TRAIN_REMAT_SEQS = (512, 2048)
+BF16_PEAK_FLOPS = 989e12  # one H100 SXM, dense bf16 (the data sheet)
+EXAMPLE_STEPS = 300  # examples/train_lm.py's default
+
+
+def train_batch(cfg, rng):
+    """A smoke batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (numpy), the inputs
+    each frontend takes and random labels."""
+    import numpy as np
+
+    b = {}
+    if cfg.frontend == "audio":
+        b["embeds"] = rng.standard_normal((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)).astype(np.float32)
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    if cfg.frontend == "vision":
+        b["cross_ctx"] = rng.standard_normal((TRAIN_BATCH, cfg.cross_attn_tokens, cfg.d_model)).astype(np.float32)
+    b["labels"] = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    return b
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def train_slice(torch, smi, dev) -> float:
+    """Phase "train_slice": LM training and checkpoints on the card. (1)
+    Every arch's smoke config (fp32 activations, TF32 off): one
+    ``make_train_step`` step from the same seeded parameters (drawn on the
+    CPU, copied over) and batch on the card and on the CPU, the loss within
+    rel ``TRAIN_LOSS_REL``, every parameter within ``TRAIN_PARAM_ABS``;
+    stablelm also with ``grad_accum=2``. (2) stablelm-1.6b at full width
+    through ``train_lm`` (``TRAIN_FULL``: 2 x 4096, the config's
+    ``grad_accum=2`` and ``remat="full"``, bf16 activations, a checkpoint
+    every 2 steps and at the end): each step's loss, grad norm and time,
+    tokens/s over steps 2 to 4, the 6N-FLOP share of the bf16 peak, the peak
+    memory, the final synchronous save's seconds and the checkpoint's bytes
+    on disk; losses and grad norms finite; then one functional step (JAX's
+    form, new state beside the old) on the trained state under
+    ``torch.profiler``: its peak beside the in-place trainer's, its device
+    busy time against the unprofiled steps, its largest kernels. (3) remat
+    against none at full
+    width and ``TRAIN_REMAT_SEQS`` on the trained parameters: the same loss
+    bit for bit, each peak above the resident state. (4) ``serve_lm`` with
+    that checkpoint: the restored parameters equal the trainer's final ones
+    leaf for leaf (``torch.equal``, on the card), every request finishes,
+    each first token that of its prompt prefilled alone on the restored
+    parameters. (5) ``examples/train_lm.py``'s ``LM100M`` for
+    ``EXAMPLE_STEPS`` steps: its first-10 and last-10 mean losses (every
+    loss finite), each save call's blocking seconds (async every 50 steps, the
+    host snapshot in the loop). The Trainer installs SIGTERM/SIGINT handlers; the phase puts
+    the previous ones back. No kernel of the port runs on this path (the
+    counters stay at 0). Returns the phase's seconds."""
+    import dataclasses
+    import gc
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import ARCHS, get_config, get_smoke_config
+    from repro_torch.data import lm_batches
+    from repro_torch.examples import train_lm as train_example
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import forward, init_caches, init_params, model_flops_per_token, tree_leaves, tree_map
+    from repro_torch.train import OptConfig, init_train_state, loss_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is off for the fp32 comparisons")
+    cpu = torch.device("cpu")
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    # checkpoints go under the checkout's build/ (git ignores it), beside
+    # the kernels' builds: the full-width one is 19.7 GB
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_slice.", dir=os.path.join(ROOT, "build"))
+    try:
+        # ---- (1) every smoke arch, one train step, card against CPU
+        opt = OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+        variants = [(a, get_smoke_config(a)) for a in ARCHS]
+        variants.append(("stablelm-1.6b grad_accum=2",
+                         dataclasses.replace(get_smoke_config("stablelm-1.6b"), grad_accum=2)))
+        for label, cfg in variants:
+            check(cfg.act_dtype == "float32", f"{label}: fp32 activations")
+            params = init_params(0, cfg, device=cpu)
+            batch = train_batch(cfg, np.random.default_rng(1))
+            step = make_train_step(cfg, opt)
+            on_dev = tree_map(lambda t: t.to(dev), params)
+            zero_counts()
+            card_p, _, card_m = step(on_dev, init_train_state(on_dev), batch)
+            sync(torch, dev)
+            check_counts(kernel_counts(), {}, f"{label}: plain PyTorch, no kernel")
+            cpu_p, _, cpu_m = step(params, init_train_state(params), batch)
+            loss_card, loss_cpu = float(card_m["loss"]), float(cpu_m["loss"])
+            rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+            perr = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+            on_card = all(t.is_cuda for t in tree_leaves(card_p))
+            emit({"phase": "train_slice", "check": "smoke_step_card_vs_cpu", "arch": label,
+                  "grad_accum": cfg.grad_accum, "remat": cfg.remat, "loss_card": loss_card, "loss_cpu": loss_cpu,
+                  "loss_rel_err": rel, "param_max_abs_err": perr,
+                  "grad_norm_card": float(card_m["grad_norm"]), "grad_norm_cpu": float(cpu_m["grad_norm"]),
+                  "tolerance": {"loss_rel": TRAIN_LOSS_REL, "param_abs": TRAIN_PARAM_ABS}, "card": smi})
+            check(on_card and rel <= TRAIN_LOSS_REL and perr <= TRAIN_PARAM_ABS,
+                  f"{label}: train step, card against CPU: loss rel {rel}, params {perr}")
+
+        # ---- (2) stablelm-1.6b at full width through the launcher's function
+        full = get_config("stablelm-1.6b")
+        check((full.n_layers, full.d_model, full.vocab_size, full.act_dtype, full.grad_accum, full.remat)
+              == (24, 2048, 100352, "bfloat16", 2, "full"), f"stablelm-1.6b full config: {full}")
+        ckpt = os.path.join(work, "stablelm")
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+        zero_counts()
+        st = train_lm("stablelm-1.6b", ckpt_dir=ckpt, device=dev, **TRAIN_FULL,
+                      log_fn=lambda i, m: print(f"  stablelm-1.6b step {i}: loss {m['loss']:.4f} grad norm "
+                                                f"{m['grad_norm']:.3f} {m['step_time']:.3f} s", flush=True))
+        check_counts(kernel_counts(), {}, "stablelm-1.6b training: plain PyTorch, no kernel")
+        trainer = st.pop("trainer")
+        tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+        step_flops = model_flops_per_token(full) * tokens
+        later = st["step_time"][1:]
+        mean_later = sum(later) / len(later)
+        flop_share = step_flops / mean_later / BF16_PEAK_FLOPS
+        ckpt_bytes = dir_bytes(os.path.join(ckpt, f"step_{TRAIN_FULL['steps']:08d}"))
+        emit({"phase": "train_slice", "check": "stablelm-1.6b full width", "arch": st["arch"],
+              "layers": full.n_layers, "d_model": full.d_model, "vocab": full.vocab_size,
+              "param_count": sum(t.numel() for t in tree_leaves(trainer.params)),
+              "act_dtype": full.act_dtype, "grad_accum": full.grad_accum, "remat": full.remat,
+              **TRAIN_FULL, "global_batch_cut": "train_4k's 256 sequences cut to 2 to fit one card",
+              "state": st["state"], "last_step": st["last_step"], "loss": st["loss"],
+              "grad_norm": st["grad_norm"], "lr": st["lr"], "step_s": st["step_time"],
+              "tokens_per_s_steps_2_to_4": st["tokens_per_s"], "step_flops_6n": step_flops,
+              "step_bound_ms_6n": step_flops / BF16_PEAK_FLOPS * 1e3, "flop_share_6n_steps_2_to_4": flop_share,
+              "max_memory_allocated": st["max_memory_allocated"], "resident_before": resident,
+              "save_seconds": st["save_seconds"],
+              "checkpoint_bytes": ckpt_bytes, "seconds": st["seconds"], "card": smi})
+        check(st["last_step"] == TRAIN_FULL["steps"] and len(st["loss"]) == TRAIN_FULL["steps"],
+              f"stablelm-1.6b: {TRAIN_FULL['steps']} steps: {st['last_step']}")
+        check(all(np.isfinite(st["loss"])) and all(np.isfinite(st["grad_norm"])),
+              f"stablelm-1.6b: finite losses {st['loss']} and grad norms {st['grad_norm']}")
+        check(all(t.is_cuda for t in tree_leaves(trainer.params)), "stablelm-1.6b: parameters on the card")
+        # the functional step (JAX's form: new parameters and moments beside
+        # the old) on the same state and shape, its peak beside the in-place
+        # trainer's; its results are dropped
+        extra = next(lm_batches(full.vocab_size, TRAIN_FULL["batch"], TRAIN_FULL["seq"], 1, seed=TRAIN_FULL["steps"]))
+        # run under torch.profiler: where a full-width step's device time goes
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fp, fo, fm = make_train_step(full, trainer.opt_cfg)(trainer.params, trainer.opt_state, extra)
+            sync(torch, dev)
+        functional_peak = torch.cuda.max_memory_allocated(dev)
+        functional_loss = float(fm["loss"])
+        del fp, fo, fm
+        torch.cuda.empty_cache()
+        kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        busy_ms = sum(t for _, t, _ in kernels) / 1e3
+        top = sorted(kernels, key=lambda k: -k[1])[:8]
+        emit({"phase": "train_slice", "check": "functional_step_profile", "arch": full.name,
+              "max_memory_allocated_functional": functional_peak,
+              "max_memory_allocated_in_place": st["max_memory_allocated"], "loss": functional_loss,
+              "profiler_saw_device": busy_ms > 0, "device_busy_ms": busy_ms,
+              "device_busy_share_of_mean_step_2_to_4": busy_ms / 1e3 / mean_later,
+              "kernel_launches": sum(c for _, _, c in kernels),
+              "top_kernels": [{"name": n[:90], "ms": t / 1e3, "launches": c} for n, t, c in top], "card": smi})
+        check(bool(np.isfinite(functional_loss)), f"stablelm-1.6b functional step: loss {functional_loss}")
+
+        # ---- (3) remat against none, full width at TRAIN_REMAT_SEQS
+        trainer.opt_state = None
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(2)
+        for seq in TRAIN_REMAT_SEQS:
+            toks = torch.from_numpy(rng.integers(0, full.vocab_size, (1, seq + 1))).to(dev)
+            mb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            remat_row = {}
+            for remat in ("full", "none"):
+                live = tree_map(lambda p: p.detach().requires_grad_(True), trainer.params)
+                gc.collect()  # nothing of an earlier run may be freed inside this one
+                sync(torch, dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                loss, parts = loss_fn(live, dataclasses.replace(full, remat=remat), mb)
+                loss.backward()
+                sync(torch, dev)
+                value = float(loss.detach())
+                remat_row[remat] = {"loss": value, "loss_bits": int(np.float32(value).view(np.int32)),
+                                    "resident": base,
+                                    "peak_above_resident": torch.cuda.max_memory_allocated(dev) - base}
+                del live, loss, parts  # the parts hold the graph, and through it the gradients
+                torch.cuda.empty_cache()
+            same = remat_row["full"]["loss_bits"] == remat_row["none"]["loss_bits"]
+            emit({"phase": "train_slice", "check": "remat_vs_none", "arch": full.name, "seq": seq,
+                  **remat_row, "loss_equal": same, "card": smi})
+            check(same, f"remat changes the loss at {seq}: {remat_row}")
+
+        # ---- (4) the checkpoint served: restored leaf for leaf, then served
+        like = init_params(0, full, device="meta")
+        restored, meta = CheckpointManager(ckpt).restore({"params": like}, device=dev)
+        equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(restored["params"]), tree_leaves(trainer.params)))
+        on_card = all(t.is_cuda for t in tree_leaves(restored["params"]))
+        del trainer
+        torch.cuda.empty_cache()
+        zero_counts()
+        sv = serve_lm("stablelm-1.6b", ckpt_dir=ckpt, device=dev, warmup=1, **LM_SERVE)
+        check_counts(kernel_counts(), {}, "stablelm-1.6b serving: plain PyTorch, no kernel")
+        firsts = []
+        for prompt in sv["prompts"]:
+            lp, _, _ = forward(restored["params"], full, tokens=torch.tensor([prompt], device=dev), mode="prefill",
+                               caches=init_caches(full, 1, LM_SERVE["max_len"], device=dev))
+            firsts.append(int(torch.argmax(lp[:, -1], -1)[0]))
+        del restored
+        torch.cuda.empty_cache()
+        first_equal = firsts == [g[0] for g in sv["generated"]]
+        done = [len(g) for g in sv["generated"]] == [LM_SERVE["max_tokens"]] * LM_SERVE["requests"]
+        emit({"phase": "train_slice", "check": "train_checkpoint_serve", "arch": sv["arch"],
+              "checkpoint_step": meta["step"], "served_restored_step": sv["restored_step"],
+              "params_equal_trainer_final": equal, "params_on_card": on_card, **LM_SERVE, "warmup_requests": 1,
+              "tokens": sv["tokens"], "seconds": sv["seconds"], "tokens_per_s": sv["tokens_per_s"],
+              "decode_ms_per_step_median": float(np.median(sv["decode_ms"])),
+              "max_memory_allocated": sv["max_memory_allocated"], "first_tokens_equal_prefill_alone": first_equal,
+              "generated": sv["generated"][:2], "card": smi})
+        check(equal and on_card, "restored parameters differ from the trainer's final ones")
+        check(meta["step"] == sv["restored_step"] == TRAIN_FULL["steps"], f"restored step {sv['restored_step']}")
+        check(done and first_equal, f"served from the checkpoint: {sv['generated']} vs first tokens {firsts}")
+        shutil.rmtree(ckpt)
+
+        # ---- (5) the example: LM100M
+        zero_counts()
+        ex = train_example.main(["--steps", str(EXAMPLE_STEPS), "--ckpt-dir", os.path.join(work, "lm100m"),
+                                 "--device", str(dev)])
+        check_counts(kernel_counts(), {}, "train_lm example: plain PyTorch, no kernel")
+        ex_steps, ex_saves = ex["trainer"].step, ex["trainer"].save_seconds
+        del ex["trainer"]
+        emit({"phase": "train_slice", "check": "train_lm example", "config": "lm-100m", "steps": ex_steps,
+              "first10_mean_loss": ex["first10"], "last10_mean_loss": ex["last10"],
+              "step_s_median": float(np.median(ex["step_time"])), "save_seconds": ex_saves,
+              "checkpoint_bytes": dir_bytes(os.path.join(work, "lm100m", f"step_{ex_steps:08d}")),
+              "card": smi})
+        check(ex_steps == EXAMPLE_STEPS and bool(np.isfinite(ex["losses"]).all()),
+              f"train_lm example: {ex_steps} steps, loss {ex['first10']} -> {ex['last10']}")
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "train_slice", "check": "done", "seconds": seconds, "card": smi})
+    return seconds
+
+
 def main() -> None:
     import torch
 
@@ -2769,6 +3047,10 @@ def main() -> None:
     # ---- phase 7: the LM serving substrate (smoke archs card vs CPU, the
     # engine, yi-6b at full width through the launcher, the vlm example)
     lm_slice(torch, smi, dev)
+    # ---- phase 8: LM training and checkpoints (smoke archs card vs CPU,
+    # stablelm-1.6b at full width, remat, train -> checkpoint -> serve, the
+    # train_lm example)
+    train_slice(torch, smi, dev)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

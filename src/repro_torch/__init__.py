@@ -50,16 +50,21 @@ Ported (the frame- and video-serving paths at full width):
     device, gather, trim; no collectives), through every entry point that
     takes a mesh in the JAX package;
   * ``examples``: ``quickstart``, ``denoise_stream``, ``denoise_video``,
-    ``denoise_fleet``, ``serve_lm`` and ``vlm_preprocess`` (``python -m
-    repro_torch.examples.<name>``);
+    ``denoise_fleet``, ``serve_lm``, ``vlm_preprocess`` and ``train_lm``
+    (``python -m repro_torch.examples.<name>``);
   * the LM serving substrate: ``configs`` (the ten archs, ``SHAPES``, the
     registry), ``models`` (layers, attention with its caches, MoE, the
     recurrent mixers, blocks, the pattern model, the stub frontends,
     ``params_from_jax`` / ``caches_from_jax``), ``serving.ServeEngine`` and
     the samplers, ``TokenStream`` / ``lm_batches``, and ``launch.serve
-    --arch``: plain PyTorch, as the JAX package has no kernel there.
+    --arch`` (``--ckpt-dir``): plain PyTorch, as the JAX package has no
+    kernel there;
+  * LM training and checkpoints: ``train`` (AdamW and its schedule, the
+    train step with gradient accumulation, the model's remat, ``Trainer``,
+    int8 gradient compression), ``checkpoint`` (the JAX package's on-disk
+    layout, ``CheckpointManager``) and ``launch.train``: autograd over the
+    LM forward, no kernel.
 
-Not ported yet: LM training and checkpoints (``train``, ``checkpoint``,
-``launch.train``, the launcher's ``--ckpt-dir``), the LM sharding modules
-and the dry-run / roofline tooling (``ROADMAP.md`` A11b to A11d).
+Not ported yet: the LM sharding modules (with ``checkpoint/elastic.py``)
+and the dry-run / roofline tooling (``ROADMAP.md`` A11c and A11d).
 """

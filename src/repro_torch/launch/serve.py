@@ -38,9 +38,9 @@ each worker's share of the streams), as in the JAX launcher.
 The LM mode serves ``--requests`` requests (the JAX launcher's mix: request
 i's prompt is ``(7 i + j) mod vocab`` for ``j < 4 + i mod 5``) of
 ``--max-tokens`` tokens each through ``--slots`` slots of ``--max-len``
-tokens, on the port's own seeded parameters: restoring a checkpoint
-(``--ckpt-dir``) comes with the port's checkpoint slice and raises until
-then.
+tokens, on the port's own seeded parameters, or with ``--ckpt-dir`` on the
+parameters of that directory's latest checkpoint (written by either
+package's trainer), as the JAX launcher restores them.
 """
 from __future__ import annotations
 
@@ -376,14 +376,17 @@ def serve_lm(
     """Serve ``requests`` LM requests of ``arch`` (its smoke config with
     ``smoke``) through ``ServeEngine`` with ``slots`` slots of ``max_len``
     tokens, on parameters drawn from seed 0 on ``device`` (default: the
-    CUDA card), as the JAX launcher's LM mode serves them: each loop
+    CUDA card), or restored from ``ckpt_dir``'s latest checkpoint (its
+    ``params``; the restore's ``like`` tree is built on the meta device), as
+    the JAX launcher's LM mode serves them: each loop
     admits what fits (one batch-1 prefill each), then decodes one step.
     ``warmup`` throwaway requests (the first prompt, 2 tokens each) run to
     completion on the same engine before the timed window: a first
     prefill and decode step carry one-time costs (library handles, the
     allocator's first blocks). Their tokens and times are not returned.
 
-    Returns the tokens and seconds of the run (parameter init excluded),
+    Returns the tokens and seconds of the run (parameter init or restore
+    excluded), the restored step (``None`` on seeded parameters),
     tokens/s, the prefill ms of each request (batch 1) and the decode ms of
     each step (the host's clock, each ending where its sampled tokens reach
     the host), the engine steps, ``max_memory_allocated`` on a card (after
@@ -394,15 +397,19 @@ def serve_lm(
     from repro_torch.models import init_params
     from repro_torch.serving import Request, ServeEngine
 
-    if ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir restores a checkpoint, which needs the port's checkpoint/ "
-            "(ROADMAP A11b, not ported yet)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = init_params(0, cfg, device=dev)
+    restored = None
+    if ckpt_dir:
+        from repro_torch.checkpoint import CheckpointManager
+
+        like = init_params(0, cfg, device="meta")
+        state, meta = CheckpointManager(ckpt_dir).restore({"params": like}, device=dev)
+        params, restored = state["params"], meta["step"]
+    else:
+        params = init_params(0, cfg, device=dev)
     eng = ServeEngine(cfg, params, max_slots=slots, max_len=max_len, device=dev)
     pending = [
         Request(uid=i, prompt=[(7 * i + j) % cfg.vocab_size for j in range(4 + i % 5)],
@@ -439,6 +446,7 @@ def serve_lm(
     toks = sum(len(r.generated) for r in pending)
     return {
         "arch": cfg.name,
+        "restored_step": restored,
         "requests": len(pending),
         "tokens": toks,
         "seconds": dt,
@@ -489,7 +497,9 @@ def main(argv=None) -> None:
     if args.arch is not None:
         st = serve_lm(args.arch, args.smoke, args.slots, args.max_len, args.requests,
                       args.max_tokens, args.device, args.ckpt_dir)
-        print(f"[serve] {st['arch']} on {st['device']}, random params (seed 0): "
+        source = ("random params (seed 0)" if st["restored_step"] is None
+                  else f"restored step {st['restored_step']}")
+        print(f"[serve] {st['arch']} on {st['device']}, {source}: "
               f"{st['requests']} requests, {st['tokens']} tokens in {st['seconds']:.2f}s "
               f"({st['tokens_per_s']:.1f} tok/s)")
         for prompt, gen in list(zip(st["prompts"], st["generated"]))[:4]:

@@ -14,7 +14,9 @@ from .model import (
     model_flops_per_token,
     params_from_jax,
     splice_cache,
+    tree_leaves,
     tree_map,
+    tree_unflatten,
 )
 
 __all__ = [
@@ -25,5 +27,7 @@ __all__ = [
     "model_flops_per_token",
     "params_from_jax",
     "splice_cache",
+    "tree_leaves",
     "tree_map",
+    "tree_unflatten",
 ]

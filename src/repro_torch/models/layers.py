@@ -134,8 +134,9 @@ def apply_rope(x: torch.Tensor, cos, sin, rot) -> torch.Tensor:
 
 
 def cross_entropy_loss(logits, labels, mask=None, z_loss=1e-4) -> torch.Tensor:
-    """Mean token cross-entropy in fp32, with optional z-loss regularizer
-    (forward only: training is a later slice of the port)."""
+    """Mean token cross-entropy in fp32, with optional z-loss regularizer;
+    the training loss (``repro_torch.train.loss_fn``), differentiated by
+    autograd."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

@@ -6,15 +6,26 @@ has a leading ``n_repeats`` axis (JAX stacks them with ``jax.vmap`` and
 scans over them with ``jax.lax.scan``); the port loops over the repeats in
 Python, indexing the stacked tensors, so the JAX package's trees carry over
 as a pure relabel (:func:`params_from_jax`, :func:`caches_from_jax`). The
-logical sharding axes (``param_logical_axes``, ``cache_logical_axes``) come
-with the LM sharding slice of the port.
+logical sharding axes (``param_logical_axes``, ``cache_logical_axes``) are
+not ported (ROADMAP A11c); where JAX constrains a tensor to them, the port
+does nothing.
+
+In ``mode="train"`` under autograd each repeat's body is rematerialised as
+``cfg.remat`` says, as JAX wraps it in ``jax.checkpoint``: ``"full"`` keeps
+only the body's inputs and recomputes its activations in the backward pass,
+``"dots"`` also keeps the matrix products' outputs (JAX's
+``checkpoint_dots``), ``"none"`` keeps everything. The models have no
+dropout and no other randomness, so the recomputation gives the same
+values and the same loss.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -31,6 +42,8 @@ __all__ = [
     "params_from_jax",
     "caches_from_jax",
     "tree_map",
+    "tree_leaves",
+    "tree_unflatten",
 ]
 
 
@@ -40,6 +53,28 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return None if tree is None else fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict in JAX's leaf order (``jax.tree.leaves``:
+    keys sorted at every level; ``None`` is no leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A nested dict shaped like ``like`` (its key order kept) whose tensors
+    are ``leaves``, taken in :func:`tree_leaves`'s order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        return None if t is None else next(it)
+
+    return build(like)
 
 
 def _stack(trees):
@@ -55,9 +90,16 @@ def init_params(seed: int, cfg: ModelConfig, device=None):
     """Parameters of ``cfg`` drawn from ``seed`` on ``device`` (default: the
     CUDA card). Each pattern leaf is drawn whole, ``(n_repeats, ...)``, so a
     full-width model is never held twice. The port's own numbers: the JAX
-    package's come across with :func:`params_from_jax`."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    package's come across with :func:`params_from_jax`.
+
+    ``device="meta"`` gives the tree's shapes and dtypes only (JAX's
+    ``jax.eval_shape`` of this function), as a restore's ``like``; nothing
+    is drawn."""
+    if str(device) == "meta":
+        dev, gen = torch.device("meta"), None
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg.param_dtype)
     params = {}
     if cfg.frontend is None or cfg.frontend == "vision":
@@ -170,7 +212,26 @@ def forward(
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {}
 
-    if cfg.n_repeats > 0:
+    if cfg.n_repeats > 0 and mode == "train" and torch.is_grad_enabled():
+        # unbind each stacked leaf once: its gradient is then one stack of
+        # the repeats' slices, where indexing would scatter every repeat's
+        # slice into a zero tensor of the whole stack
+        per_r = _unbind(params["pattern"], cfg.n_repeats)
+
+        def repeat_body(x, aux, block_params):
+            for i, spec in enumerate(cfg.pattern):
+                x, _, a = block_apply(block_params[f"block{i}"], x, cfg, spec, positions,
+                                      mode=mode, cross_ctx=cross_ctx)
+                aux = aux + a
+            return x, aux
+
+        for r in range(cfg.n_repeats):
+            if cfg.remat == "none":
+                x, aux_total = repeat_body(x, aux_total, per_r[r])
+            else:
+                x, aux_total = _ckpt.checkpoint(repeat_body, x, aux_total, per_r[r],
+                                                use_reentrant=False, **_remat_kwargs(cfg.remat))
+    elif cfg.n_repeats > 0:
         per_repeat = []
         for r in range(cfg.n_repeats):
             new_bc = {}
@@ -207,6 +268,34 @@ def forward(
     if cfg.logit_softcap > 0.0:
         logits = cfg.logit_softcap * torch.tanh(logits.to(torch.float32) / cfg.logit_softcap)
     return logits, (new_caches if new_caches else None), aux_total
+
+
+# the matrix products a "dots" remat keeps (JAX's checkpoint_dots): einsum
+# and matmul reach autograd as these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(remat: str) -> dict:
+    if remat == "full":
+        return {}
+    if remat == "dots":
+        return {"context_fn": functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"remat must be 'full', 'dots' or 'none', got {remat!r}")
+
+
+def _unbind(tree, n: int) -> list:
+    """A stacked tree as ``n`` trees of views, one per repeat."""
+    per = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for r in range(n):
+            per[r][k] = parts[r]
+    return per
 
 
 def model_flops_per_token(cfg: ModelConfig, train: bool = True) -> float:

@@ -1,0 +1,96 @@
+"""train_step: microbatch gradient accumulation + AdamW, the port of the JAX
+package's ``repro/train/train_step.py``.
+
+The JAX step scans over the microbatches under ``jax.value_and_grad``; the
+port runs the same microbatches in order through autograd, each backward
+pass adding its float32 gradients into the leaves' ``.grad`` (the same
+additions in the same order as JAX's float32 accumulator, which starts at
+zero). The steps run eagerly, as ``ServeEngine``'s do. Where the JAX step
+constrains the accumulator to the parameters' logical sharding axes, the
+port does nothing (ROADMAP A11c). Metrics are float32 0-d tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import forward, tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import cross_entropy_loss, dtype_of
+
+from .optimizer import OptConfig, adamw_init, adamw_update
+
+__all__ = ["loss_fn", "make_train_step", "init_train_state"]
+
+
+def loss_fn(params, cfg: ModelConfig, batch, cast_params: bool = True):
+    """``batch`` keys: ``tokens`` or ``embeds``, ``labels``, optional
+    ``cross_ctx`` and ``loss_mask`` (tensors where ``params`` live).
+    Returns ``(loss, {"ce", "aux"})``.
+
+    ``cast_params``: cast float32 weight matrices (``ndim >= 2``) to the
+    activation dtype before the forward pass, inside the autograd graph, so
+    their gradients come back in float32 onto the float32 master weights
+    (the transpose of JAX's cast)."""
+    act = dtype_of(cfg.act_dtype)
+    if cast_params and act != torch.float32:
+        params = tree_map(
+            lambda p: p.to(act) if (p.dtype == torch.float32 and p.ndim >= 2) else p, params
+        )
+    kw = {k: batch[k] for k in ("tokens", "embeds", "cross_ctx") if k in batch}
+    logits, _, aux = forward(params, cfg, mode="train", **kw)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def init_train_state(params):
+    return adamw_init(params)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, donate: bool = False):
+    """Builds ``train_step(params, opt_state, batch) -> (new_params,
+    new_opt_state, metrics)``, ``metrics`` holding ``loss``, ``lr`` and
+    ``grad_norm``.
+
+    Gradient accumulation: the batch's leading dim is split into
+    ``cfg.grad_accum`` microbatches taken in order, gradients summed in
+    float32 and divided by the count, and so is the loss. The batch (numpy
+    or tensors) moves to the parameters' device.
+
+    The step leaves its inputs as they were, as JAX's does. ``donate=True``
+    writes the new parameters and optimizer state into the given tensors
+    instead and returns those trees: the port's form of ``jit``'s
+    ``donate_argnums`` (JAX's ``donate`` argument has no effect), which
+    saves a second copy of parameters and moments at once."""
+    accum = max(1, cfg.grad_accum)
+
+    def train_step(params, opt_state, batch):
+        flat = tree_leaves(params)
+        dev = flat[0].device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}  # as jit moves them
+        # aliases of the parameters' storage that autograd may write
+        # gradients onto, so the caller's tensors stay as they were
+        leaves = [p.detach().requires_grad_(p.is_floating_point()) for p in flat]
+        live = tree_unflatten(params, leaves)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(accum):
+            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+                     for k, v in batch.items()} if accum > 1 else batch
+            l, _ = loss_fn(live, cfg, micro)
+            l.backward()
+            loss = loss + l.detach()
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev) if p.grad is None
+                 else p.grad.to(torch.float32) for p in leaves]
+        if accum > 1:  # the summed .grad buffers are the step's own: divide in place
+            n = torch.tensor(float(accum), dtype=torch.float32, device=dev)
+            for g in grads:
+                g.div_(n)
+            loss = loss / n
+        for p in leaves:
+            p.grad = None
+        del live, leaves
+        new_params, new_opt, opt_metrics = adamw_update(
+            tree_unflatten(params, grads), opt_state, params, opt_cfg, in_place=donate
+        )
+        return new_params, new_opt, {"loss": loss, **opt_metrics}
+
+    return train_step

@@ -3,9 +3,11 @@ run through its ``main`` on the CPU at a tiny size: every act runs, the
 checks each example prints hold, and importing a module runs nothing."""
 import importlib
 
+import numpy as np
 import pytest
 
-EXAMPLES = ("quickstart", "denoise_stream", "denoise_video", "denoise_fleet", "serve_lm", "vlm_preprocess")
+EXAMPLES = ("quickstart", "denoise_stream", "denoise_video", "denoise_fleet", "serve_lm", "vlm_preprocess",
+            "train_lm")
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -107,3 +109,47 @@ def test_vlm_preprocess_gives_jax_logits():
     np.testing.assert_allclose(res["ctx"].numpy(), np.asarray(ctx), rtol=1e-4, atol=1e-4)
     logits, _, _ = JM.forward(jp, cfg, tokens=jnp.asarray(res["tokens"].numpy()), cross_ctx=ctx, mode="train")
     np.testing.assert_allclose(res["logits"].numpy(), np.asarray(logits), rtol=1e-4, atol=1e-4)
+
+
+def test_train_lm_config_is_the_jax_examples():
+    """``LM100M`` and the options are the JAX example's
+    (``examples/train_lm.py``, loaded from its file)."""
+    import dataclasses
+    import importlib.util
+    import pathlib
+
+    from repro_torch.examples import train_lm
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / "train_lm.py"
+    spec = importlib.util.spec_from_file_location("jax_train_lm_example", path)
+    jex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jex)
+    assert dataclasses.asdict(train_lm.LM100M) == dataclasses.asdict(jex.LM100M)
+    assert train_lm.LM100M.param_count() == jex.LM100M.param_count()
+
+
+def test_train_lm(tmp_path, capsys, monkeypatch):
+    """The example at a tiny width on the CPU: 22 steps, then a rerun that
+    resumes from its checkpoint."""
+    import dataclasses
+    import signal
+
+    from repro_torch.examples import train_lm
+
+    small = dataclasses.replace(train_lm.LM100M, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                                vocab_size=512, n_repeats=2)
+    monkeypatch.setattr(train_lm, "LM100M", small)
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        argv = ["--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+        res = train_lm.main(argv + ["--steps", "22"])
+        assert res["state"] == "initialized" and res["step"] == 22 and len(res["losses"]) == 22
+        assert res["first10"] is not None and all(np.isfinite(res["losses"]))
+        assert res["trainer"].ckpt.steps() == [22]
+        again = train_lm.main(argv + ["--steps", "24"])
+        assert again["state"] == "resumed" and again["step"] == 24 and again["first10"] is None
+    finally:
+        for sig, h in saved.items():
+            signal.signal(sig, h)
+    out = capsys.readouterr().out
+    assert "state: initialized step 0" in out and "state: resumed step 22" in out and "loss: first10" in out

@@ -62,10 +62,15 @@ SHARDING = ["sharding", "sharding.bg_shard"]
 # stack (every models module), the engine and samplers, the LM examples
 LM_SERVING = ["configs.registry", "models.model", "models.frontends", "serving.engine",
               "examples.serve_lm", "examples.vlm_preprocess"]
+# LM training and checkpoints: every train and checkpoint module, the
+# train launcher and the train example
+LM_TRAINING = ["train", "train.optimizer", "train.train_step", "train.trainer", "train.grad_compress",
+               "checkpoint", "checkpoint.checkpointer", "checkpoint.manager", "launch.train",
+               "examples.train_lm"]
 
 
 @pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET
-                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING)
+                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING + LM_TRAINING)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, no ``ml_dtypes``, nothing of ``repro`` and no compiled kernel (the CPU host has no

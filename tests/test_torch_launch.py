@@ -1,13 +1,19 @@
-"""The port's launcher against the JAX launcher: every option the two
+"""The port's launchers against the JAX launchers: every option the two
 parsers share has the same default, type and choices, so one command line
-serves the same traffic in both packages."""
+serves the same traffic (``launch/serve.py``) and trains on the same data
+(``launch/train.py``) in both packages."""
 import argparse
+import os
 import sys
 
+import numpy as np
 import pytest
 
 import repro.launch.serve as JS
+import repro.launch.train as JL
 import repro_torch.launch.serve as TS
+import repro_torch.launch.train as TL
+import repro_torch.train as TT
 
 
 class _Captured(Exception):
@@ -82,8 +88,73 @@ def test_lm_warmup_leaves_the_served_tokens_as_they_are():
     assert len(warm["prefill_ms"]) == 5 and warm["steps"] == cold["steps"]
 
 
-def test_lm_mode_ckpt_dir_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TS.main(["--arch", "yi-6b", "--smoke", "--ckpt-dir", "ckpt", "--device", "cpu"])
+def test_lm_mode_ckpt_dir_raises_until_ported(tmp_path):
+    """``--ckpt-dir`` restores the latest checkpoint (ported with the
+    training slice); a directory without one raises, as in JAX."""
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        TS.main(["--arch", "yi-6b", "--smoke", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit):  # one mode at a time
         TS.main(["--arch", "yi-6b", "--frames", "2", "--device", "cpu"])
+
+
+def test_lm_mode_serves_a_checkpoint(tmp_path, capsys):
+    TL.main(["--arch", "yi-6b", "--smoke", "--steps", "2", "--batch", "2", "--seq", "8",
+             "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    TS.main(["--arch", "yi-6b", "--smoke", "--requests", "2", "--max-tokens", "3",
+             "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert "restored step 2: 2 requests, 6 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ the train launcher
+@pytest.fixture
+def keep_signal_handlers():
+    """The Trainers install SIGTERM/SIGINT handlers; put the runner's back."""
+    import signal
+
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    yield
+    for sig, h in saved.items():
+        signal.signal(sig, h)
+
+
+def test_train_launcher_options_are_the_jax_ones(monkeypatch):
+    jax_opts = _parser_of(JL.main, monkeypatch)
+    port_opts = _parser_of(TL.main, monkeypatch, argv=[])
+    assert set(jax_opts) == set(port_opts) - {"--device"}
+    for opt in jax_opts:
+        if opt in ("-h", "--help"):
+            continue
+        j, t = jax_opts[opt], port_opts[opt]
+        assert (t.dest, t.default, t.type, t.choices, t.nargs, t.const, t.required) == (
+            j.dest, j.default, j.type, j.choices, j.nargs, j.const, j.required
+        ), opt
+    assert (port_opts["--steps"].default, port_opts["--batch"].default, port_opts["--seq"].default,
+            port_opts["--lr"].default, port_opts["--ckpt-dir"].default, port_opts["--ckpt-every"].default) == (
+        200, 8, 256, 3e-4, "checkpoints", 100)
+    import inspect
+
+    sig = inspect.signature(TL.train_lm).parameters
+    for name in ("steps", "batch", "seq", "lr", "ckpt_dir", "ckpt_every"):
+        assert sig[name].default == port_opts["--" + name.replace("_", "-")].default, name
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "4x2"], ["--distributed"]])
+def test_train_launcher_mesh_and_distributed_raise(flag, tmp_path):
+    with pytest.raises(NotImplementedError, match="A11c"):
+        TL.main(["--arch", "yi-6b", "--smoke", "--ckpt-dir", str(tmp_path), "--device", "cpu", *flag])
+    assert os.listdir(tmp_path) == []
+
+
+def test_train_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys, keep_signal_handlers):
+    argv = ["--arch", "stablelm-1.6b", "--smoke", "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path),
+            "--device", "cpu"]
+    st = TL.main(argv + ["--steps", "3"])
+    assert (st["state"], st["first_step"], st["last_step"]) == ("initialized", 0, 3)
+    assert len(st["loss"]) == 3 and np.isfinite(st["loss"]).all() and st["tokens_per_s"] > 0
+    assert st["final"]["loss"] == st["loss"][-1] and st["device"] == "cpu"
+    # the JAX launcher's schedule: warmup min(100, steps // 10 + 1), decay over steps
+    assert st["trainer"].opt_cfg == TT.OptConfig(lr=3e-4, warmup_steps=1, decay_steps=3)
+    st = TL.main(argv + ["--steps", "5"])
+    assert (st["state"], st["first_step"], st["last_step"]) == ("resumed", 3, 5)
+    out = capsys.readouterr().out
+    assert "initialized at step 0" in out and "resumed at step 3" in out and "done at step 5" in out

@@ -228,11 +228,14 @@ def test_serve_lm_serves_the_jax_launchers_mix(jx):
     assert [r.generated for r in reqs] == st["generated"]
 
 
-def test_serve_lm_ckpt_dir_raises():
+def test_serve_lm_ckpt_dir_raises(tmp_path):
+    """A directory without a checkpoint raises, as the JAX launcher's
+    restore does (``--ckpt-dir`` is ported with the training slice; the
+    restores themselves are in ``test_torch_checkpoint.py``)."""
     from repro_torch.launch.serve import serve_lm
 
-    with pytest.raises(NotImplementedError, match="A11b"):
-        serve_lm(YI, smoke=True, device="cpu", ckpt_dir="/nonexistent")
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        serve_lm(YI, smoke=True, device="cpu", ckpt_dir=str(tmp_path))
 
 
 # ------------------------------------------------------------- the card
