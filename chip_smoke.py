@@ -59,7 +59,15 @@ every smoke arch on the card held to the CPU, stablelm-1.6b at full width
 through the train launcher's ``train_lm`` with its step times, tokens/s,
 6N-FLOP share, peak memory and checkpoint seconds, remat against none,
 its checkpoint restored leaf for leaf and served through ``serve_lm``, and
-the ``train_lm`` example). Every served
+the ``train_lm`` example), and shards LMs (``lm_mesh_slice``: that
+full-width checkpoint restored by ``elastic_restore`` onto a world-1
+``nccl`` group's (1, 1) ``DeviceMesh``, leaf for leaf, and trained on it
+for a few timed steps beside ``train_slice``'s, one profiled; a step on the
+mesh equal to the step without one bit for bit at full width and cut
+depth; ring attention and GPipe on the card; the train launcher's ``--mesh
+1x1 --distributed``; and, as a CPU check of the running host's torch,
+every arch's smoke step on a 4-rank ``gloo`` mesh against one device).
+Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
 phase; the line before the last is the card's ``nvidia-smi`` name and
@@ -2299,26 +2307,15 @@ EXAMPLE_STEPS = 300  # examples/train_lm.py's default
 
 
 def train_batch(cfg, rng):
-    """A smoke batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (numpy), the inputs
-    each frontend takes and random labels."""
-    import numpy as np
-
-    b = {}
-    if cfg.frontend == "audio":
-        b["embeds"] = rng.standard_normal((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)).astype(np.float32)
-    else:
-        b["tokens"] = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    if cfg.frontend == "vision":
-        b["cross_ctx"] = rng.standard_normal((TRAIN_BATCH, cfg.cross_attn_tokens, cfg.d_model)).astype(np.float32)
-    b["labels"] = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    return b
+    """A smoke batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (numpy)."""
+    return train_batch_of(cfg, rng, TRAIN_BATCH, TRAIN_SEQ)
 
 
 def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def train_slice(torch, smi, dev) -> float:
+def train_slice(torch, smi, dev, work) -> dict:
     """Phase "train_slice": LM training and checkpoints on the card. (1)
     Every arch's smoke config (fp32 activations, TF32 off): one
     ``make_train_step`` step from the same seeded parameters (drawn on the
@@ -2345,12 +2342,13 @@ def train_slice(torch, smi, dev) -> float:
     loss finite), each save call's blocking seconds (async every 50 steps, the
     host snapshot in the loop). The Trainer installs SIGTERM/SIGINT handlers; the phase puts
     the previous ones back. No kernel of the port runs on this path (the
-    counters stay at 0). Returns the phase's seconds."""
+    counters stay at 0). Checkpoints go under ``work``; the full-width one
+    stays there for ``lm_mesh_slice`` (read only; the caller removes
+    ``work``). Returns the phase's seconds, the full-width run's step times
+    and peak, and that checkpoint's directory."""
     import dataclasses
     import gc
-    import shutil
     import signal
-    import tempfile
 
     import numpy as np
 
@@ -2368,10 +2366,6 @@ def train_slice(torch, smi, dev) -> float:
           "TF32 is off for the fp32 comparisons")
     cpu = torch.device("cpu")
     handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
-    # checkpoints go under the checkout's build/ (git ignores it), beside
-    # the kernels' builds: the full-width one is 19.7 GB
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="train_slice.", dir=os.path.join(ROOT, "build"))
     try:
         # ---- (1) every smoke arch, one train step, card against CPU
         opt = OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
@@ -2524,7 +2518,6 @@ def train_slice(torch, smi, dev) -> float:
         check(equal and on_card, "restored parameters differ from the trainer's final ones")
         check(meta["step"] == sv["restored_step"] == TRAIN_FULL["steps"], f"restored step {sv['restored_step']}")
         check(done and first_equal, f"served from the checkpoint: {sv['generated']} vs first tokens {firsts}")
-        shutil.rmtree(ckpt)
 
         # ---- (5) the example: LM100M
         zero_counts()
@@ -2543,11 +2536,351 @@ def train_slice(torch, smi, dev) -> float:
     finally:
         for sig, h in handlers.items():
             signal.signal(sig, h)
-        shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     emit({"phase": "train_slice", "check": "done", "seconds": seconds, "card": smi})
+    return {"seconds": seconds, "step_s": st["step_time"], "max_memory_allocated": st["max_memory_allocated"],
+            "resident_before": resident, "ckpt": ckpt}
+
+
+MESH_STEPS = 3  # timed steps of the (1, 1) mesh at full width, then one profiled
+MESH_BITWISE_REPEATS = 2  # depth of the bit-for-bit check (stablelm-1.6b has 24)
+MESH_CPU_SHAPE = (2, 2)  # the multi-rank check on the card host's CPU (gloo)
+MESH_CPU_BATCH, MESH_CPU_SEQ = 4, 8
+RING_TOL = 3e-5  # tests/test_distributed.py:220
+GPIPE_TOL = 1e-5  # tests/test_distributed.py:99
+MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-3, 5e-3  # tests/test_distributed.py:67-70
+# one AdamW step moves each parameter by about lr whatever the gradient: the
+# backward pass is held by the grad norm and the first moments (relative;
+# tests/test_torch_lm_sharding.py)
+MESH_GNORM_RTOL, MESH_MOMENT_RTOL = 1e-5, 1e-4
+
+
+def _cpu_mesh_rank(rank, world, work) -> None:
+    """One rank of ``lm_mesh_slice``'s CPU check: every smoke arch's train
+    step on a ``MESH_CPU_SHAPE`` gloo mesh against the same step on one
+    device (both on the CPU, from the same seeded parameters and batch);
+    rank 0 writes what it measured to ``work/cpu_mesh.json``."""
+    import logging
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    warnings.filterwarnings("ignore")
+    logging.disable(logging.WARNING)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.elastic import lay_out
+    from repro_torch.configs.registry import ARCHS, get_smoke_config
+    from repro_torch.launch.dryrun import _shard_tree
+    from repro_torch.models import init_params, param_logical_axes, tree_leaves
+    from repro_torch.sharding.compat import set_mesh
+    from repro_torch.sharding.partitioning import DEFAULT_RULES, axis_rules
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"), rank=rank,
+                            world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", MESH_CPU_SHAPE, mesh_dim_names=("data", "model"))
+        rows = []
+        for arch in ARCHS:
+            t0 = time.perf_counter()
+            cfg = get_smoke_config(arch)
+            params = init_params(0, cfg, device="cpu")
+            batch = train_batch_of(cfg, np.random.default_rng(1), MESH_CPU_BATCH, MESH_CPU_SEQ)
+            step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10))
+            p1, s1, m1 = step(params, init_train_state(params), batch)
+            sh = _shard_tree(param_logical_axes(cfg), mesh, DEFAULT_RULES, params)
+            with axis_rules(DEFAULT_RULES), set_mesh(mesh):
+                state = init_train_state(params)
+                p2, s2, m2 = step(lay_out(params, sh), {"m": lay_out(state["m"], sh), "v": lay_out(state["v"], sh),
+                                                        "step": state["step"]}, batch)
+            perr = max(float((a - b.full_tensor()).abs().max()) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+            merr = max(float((a - b.full_tensor()).abs().max() / a.abs().max().clamp(min=1e-30))
+                       for a, b in zip(tree_leaves(s1["m"]), tree_leaves(s2["m"])))
+            g1, g2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+            rows.append({"arch": arch, "loss_single": float(m1["loss"]), "loss_mesh": float(m2["loss"]),
+                         "loss_abs_err": abs(float(m1["loss"]) - float(m2["loss"])), "param_max_abs_err": perr,
+                         "grad_norm_single": g1, "grad_norm_mesh": g2, "grad_norm_rel_err": abs(g1 - g2) / g1,
+                         "moment_max_rel_err": merr, "seconds": time.perf_counter() - t0})
+        if rank == 0:
+            with open(os.path.join(work, "cpu_mesh.json"), "w") as f:
+                json.dump({"torch": torch.__version__, "rows": rows}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def train_batch_of(cfg, rng, batch: int, seq: int):
+    """A smoke batch of ``batch`` x ``seq`` (numpy): the inputs each
+    frontend takes and random labels."""
+    import numpy as np
+
+    b = {}
+    if cfg.frontend == "audio":
+        b["embeds"] = rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32)
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    if cfg.frontend == "vision":
+        b["cross_ctx"] = rng.standard_normal((batch, cfg.cross_attn_tokens, cfg.d_model)).astype(np.float32)
+    b["labels"] = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    return b
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def lm_mesh_slice(torch, smi, dev, trained: dict, work: str) -> float:
+    """Phase "lm_mesh_slice": the port's LM sharding on the card, a world-1
+    ``nccl`` group and a ``(1, 1)`` ``("data", "model")`` ``DeviceMesh``
+    (the card host has one card; NCCL takes one rank per card). (a)
+    ``elastic_restore`` of ``train_slice``'s stablelm-1.6b checkpoint
+    (full width and depth, read only) onto the mesh: every leaf equal to
+    the checkpoint's array, placed as ``train_state_shardings`` says; then
+    ``MESH_STEPS`` in-place steps at ``TRAIN_FULL``'s 2 x 4096 under
+    ``axis_rules`` and ``set_mesh``, each timed beside ``train_slice``'s
+    steps of the same run, tokens/s, the 6N-FLOP share of the bf16 peak,
+    the peak memory, and one more step under ``torch.profiler`` (device busy
+    time and launches). (b) The same config cut to
+    ``MESH_BITWISE_REPEATS`` repeats: one functional step on the mesh equal
+    to the step without a mesh bit for bit (loss, grad norm, every
+    parameter; tokens drawn without repetition, so no embedding row's
+    gradient adds in an order set by atomics, ROADMAP T3). (c)
+    ``ring_attention`` on the card's world-1 ring at stablelm's widths
+    (1 x 4096, 32 heads of 64, causal, fp32) against ``_sdpa_plain``
+    (atol ``RING_TOL``), and ``gpipe`` with one stage against its sequential
+    form (atol ``GPIPE_TOL``). (d) ``python -m repro_torch.launch.train
+    --smoke --mesh 1x1 --distributed`` in a subprocess with torchrun's
+    environment for world 1 on the card. (e) A CPU check on the running host's
+    torch: ``MESH_CPU_SHAPE`` gloo ranks (a spawn) take one smoke train step
+    of every arch against the single-device step (loss ``MESH_LOSS_TOL``,
+    parameters ``MESH_PARAM_TOL``, grad norm ``MESH_GNORM_RTOL`` and first
+    moments ``MESH_MOMENT_RTOL``, relative). No kernel of the port runs on this path
+    (the counters stay at 0). Returns the phase's seconds."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpointer import _as_tensor, tree_paths
+    from repro_torch.checkpoint.elastic import elastic_restore, lay_out, train_state_shardings
+    from repro_torch.configs.base import AttnSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.dryrun import _shard_tree
+    from repro_torch.models import init_params, model_flops_per_token, param_logical_axes, tree_leaves
+    from repro_torch.models.attention import _sdpa_plain
+    from repro_torch.sharding.compat import set_mesh
+    from repro_torch.sharding.partitioning import DEFAULT_RULES, axis_rules
+    from repro_torch.sharding.pipeline_parallel import gpipe
+    from repro_torch.sharding.ring_attention import ring_attention
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+    full = get_config("stablelm-1.6b")
+    ckpt = trained["ckpt"]
+    check(not dist.is_initialized(), "no process group before lm_mesh_slice")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        # ---- (a) elastic restore at full size, then steps on the mesh
+        mgr = CheckpointManager(ckpt)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params, opt_state, meta = elastic_restore(mgr, full, mesh)
+        restore_s = time.perf_counter() - t0
+        restore_peak = torch.cuda.max_memory_allocated(dev)
+        state = {"params": params, "opt": opt_state}
+        p_sh, o_sh = train_state_shardings(full, mesh)
+        placed = all(tuple(t.placements) == s.placements for t, s in
+                     zip(tree_leaves(state), tree_leaves({"params": p_sh, "opt": o_sh})))
+        on_card = all(t.to_local().is_cuda for t in tree_leaves(state))
+        equal, n_leaves = True, 0
+        with np.load(os.path.join(mgr._path(meta["step"]), "arrays.npz")) as z:
+            for key, leaf in tree_paths(state).items():
+                want = _as_tensor(z[key], leaf.dtype).to(dev)
+                equal = equal and torch.equal(leaf.full_tensor(), want)
+                n_leaves += 1
+                del want
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        want_params = sum(t.numel() for t in tree_leaves(init_params(0, full, device="meta")))
+        # each leaf goes straight from the host onto the mesh: the device
+        # never holds more than the state (and one leaf in flight)
+        leaf_bytes = [t.to_local().numel() * t.element_size() for t in tree_leaves(state)]
+        restore_extra = restore_peak - resident - sum(leaf_bytes)
+        emit({"phase": "lm_mesh_slice", "check": "elastic_restore", "arch": full.name, "mesh": [1, 1],
+              "world_size": dist.get_world_size(), "backend": dist.get_backend(), "checkpoint_step": meta["step"],
+              "param_count": n_params, "leaves": n_leaves, "leaves_equal_checkpoint": equal,
+              "placements_as_train_state_shardings": placed, "on_card": on_card, "restore_s": restore_s,
+              "restore_peak_bytes": restore_peak, "state_bytes": sum(leaf_bytes), "resident_before": resident,
+              "restore_peak_beyond_state_bytes": restore_extra, "largest_leaf_bytes": max(leaf_bytes), "card": smi})
+        check(equal and placed and on_card and n_params == want_params,
+              f"elastic restore: equal {equal}, placed {placed}, on card {on_card}, {n_params} parameters")
+        check(restore_extra <= max(leaf_bytes), f"elastic restore held {restore_extra} bytes beyond the state")
+
+        steps_total = TRAIN_FULL["steps"] + MESH_STEPS
+        opt = OptConfig(lr=3e-4, warmup_steps=min(100, steps_total // 10 + 1), decay_steps=steps_total)
+        step_fn = make_train_step(full, opt, donate=True)
+        batches = lm_batches(full.vocab_size, TRAIN_FULL["batch"], TRAIN_FULL["seq"], MESH_STEPS + 1,
+                             seed=meta["step"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        step_s, losses = [], []
+        with axis_rules(DEFAULT_RULES), set_mesh(mesh):
+            for _ in range(MESH_STEPS):
+                batch = next(batches)
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                losses.append(float(m["loss"]))  # waits for the step
+                step_s.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev)
+            from torch.profiler import ProfilerActivity, profile
+
+            batch = next(batches)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                losses.append(float(m["loss"]))
+                profiled_s = time.perf_counter() - t0
+        check_counts(kernel_counts(), {}, "stablelm-1.6b on the mesh: plain PyTorch, no kernel")
+        kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        busy_ms = sum(t for _, t, _ in kernels) / 1e3
+        tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+        later = step_s[1:]
+        mean_later = sum(later) / len(later)
+        step_flops = model_flops_per_token(full) * tokens
+        slice_later = trained["step_s"][1:]
+        emit({"phase": "lm_mesh_slice", "check": "mesh_steps", "arch": full.name, "mesh": [1, 1],
+              "batch": TRAIN_FULL["batch"], "seq": TRAIN_FULL["seq"], "grad_accum": full.grad_accum,
+              "remat": full.remat, "act_dtype": full.act_dtype, "step_s": step_s, "loss": losses,
+              "mesh_step_s_mean_after_first": mean_later,
+              "train_slice_step_s": trained["step_s"],
+              "train_slice_step_s_mean_after_first": sum(slice_later) / len(slice_later),
+              "mesh_over_train_slice": mean_later / (sum(slice_later) / len(slice_later)),
+              "tokens_per_s_after_first": tokens / mean_later,
+              "flop_share_6n_after_first": step_flops / mean_later / BF16_PEAK_FLOPS,
+              "max_memory_allocated": peak, "resident_before": resident,
+              "train_slice_max_memory_allocated": trained["max_memory_allocated"],
+              "train_slice_resident_before": trained["resident_before"],
+              "profiled_step_s": profiled_s, "profiler_saw_device": busy_ms > 0, "device_busy_ms": busy_ms,
+              "device_busy_share_of_profiled_step": busy_ms / 1e3 / profiled_s,
+              "device_busy_share_of_mean_step": busy_ms / 1e3 / mean_later,
+              "kernel_launches": sum(c for _, _, c in kernels), "card": smi})
+        check(all(np.isfinite(losses)), f"mesh steps: losses {losses}")
+        check(all(t.to_local().is_cuda for t in tree_leaves(params)), "mesh steps: parameters on the card")
+        del params, opt_state, state, m, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) the mesh step equals the step without a mesh, bit for bit
+        cut = dataclasses.replace(full, n_repeats=MESH_BITWISE_REPEATS)
+        p0 = init_params(0, cut, device=dev)
+        perm = np.random.default_rng(5).permutation(full.vocab_size)
+        n = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+        batch = {"tokens": perm[:n].reshape(TRAIN_FULL["batch"], -1).astype(np.int32),
+                 "labels": perm[n:2 * n].reshape(TRAIN_FULL["batch"], -1).astype(np.int32)}
+        bit_step = make_train_step(cut, OptConfig(lr=3e-4, warmup_steps=1, decay_steps=10))
+        p1, _, m1 = bit_step(p0, init_train_state(p0), batch)
+        sh = _shard_tree(param_logical_axes(cut), mesh, DEFAULT_RULES, p0)
+        with axis_rules(DEFAULT_RULES), set_mesh(mesh):
+            s0 = init_train_state(p0)
+            p2, _, m2 = bit_step(lay_out(p0, sh), {"m": lay_out(s0["m"], sh), "v": lay_out(s0["v"], sh),
+                                                   "step": s0["step"]}, batch)
+        same = [torch.equal(a, b.full_tensor()) for a, b in zip(tree_leaves(p1), tree_leaves(p2))]
+        loss_equal = float(m1["loss"]) == float(m2["loss"])
+        gnorm_equal = float(m1["grad_norm"]) == float(m2["grad_norm"])
+        emit({"phase": "lm_mesh_slice", "check": "mesh_vs_no_mesh_bitwise", "arch": cut.name, "mesh": [1, 1],
+              "n_repeats": cut.n_repeats, "cut": f"depth {full.n_repeats} -> {cut.n_repeats} repeats, width full",
+              "batch": TRAIN_FULL["batch"], "seq": TRAIN_FULL["seq"], "loss_no_mesh": float(m1["loss"]),
+              "loss_mesh": float(m2["loss"]), "loss_equal": loss_equal, "grad_norm_equal": gnorm_equal,
+              "params_equal": sum(same), "params": len(same), "card": smi})
+        check(loss_equal and gnorm_equal and all(same),
+              f"mesh step differs from the step without a mesh: loss {loss_equal}, {sum(same)}/{len(same)} params")
+        del p0, p1, p2, m1, m2, sh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (c) ring attention and GPipe on the card
+        ring = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        g = torch.Generator(device=dev).manual_seed(11)
+        S, Hh, D = TRAIN_FULL["seq"], full.n_heads, full.head_dim
+        q, k, v = (torch.randn((1, S, Hh, D), generator=g, device=dev) for _ in range(3))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        spec = AttnSpec(kind="global")
+        zero_counts()
+        out = ring_attention(q, k, v, pos, spec, ring, axis="data").full_tensor()
+        ref = _sdpa_plain(q, k, v, pos, pos, spec, 0.0)
+        ring_err = float((out - ref).abs().max())
+        ring_ms = cuda_ms(torch, lambda: ring_attention(q, k, v, pos, spec, ring, axis="data"), 5)
+        plain_ms = cuda_ms(torch, lambda: _sdpa_plain(q, k, v, pos, pos, spec, 0.0), 5)
+        del out, ref
+        pipe = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+        ws = torch.randn((1, full.d_model, full.d_model), generator=g, device=dev) / full.d_model ** 0.5
+        xs = torch.randn((8, 2, full.d_model), generator=g, device=dev)
+        gp = gpipe(lambda w, x: torch.tanh(x @ w), ws, xs, pipe, axis="pipe").full_tensor()
+        gp_err = float((gp - torch.tanh(xs @ ws[0])).abs().max())
+        check_counts(kernel_counts(), {}, "ring attention and GPipe: plain PyTorch, no kernel")
+        emit({"phase": "lm_mesh_slice", "check": "ring_attention_and_gpipe", "ring_shape": [1, S, Hh, D],
+              "ring_spec": "global causal fp32", "ring_max_abs_err": ring_err, "ring_tolerance": RING_TOL,
+              "ring_ms": ring_ms, "sdpa_plain_ms": plain_ms, "gpipe_stages": 1, "gpipe_micro": 8,
+              "gpipe_max_abs_err": gp_err, "gpipe_tolerance": GPIPE_TOL, "card": smi})
+        check(ring_err <= RING_TOL and gp_err <= GPIPE_TOL, f"ring attention {ring_err}, gpipe {gp_err}")
+        del q, k, v, ws, xs, gp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (d) the launcher's --mesh 1x1 --distributed under torchrun's environment
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-1.6b", "--smoke",
+                           "--mesh", "1x1", "--distributed", "--steps", "3", "--ckpt-dir",
+                           os.path.join(work, "launch_mesh")], capture_output=True, text=True, env=env, timeout=600)
+    launch_s = time.perf_counter() - t0
+    done = "done at step 3" in proc.stdout and "on cuda" in proc.stdout
+    emit({"phase": "lm_mesh_slice", "check": "launcher_mesh_distributed", "returncode": proc.returncode,
+          "argv": "--arch stablelm-1.6b --smoke --mesh 1x1 --distributed --steps 3", "world_size": 1,
+          "backend": "nccl", "seconds": launch_s, "stdout_tail": proc.stdout[-400:], "card": smi})
+    check(proc.returncode == 0 and done, f"launcher --mesh 1x1 --distributed: {proc.stdout[-800:]} {proc.stderr[-2000:]}")
+
+    # ---- (e) several ranks, on the host's CPU with its own torch
+    cpu_work = os.path.join(work, "cpu_mesh")
+    os.makedirs(cpu_work, exist_ok=True)
+    t0 = time.perf_counter()
+    world = MESH_CPU_SHAPE[0] * MESH_CPU_SHAPE[1]
+    mp.start_processes(_cpu_mesh_rank, args=(world, cpu_work), nprocs=world, start_method="spawn")
+    with open(os.path.join(cpu_work, "cpu_mesh.json")) as f:
+        res = json.load(f)
+    worst = {k: max(r[k] for r in res["rows"]) for k in
+             ("loss_abs_err", "param_max_abs_err", "grad_norm_rel_err", "moment_max_rel_err")}
+    limits = {"loss_abs_err": MESH_LOSS_TOL, "param_max_abs_err": MESH_PARAM_TOL,
+              "grad_norm_rel_err": MESH_GNORM_RTOL, "moment_max_rel_err": MESH_MOMENT_RTOL}
+    emit({"phase": "lm_mesh_slice", "check": "cpu_multirank", "device": "cpu (a CPU check on the card host)",
+          "backend": "gloo", "mesh": list(MESH_CPU_SHAPE), "torch": res["torch"], "archs": len(res["rows"]),
+          "worst": worst, "tolerance": limits, "rows": res["rows"], "seconds": time.perf_counter() - t0})
+    check(all(worst[k] <= limits[k] for k in limits), f"CPU multi-rank steps: worst {worst}, limits {limits}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_mesh_slice", "check": "done", "seconds": seconds, "card": smi})
     return seconds
+
 
 
 def main() -> None:
@@ -3049,8 +3382,22 @@ def main() -> None:
     lm_slice(torch, smi, dev)
     # ---- phase 8: LM training and checkpoints (smoke archs card vs CPU,
     # stablelm-1.6b at full width, remat, train -> checkpoint -> serve, the
-    # train_lm example)
-    train_slice(torch, smi, dev)
+    # train_lm example); checkpoints under the checkout's build/ (git
+    # ignores it), the full-width one (19.7 GB) kept for phase 9
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_slice.", dir=os.path.join(ROOT, "build"))
+    try:
+        trained = train_slice(torch, smi, dev, work)
+        # ---- phase 9: LM sharding (elastic restore of phase 8's checkpoint
+        # onto a (1, 1) DeviceMesh and steps on it, bit for bit against no
+        # mesh, ring attention and GPipe, the launcher's --mesh
+        # --distributed, a 4-rank CPU check of every arch)
+        lm_mesh_slice(torch, smi, dev, trained, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -9,6 +9,12 @@ either package restores in the other bit for bit. bfloat16 leaves are stored
 as JAX stores them, two raw bytes each (numpy's ``V2``), without
 ``ml_dtypes``. Writes go to a temp dir + atomic rename; a partially written
 checkpoint is never visible.
+
+DTensor leaves (state laid out on a ``DeviceMesh``) are gathered whole with
+``full_tensor()`` on the calling thread, every rank taking part; in a
+process group of several ranks only rank 0 writes and the others wait at a
+barrier. The layout on disk is the same, so a checkpoint written under one
+mesh restores under any other, and in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.models.model import tree_unflatten
+from repro_torch.sharding.compat import is_dtensor
+from repro_torch.sharding.partitioning import device_put
 
-__all__ = ["save_pytree", "load_pytree", "load_meta", "tree_paths"]
+__all__ = ["save_pytree", "load_pytree", "load_meta", "tree_paths", "is_writer", "group_barrier"]
 
 _SEP = "|"
 
@@ -46,11 +54,40 @@ def tree_paths(tree) -> dict:
     return out
 
 
+def _grouped() -> bool:
+    """True inside a process group of more than one rank."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def is_writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group
+    of several ranks, or the process alone."""
+    import torch.distributed as dist
+
+    return not _grouped() or dist.get_rank() == 0
+
+
+def group_barrier() -> None:
+    """A barrier over the process group when it has several ranks."""
+    if _grouped():
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective: every rank calls it); a
+    plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def _host_array(leaf) -> np.ndarray:
-    """A leaf (tensor, numpy array or number) as a host numpy array; bf16
-    as its raw two bytes (``V2``), the bytes JAX writes for it."""
+    """A leaf (tensor, DTensor, numpy array or number) as a host numpy
+    array; bf16 as its raw two bytes (``V2``), the bytes JAX writes for it."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _full(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
@@ -58,12 +95,26 @@ def _host_array(leaf) -> np.ndarray:
 
 
 def save_pytree(path: str, tree, meta: Optional[dict] = None) -> None:
-    """Atomic: write into ``<path>.tmp.*`` then rename to ``<path>``."""
+    """Atomic: write into ``<path>.tmp.*`` then rename to ``<path>``. In a
+    process group of several ranks only rank 0 writes; a tree of DTensors
+    is saved by every rank (each leaf is gathered), and every rank returns
+    after rank 0's write."""
+    leaves = tree_paths(tree)
+    gathered = any(is_dtensor(v) for v in leaves.values())
+    arrays = {k: _host_array(v) for k, v in leaves.items()}
+    try:
+        if is_writer():
+            _write(path, arrays, meta)
+    finally:
+        if gathered:
+            group_barrier()
+
+
+def _write(path: str, arrays: dict, meta: Optional[dict]) -> None:
     parent = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=os.path.basename(path) + ".tmp.", dir=parent)
     try:
-        arrays = {k: _host_array(v) for k, v in tree_paths(tree).items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta or {}, f)
@@ -84,13 +135,18 @@ def _as_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(arr).to(dtype)
 
 
-def load_pytree(path: str, like, device=None) -> Any:
+def load_pytree(path: str, like, device=None, shardings=None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors or meta
     tensors, JAX's ``ShapeDtypeStruct``), each leaf cast to its ``like``
     leaf's dtype, on ``device`` (default: the CUDA card). A key missing from
     the checkpoint or a shape that differs raises ``ValueError``. Only the
-    keys ``like`` names are read."""
-    dev = resolve_device(device)
+    keys ``like`` names are read.
+
+    ``shardings``: an optional matching tree of ``NamedSharding``s (as in
+    JAX). Each such leaf is read on the host and laid out straight onto its
+    mesh (``device_put``: this rank's shard only goes to the device), one
+    leaf at a time, so the full state is never on any device at once."""
+    shard_paths = tree_paths(shardings) if shardings is not None else {}
     like_paths = tree_paths(like)
     leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as z:
@@ -101,8 +157,10 @@ def load_pytree(path: str, like, device=None) -> Any:
             arr = z[key]
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
-            leaves.append(_as_tensor(arr, leaf.dtype).to(dev))
+            t = _as_tensor(arr, leaf.dtype)
             del arr
+            leaves.append(device_put(t, shard_paths[key]) if key in shard_paths else t.to(resolve_device(device)))
+            del t
     return tree_unflatten(like, leaves)
 
 

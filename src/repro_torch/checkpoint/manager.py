@@ -11,6 +11,12 @@ Failure model covered:
                            may change its tensors at once and never blocks
                            on disk. One save is in flight at a time; its
                            error is raised by the next ``wait()``.
+
+On DTensor state the snapshot gathers each leaf whole (``full_tensor()``)
+on the calling thread, every rank taking part: never on the writer thread,
+where the ranks' collectives would not line up. In a process group of
+several ranks only rank 0 writes (and prunes); every rank meets the others
+at a barrier in ``wait()``, after rank 0's write has finished.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.models.model import tree_map
 
-from .checkpointer import load_meta, load_pytree, save_pytree
+from .checkpointer import _full, group_barrier, is_writer, load_meta, load_pytree, save_pytree
 
 __all__ = ["CheckpointManager"]
 
@@ -32,8 +38,9 @@ _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
 def _snapshot(tree):
-    """A host copy of every tensor of ``tree`` (other leaves as they are)."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t, tree)
+    """A host copy of every tensor of ``tree`` (DTensors gathered whole;
+    other leaves as they are)."""
+    return tree_map(lambda t: _full(t.detach()).to("cpu", copy=True) if isinstance(t, torch.Tensor) else t, tree)
 
 
 class CheckpointManager:
@@ -44,6 +51,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier_due = False
 
     # ----------------------------------------------------------- inventory
     def steps(self):
@@ -67,10 +75,15 @@ class CheckpointManager:
         self.wait()  # one in-flight save at a time; surfaces prior errors
         meta = dict(meta or {}, step=step)
         snapshot = _snapshot(tree)
+        self._barrier_due = True
+        if not is_writer():
+            if not self.async_save:
+                self.wait()
+            return
 
         def work():
             try:
-                save_pytree(self._path(step), snapshot, meta)
+                save_pytree(self._path(step), snapshot, meta)  # a host snapshot: no gather, no barrier
                 self._gc()
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
@@ -80,7 +93,7 @@ class CheckpointManager:
             self._thread.start()
         else:
             work()
-            self._raise_if_failed()
+            self.wait()
 
     def save_sync(self, step: int, tree, meta: Optional[dict] = None):
         prev = self.async_save
@@ -94,6 +107,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier_due:
+            self._barrier_due = False
+            group_barrier()
         self._raise_if_failed()
 
     def _raise_if_failed(self):
@@ -107,11 +123,13 @@ class CheckpointManager:
             shutil.rmtree(self._path(s), ignore_errors=True)
 
     # ------------------------------------------------------------- restore
-    def restore(self, like, step: Optional[int] = None, device=None):
+    def restore(self, like, step: Optional[int] = None, device=None, shardings=None):
         """Returns ``(tree, meta)``. ``like`` may be tensors or meta
-        tensors; leaves land on ``device`` (default: the CUDA card)."""
+        tensors; leaves land on ``device`` (default: the CUDA card), or,
+        where the optional ``shardings`` tree has one, straight onto its
+        mesh (see :func:`load_pytree`)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         path = self._path(step)
-        return load_pytree(path, like, device), load_meta(path)
+        return load_pytree(path, like, device, shardings), load_meta(path)

@@ -5,13 +5,17 @@ recurrences are ``jnp`` there).
 
 Parameters and caches are nested dicts of tensors in the JAX layout;
 :func:`params_from_jax` and :func:`caches_from_jax` carry the JAX
-package's trees over, :func:`init_params` draws the port's own."""
+package's trees over, :func:`init_params` draws the port's own, and
+:func:`param_logical_axes` / :func:`cache_logical_axes` name each leaf's
+logical sharding axes."""
 from .model import (
+    cache_logical_axes,
     caches_from_jax,
     forward,
     init_caches,
     init_params,
     model_flops_per_token,
+    param_logical_axes,
     params_from_jax,
     splice_cache,
     tree_leaves,
@@ -20,11 +24,13 @@ from .model import (
 )
 
 __all__ = [
+    "cache_logical_axes",
     "caches_from_jax",
     "forward",
     "init_caches",
     "init_params",
     "model_flops_per_token",
+    "param_logical_axes",
     "params_from_jax",
     "splice_cache",
     "tree_leaves",

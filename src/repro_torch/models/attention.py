@@ -21,7 +21,10 @@ import torch
 
 from repro_torch.configs.base import AttnSpec, ModelConfig
 
-from .layers import apply_rope, dense, dtype_of, init_dense, rope_angles
+from repro_torch.sharding.compat import is_dtensor
+from repro_torch.sharding.partitioning import logical_constraint, logical_constraint_padded
+
+from .layers import apply_rope, dense, dtype_of, init_dense, mesh_like, on_local_shards, rope_angles, splittable
 
 __all__ = ["init_attention", "attention", "init_cache", "NEG_INF"]
 
@@ -87,7 +90,7 @@ def _dequantize_kv(q, scale, dt):
 
 
 def _split_heads(x, n, d):
-    return x.reshape(*x.shape[:-1], n, d)
+    return splittable(x, x.ndim - 1, n).reshape(*x.shape[:-1], n, d)
 
 
 def _mask_logits(logits, qpos, kpos, spec: AttnSpec):
@@ -178,7 +181,14 @@ def _sdpa_blocked(q, k, v, qpos, kpos, spec: AttnSpec, softcap: float,
 
 
 def _sdpa(q, k, v, qpos, kpos, spec: AttnSpec, softcap: float):
-    """Dispatch: blocked online-softmax path for long sequences."""
+    """Dispatch: blocked online-softmax path for long sequences; DTensors
+    attend on each rank's local shards (``on_local_shards``)."""
+    if is_dtensor(q):
+        # attention is independent per row and head: each rank attends on
+        # its local shards (torch 2.11's DTensor cannot flatten sharded
+        # batch and head dims together into the einsums' batched products)
+        return on_local_shards(lambda *a: _sdpa(*a, spec, softcap), [q, k, v, qpos, kpos],
+                               [(0, 2), (0, 2), (0, 2), (0, None), (0, None)], (0, 2))
     Sq, Sk = q.shape[1], k.shape[1]
     if Sq >= FLASH_MIN_SEQ and Sq == Sk and Sq % FLASH_Q_BLOCK == 0:
         return _sdpa_blocked(q, k, v, qpos, kpos, spec, softcap)
@@ -197,7 +207,7 @@ def _write_cache(cache, k_new, v_new, pos_new, slots):
     """A copy of ``cache`` with ``(k_new, v_new, pos_new)`` (B, m, ...) in
     ``slots`` (B, m) of each row (JAX's ``.at[bidx, slots].set``)."""
     B = slots.shape[0]
-    bidx = torch.arange(B, device=slots.device)[:, None]
+    bidx = mesh_like(torch.arange(B, device=slots.device)[:, None], slots)
     slots = slots.long()
     out = {name: t.clone() for name, t in cache.items()}
     if "k_scale" in cache:
@@ -211,6 +221,8 @@ def _write_cache(cache, k_new, v_new, pos_new, slots):
         out["k"][bidx, slots] = k_new.to(cache["k"].dtype)
         out["v"][bidx, slots] = v_new.to(cache["v"].dtype)
     out["pos"][bidx, slots] = pos_new.to(torch.int32)
+    for name in ("k", "v"):
+        out[name] = logical_constraint(out[name], "batch", "kv_len", "kv_heads", "kv_dim")
     return out
 
 
@@ -239,6 +251,9 @@ def attention(
     act = dtype_of(cfg.act_dtype)
     B, S, _ = x.shape
     q = _split_heads(dense(params["q"], x, act), cfg.n_heads, cfg.head_dim)
+    # padded constraint: queries are head-sharded even when n_heads does
+    # not divide the model axis (llama4: 40/16), see logical_constraint_padded
+    q = logical_constraint_padded(q, "batch", "seq", "heads", None)
 
     if kv_override is not None:
         src, src_pos = kv_override
@@ -246,15 +261,19 @@ def attention(
         v = _split_heads(dense(params["v"], src, act), cfg.n_kv_heads, cfg.head_dim)
         cross_spec = AttnSpec(kind="global", rope=False, causal=False)
         out = _sdpa(q, k, v, positions, src_pos, cross_spec, spec.softcap)
-        return dense(params["o"], out.reshape(B, S, -1), act), None
+        y = dense(params["o"], out.reshape(B, S, -1), act)
+        return logical_constraint(y, "batch", "seq", "embed"), None
 
     k = _split_heads(dense(params["k"], x, act), cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(dense(params["v"], x, act), cfg.n_kv_heads, cfg.head_dim)
+    k = logical_constraint(k, "batch", "seq", "kv_heads", None)
+    v = logical_constraint(v, "batch", "seq", "kv_heads", None)
     q, k = _apply_rope_qk(q, k, positions, positions, spec, cfg.head_dim)
 
     if mode == "train":
         out = _sdpa(q, k, v, positions, positions, spec, spec.softcap)
-        return dense(params["o"], out.reshape(B, S, -1), act), None
+        y = dense(params["o"], out.reshape(B, S, -1), act)
+        return logical_constraint(y, "batch", "seq", "embed"), None
 
     if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache")
@@ -265,7 +284,7 @@ def attention(
         m = min(S, L)
         tail = positions[:, S - m:]
         new_cache = _write_cache(cache, k[:, S - m:], v[:, S - m:], tail, tail % L)
-        return y, new_cache
+        return logical_constraint(y, "batch", "seq", "embed"), new_cache
 
     if mode == "decode":
         if S != 1:
@@ -274,6 +293,7 @@ def attention(
         new_cache = _write_cache(cache, k, v, positions, positions[:, :1] % L)
         kc, vc = _read_cache(new_cache, q.dtype)
         out = _sdpa(q, kc, vc, positions, new_cache["pos"], spec, spec.softcap)
-        return dense(params["o"], out.reshape(B, S, -1), act), new_cache
+        y = dense(params["o"], out.reshape(B, S, -1), act)
+        return logical_constraint(y, "batch", "seq", "embed"), new_cache
 
     raise ValueError(f"unknown mode {mode!r}")

@@ -9,7 +9,7 @@ import torch
 from repro_torch.configs.base import BlockSpec, ModelConfig
 
 from .attention import attention, init_attention, init_cache
-from .layers import apply_norm, dtype_of, init_norm
+from .layers import apply_norm, dtype_of, init_norm, mesh_like
 from .moe import ffn_apply, init_ffn, init_moe, moe_ffn
 from .recurrent import (
     init_mlstm_block,
@@ -88,7 +88,7 @@ def block_apply(
             raise ValueError("a cross_attn block needs cross_ctx")
         h = apply_norm(params["ln_x"], x, cfg.norm)
         n_ctx = cross_ctx.shape[1]
-        src_pos = torch.arange(n_ctx, dtype=torch.int32, device=x.device)[None].expand(x.shape[0], n_ctx)
+        src_pos = mesh_like(torch.arange(n_ctx, dtype=torch.int32, device=x.device)[None].expand(x.shape[0], n_ctx), x)
         y, _ = attention(params["cross"], h, cfg, spec.attn, positions, mode="train",
                          kv_override=(cross_ctx.to(h.dtype), src_pos))
         x = x + y

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.compat import PartitionSpec, dtensor_api, is_dtensor, shard_map
+
 __all__ = [
     "dtype_of",
     "init_dense",
@@ -26,7 +28,90 @@ __all__ = [
     "rope_angles",
     "apply_rope",
     "cross_entropy_loss",
+    "mesh_like",
+    "on_local_shards",
+    "splittable",
 ]
+
+
+def mesh_like(t: torch.Tensor, like) -> torch.Tensor:
+    """A tensor the model makes itself (positions, rope tables, masks, zero
+    states, iotas, one-hots) laid out beside ``like``: when ``like`` is a
+    DTensor, ``t`` (the same full value on every rank) becomes a DTensor on
+    ``like``'s mesh, replicated, with no communication; otherwise (or when
+    ``t`` is a DTensor already) ``t`` as it is, so without a mesh the
+    models compute what they always did."""
+    if not is_dtensor(like) or is_dtensor(t):
+        return t
+    DTensor, _, Replicate, _, _ = dtensor_api()
+    mesh = like.device_mesh
+    return DTensor.from_local(t.contiguous(), mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def on_local_shards(fn, args, dims, out_dims):
+    """``fn`` on each rank's local shards, for an op that is independent per
+    row (and per head) and that DTensor cannot shard (or, on torch 2.11,
+    cannot flatten or differentiate): builds the specs and runs ``fn``
+    through :func:`repro_torch.sharding.compat.shard_map`. ``dims[i]`` is
+    ``args[i]``'s (row dim, head dim), either ``None``; ``out_dims`` the
+    same for each output (one pair for a single output, a list for a
+    tuple). Rows stay sharded over each mesh axis that shards ``args[0]``'s
+    row dim evenly; heads over each that shards every head dim evenly (so a
+    rank's heads meet their own); the rest is replicated first. An argument
+    without a row (head) dim is whole on every rank of such an axis, and
+    ``shard_map`` sums its gradient over them. Plain arguments are taken as
+    replicated; with no DTensor among ``args``, just ``fn(*args)``."""
+    mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
+    if mesh is None:
+        return fn(*args)
+    Shard, Replicate = dtensor_api()[1:3]
+    lead, r0 = args[0], dims[0][0]
+    heads_in = [(a, h) for a, (_, h) in zip(args, dims) if h is not None]
+    placed = lambda a, m: a.placements[m] if is_dtensor(a) else Replicate()
+    rows = heads = 1
+    row_axes, head_axes = [], []
+    for m, (name, size) in enumerate(zip(mesh.mesh_dim_names, mesh.shape)):
+        p = placed(lead, m)
+        if r0 is not None and isinstance(p, Shard) and p.dim == r0 and lead.shape[r0] % (rows * size) == 0:
+            rows *= size
+            row_axes.append(name)
+        elif heads_in and all(isinstance(placed(a, m), Shard) and placed(a, m).dim == h
+                              and a.shape[h] % (heads * size) == 0 for a, h in heads_in):
+            heads *= size
+            head_axes.append(name)
+
+    def spec(d, output=False):
+        """The spec of a tensor with (row, head) dims ``d``; an output must
+        have each dim the mesh splits."""
+        entries = [None] * (max((x for x in d if x is not None), default=-1) + 1)
+        for axes, dim in ((row_axes, d[0]), (head_axes, d[1])):
+            if axes and dim is None and output:
+                raise ValueError(f"an output with (row, head) dims {d} on a mesh splitting rows over "
+                                 f"{row_axes}, heads over {head_axes}")
+            if axes and dim is not None:
+                entries[dim] = tuple(axes)
+        return PartitionSpec(*entries)
+
+    out_specs = tuple(spec(d, True) for d in out_dims) if isinstance(out_dims, list) else spec(out_dims, True)
+    return shard_map(fn, mesh, tuple(spec(d) for d in dims), out_specs)(*args)
+
+
+def splittable(x, dim: int, n: int):
+    """``x`` ready to split dimension ``dim`` into ``(n, ...)``: a DTensor
+    sharded on it over more ranks than ``n`` divides is replicated along it
+    first (DTensor cannot unflatten such a shard; GSPMD pads instead).
+    Shards that divide, and plain tensors, stay as they are."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    Shard, Replicate = dtensor_api()[1:3]
+    on_dim = [isinstance(p, Shard) and p.dim % x.ndim == dim for p in x.placements]
+    ways = 1
+    for size, hit in zip(mesh.shape, on_dim):
+        ways *= size if hit else 1
+    if n % ways == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if hit else p for p, hit in zip(x.placements, on_dim)])
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -113,7 +198,7 @@ def rope_angles(positions: torch.Tensor, head_dim, theta=10000.0, fraction=1.0):
     (stablelm partial rotary)."""
     rot = int(head_dim * fraction)
     rot -= rot % 2
-    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=positions.device) / rot
+    exps = mesh_like(torch.arange(0, rot, 2, dtype=torch.float32, device=positions.device), positions) / rot
     freqs = 1.0 / (theta ** exps)
     ang = positions.to(torch.float32)[..., None] * freqs  # (B,S,rot/2)
     return torch.cos(ang), torch.sin(ang), rot
@@ -139,7 +224,13 @@ def cross_entropy_loss(logits, labels, mask=None, z_loss=1e-4) -> torch.Tensor:
     autograd."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, labels.long()[..., None])
+    if is_dtensor(ll):
+        # the gathered logits reduce over the vocab shards into lse's layout
+        # ahead of the select: DTensor's masked partial of a gather cannot
+        # reduce once the gathered axis is gone
+        ll = ll.redistribute(ll.device_mesh, lse.placements)
+    ll = ll[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse**2

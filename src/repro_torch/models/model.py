@@ -5,10 +5,14 @@ Parameters and caches keep the JAX layout: every leaf of a pattern block
 has a leading ``n_repeats`` axis (JAX stacks them with ``jax.vmap`` and
 scans over them with ``jax.lax.scan``); the port loops over the repeats in
 Python, indexing the stacked tensors, so the JAX package's trees carry over
-as a pure relabel (:func:`params_from_jax`, :func:`caches_from_jax`). The
-logical sharding axes (``param_logical_axes``, ``cache_logical_axes``) are
-not ported (ROADMAP A11c); where JAX constrains a tensor to them, the port
-does nothing.
+as a pure relabel (:func:`params_from_jax`, :func:`caches_from_jax`).
+
+:func:`param_logical_axes` / :func:`cache_logical_axes` give trees of
+logical axis names mirroring the parameter and cache trees (resolved to
+DTensor layouts by ``repro_torch.sharding.partitioning``), built from meta
+tensors. With DTensor parameters under ``axis_rules`` and ``set_mesh`` the
+forward pass constrains its activations where JAX does; without a mesh
+those constraints do nothing.
 
 In ``mode="train"`` under autograd each repeat's body is rematerialised as
 ``cfg.remat`` says, as JAX wraps it in ``jax.checkpoint``: ``"full"`` keeps
@@ -21,6 +25,7 @@ values and the same loss.
 from __future__ import annotations
 
 import functools
+import re
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,11 +36,15 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 from .blocks import block_apply, init_block, init_block_cache
-from .layers import apply_norm, dense, dtype_of, init_dense, init_embedding, init_norm
+from repro_torch.sharding.partitioning import logical_constraint
+
+from .layers import apply_norm, dense, dtype_of, init_dense, init_embedding, init_norm, mesh_like, on_local_shards
 
 __all__ = [
     "init_params",
+    "param_logical_axes",
     "init_caches",
+    "cache_logical_axes",
     "splice_cache",
     "forward",
     "model_flops_per_token",
@@ -141,12 +150,80 @@ def caches_from_jax(tree, device=None):
     return params_from_jax(tree, device)
 
 
+# ------------------------------------------------- logical axes for sharding
+_PARAM_AXES_RULES = [
+    # (path regex, ndim -> logical axes)
+    (r"embed/table", ("vocab", "fsdp")),
+    (r"head/kernel", ("fsdp", "vocab")),
+    (r"(attn|cross)/(q|k|v)/kernel", ("fsdp", "qkv")),
+    (r"(attn|cross)/(q|k|v)/bias", ("qkv",)),
+    (r"(attn|cross)/o/kernel", ("qkv", "fsdp")),
+    (r"moe/router/kernel", ("fsdp", None)),
+    (r"moe/w_(gate|up)", ("expert", "fsdp", "expert_mlp")),
+    (r"moe/w_down", ("expert", "expert_mlp", "fsdp")),
+    (r"(mlp|shared)/(gate|up)/kernel", ("fsdp", "mlp")),
+    (r"(mlp|shared)/down/kernel", ("mlp", "fsdp")),
+    (r"mixer/(in_proj|gate_proj|up_proj)/kernel", ("fsdp", "rnn")),
+    (r"mixer/(q|k|v|lru_a|lru_x|ifgate)/kernel", (None, "rnn")),
+    (r"mixer/rec_proj/kernel", (None, None, "rnn")),  # block-diagonal sLSTM
+    (r"mixer/(out_proj|down_proj)/kernel", ("rnn", "fsdp")),
+    (r"mixer/conv/kernel", (None, "rnn")),
+    (r"mixer/lambda", ("rnn",)),
+    (r"in_proj/kernel", ("fsdp", "rnn")),
+]
+
+_CACHE_AXES = [
+    # kv_heads and kv_dim both map to the model axis; divisibility-aware
+    # resolution picks heads when they divide TP, else head_dim (see
+    # sharding.partitioning.param_sharding).
+    (r"attn/(k|v)$", ("batch", "kv_len", "kv_heads", "kv_dim")),
+    (r"attn/(k|v)_scale$", ("batch", "kv_len", "kv_heads")),
+    (r"attn/pos$", ("batch", "kv_len")),
+    (r"state/(h|c|n|m)$", ("batch", "rnn")),
+    (r"state/conv$", ("batch", None, "rnn")),
+    (r"state/C$", ("batch", "heads", None, None)),
+]
+
+
+def _annotate(tree, rules, path=()):
+    """Logical axes of every leaf of ``tree`` (meta tensors) by the first
+    rule whose regex its ``/``-joined path matches, cut or padded with
+    ``None`` to the leaf's rank; pattern leaves get a leading ``"stack"``."""
+    if isinstance(tree, dict):
+        return {k: _annotate(v, rules, path + (str(k),)) for k, v in tree.items()}
+    if tree is None:
+        return None
+    p = "/".join(path)
+    stacked = p.startswith("pattern")
+    nd = tree.ndim - (1 if stacked else 0)
+    axes = (None,) * nd
+    for pat, a in rules:
+        if re.search(pat, p):
+            a = tuple(a)[:nd]
+            axes = a + (None,) * (nd - len(a))
+            break
+    return (("stack",) + axes) if stacked else axes
+
+
+def param_logical_axes(cfg: ModelConfig):
+    """Tree of logical-axis tuples matching :func:`init_params`' structure,
+    from meta tensors (no memory at any width). Pattern-stacked leaves get a
+    leading ``"stack"`` axis; norms, biases and small vectors replicate."""
+    return _annotate(init_params(0, cfg, device="meta"), _PARAM_AXES_RULES)
+
+
+def cache_logical_axes(cfg: ModelConfig, batch: int, max_len: int):
+    """Tree of logical-axis tuples matching :func:`init_caches`' structure
+    (meta tensors)."""
+    return _annotate(init_caches(cfg, batch, max_len, device="meta"), _CACHE_AXES)
+
+
 # ----------------------------------------------------------------- caches
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Decode caches for ``batch`` rows of up to ``max_len`` tokens on
-    ``device`` (default: the CUDA card); pattern leaves carry the leading
-    ``n_repeats`` axis."""
-    dev = resolve_device(device)
+    ``device`` (default: the CUDA card; ``"meta"`` for shapes and dtypes
+    only); pattern leaves carry the leading ``n_repeats`` axis."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     caches = {}
     if cfg.n_repeats > 0:
         caches["pattern"] = {
@@ -200,12 +277,17 @@ def forward(
     if embeds is not None:
         x = embeds.to(act)
     else:
-        x = params["embed"]["table"][tokens.long()].to(act)
+        # on a mesh each rank looks its rows up in the whole table (DTensor
+        # cannot shard the lookup's backward on torch 2.11, nor a
+        # vocab-sharded lookup's masked partial on 2.13)
+        x = on_local_shards(lambda t, table: table[t.long()], [tokens, params["embed"]["table"]],
+                            [(0, None), (None, None)], (0, None)).to(act)
     if cfg.emb_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model), device=x.device)).to(act)
     B, S = x.shape[:2]
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        positions = mesh_like(torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S), x)
+    x = logical_constraint(x, "batch", "seq", "embed")
     if cross_ctx is not None:
         cross_ctx = cross_ctx.to(act)
 
@@ -267,6 +349,7 @@ def forward(
         logits = dense(params["head"], x, act)
     if cfg.logit_softcap > 0.0:
         logits = cfg.logit_softcap * torch.tanh(logits.to(torch.float32) / cfg.logit_softcap)
+    logits = logical_constraint(logits, "batch", "seq", "vocab")
     return logits, (new_caches if new_caches else None), aux_total
 
 

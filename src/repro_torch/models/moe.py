@@ -18,6 +18,7 @@ einsum dispatch drops a token past capacity.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -26,7 +27,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoESpec
 
-from .layers import dense, dtype_of, gelu, init_dense, normal
+from repro_torch.sharding.partitioning import logical_constraint
+
+from .layers import dense, dtype_of, gelu, init_dense, mesh_like, normal, on_local_shards
 
 __all__ = ["init_moe", "moe_ffn", "init_ffn", "ffn_apply"]
 
@@ -49,6 +52,7 @@ def ffn_apply(params, x, kind: str, act_dtype):
         h = act(dense(params["gate"], x, act_dtype)) * dense(params["up"], x, act_dtype)
     else:
         h = gelu(dense(params["up"], x, act_dtype))
+    h = logical_constraint(h, "batch", "seq", "mlp")
     return dense(params["down"], h, act_dtype)
 
 
@@ -70,14 +74,17 @@ def init_moe(gen, cfg: ModelConfig, spec: MoESpec, lead=(), device=None):
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """``jax.nn.one_hot``: a zero row for an index outside [0, n)."""
-    return (idx.long()[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+    return (idx.long()[..., None] == mesh_like(torch.arange(n, device=idx.device), idx)).to(dtype)
 
 
 def _router(params, x, spec: MoESpec):
     """Returns (gates (..., K), idx (..., K), probs (..., E)) in fp32."""
     logits = dense(params["router"], x.to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
-    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    # on a mesh, each rank sorts its rows' local shards (torch 2.11's DTensor
+    # cannot differentiate the sort)
+    vals, order = on_local_shards(lambda p: tuple(torch.sort(p, dim=-1, descending=True, stable=True)),
+                                  [probs], [(0, None)], [(0, None), (0, None)])
     gates, idx = vals[..., : spec.top_k], order[..., : spec.top_k]
     if spec.norm_topk:
         gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True), min=1e-9)
@@ -91,6 +98,15 @@ def _aux_loss(probs, idx, spec: MoESpec):
     frac_tokens = torch.mean(onehot, dim=tuple(range(onehot.ndim - 1)))
     mean_probs = torch.mean(probs, dim=tuple(range(probs.ndim - 1)))
     return E * torch.sum(frac_tokens * mean_probs) * spec.router_aux_weight
+
+
+def _expert_axes(spec: MoESpec):
+    """Logical sharding of the token-in-expert tensors by EP/TP mode: the TP
+    axis carries either the expert axis (EP) or the expert hidden dim (TP),
+    never both."""
+    if spec.sharding == "ep":
+        return "expert", None
+    return None, "expert_mlp"
 
 
 def _moe_einsum(params, x, spec: MoESpec, act):
@@ -118,11 +134,19 @@ def _moe_einsum(params, x, spec: MoESpec, act):
     disp = torch.einsum("gske,gskc->gsec", oh * keep[..., None], slot_oh)
     comb = torch.einsum("gske,gskc,gsk->gsec", oh, slot_oh, gates_g.to(act) * keep)
 
+    eax, fax = _expert_axes(spec)
+    disp = logical_constraint(disp, "batch", None, eax, None)
     xin = torch.einsum("gsec,gsd->egcd", disp, xg.to(act))
+    xin = logical_constraint(xin, eax, "batch", None, None)
     h = F.silu(torch.einsum("egcd,edf->egcf", xin, params["w_gate"].to(act)))
     h = h * torch.einsum("egcd,edf->egcf", xin, params["w_up"].to(act))
+    h = logical_constraint(h, eax, "batch", None, fax)
     out = torch.einsum("egcf,efd->egcd", h, params["w_down"].to(act))
-    y = torch.einsum("gsec,egcd->gsd", comb, out)
+    # on a mesh, on each rank's groups with every expert: the backward of
+    # this product unflattens the contracted (e, c) axis, which DTensor
+    # cannot do once it is sharded
+    y = on_local_shards(functools.partial(torch.einsum, "gsec,egcd->gsd"), [comb, out], [(0, None), (1, None)],
+                        (0, None))
     return y.reshape(B, S, d), aux
 
 
@@ -150,6 +174,7 @@ def _moe_ragged(params, x, spec: MoESpec, act):
     G = min(spec.group_size, S)
     NG = (B * S) // G
     xg = x.reshape(NG, G, d).to(act)
+    xg = logical_constraint(xg, "batch", None, None)
     idx_g = idx.reshape(NG, G * K)
     gates_g = gates.reshape(NG, G, K).to(act)
 
@@ -173,9 +198,16 @@ def moe_ffn(params, x, cfg: ModelConfig, spec: MoESpec) -> Tuple[torch.Tensor, t
     """Routed experts + optional shared experts. Returns (y, aux_loss)."""
     act = dtype_of(cfg.act_dtype)
     if spec.dispatch == "ragged":
-        y, aux = _moe_ragged(params, x, spec, act)
+        # replicated on a mesh: the sorted dispatch sizes its groups on the
+        # host and loops over experts, which DTensor cannot shard, and its
+        # aux loss is a mean over every token
+        names = ("w_gate", "w_up", "w_down")
+        y, aux = on_local_shards(
+            lambda x, r, wg, wu, wd: _moe_ragged({"router": {"kernel": r}, **dict(zip(names, (wg, wu, wd)))},
+                                                 x, spec, act),
+            [x, params["router"]["kernel"], *(params[n] for n in names)], [(None, None)] * 5, [(None, None)] * 2)
     else:
         y, aux = _moe_einsum(params, x, spec, act)
     if spec.num_shared:
         y = y + ffn_apply(params["shared"], x, "swiglu", act)
-    return y, aux
+    return logical_constraint(y, "batch", "seq", "embed"), aux

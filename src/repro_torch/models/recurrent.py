@@ -22,8 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.compat import is_dtensor
+from repro_torch.sharding.partitioning import logical_constraint
 
-from .layers import dense, dtype_of, gelu, init_dense, normal
+from .layers import dense, dtype_of, gelu, init_dense, mesh_like, normal, on_local_shards, splittable
 
 __all__ = [
     "init_rglru_block",
@@ -45,6 +47,15 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor ``-softplus(-x)``, ``jax.nn.log_sigmoid``'s
+    own formula, since DTensor has no sharding strategy for
+    ``aten.log_sigmoid_backward``."""
+    if is_dtensor(x):
+        return -_softplus(-x)
+    return F.logsigmoid(x)
+
+
 # ============================================================ causal conv1d
 def _causal_conv(x, kernel, conv_state=None):
     """x (B,S,W), kernel (K,W) depthwise causal conv.
@@ -54,7 +65,7 @@ def _causal_conv(x, kernel, conv_state=None):
     K = kernel.shape[0]
     B, S, W = x.shape
     if conv_state is None:
-        conv_state = torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device)
+        conv_state = mesh_like(torch.zeros((B, K - 1, W), dtype=x.dtype, device=x.device), x)
     xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
     y = torch.zeros_like(x)
     for i in range(K):
@@ -103,6 +114,7 @@ def rglru_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
     act = dtype_of(cfg.act_dtype)
     gate = gelu(dense(params["gate_proj"], x, act))
     u = dense(params["in_proj"], x, act)
+    u = logical_constraint(u, "batch", "seq", "rnn")
 
     conv_state = state["conv"] if state is not None else None
     u, new_conv = _causal_conv(u, params["conv"]["kernel"].to(act), conv_state)
@@ -126,7 +138,8 @@ def rglru_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
         new_state = {"h": h_seq[:, -1], "conv": new_conv} if mode == "prefill" else None
 
     y = h_seq.to(act) * gate
-    return dense(params["out_proj"], y, act), new_state
+    y = dense(params["out_proj"], y, act)
+    return logical_constraint(y, "batch", "seq", "embed"), new_state
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, lead=(), device=None):
@@ -226,6 +239,11 @@ def _mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = MLSTM_CHUNK):
     return torch.cat(hs, dim=1), (C, n, m_prev)
 
 
+def _mlstm_chunkwise_flat(q, k, v, log_i, log_f):
+    h, (C, n, m) = _mlstm_chunkwise(q, k, v, log_i, log_f)
+    return h, C, n, m
+
+
 def mlstm_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict] = None):
     act = dtype_of(cfg.act_dtype)
     B, S, _ = x.shape
@@ -239,14 +257,14 @@ def mlstm_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
     xc = F.silu(xc)
 
     def heads(t):
-        return t.reshape(B, S, H, dh).to(torch.float32)
+        return splittable(t, 2, H).reshape(B, S, H, dh).to(torch.float32)
 
     q = heads(dense(params["q"], xc))
     k = heads(dense(params["k"], xc)) / math.sqrt(dh)
     v = heads(dense(params["v"], xm))
-    gates = dense(params["ifgate"], xc.to(torch.float32)).reshape(B, S, 2, H)
+    gates = splittable(dense(params["ifgate"], xc.to(torch.float32)), 2, 2).reshape(B, S, 2, H)
     log_i = gates[:, :, 0]
-    log_f = F.logsigmoid(gates[:, :, 1])
+    log_f = _log_sigmoid(gates[:, :, 1])
 
     if mode == "decode":
         if state is None or S != 1:
@@ -264,10 +282,13 @@ def mlstm_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
         h = (num / den[..., None])[:, None]  # (B,1,H,dh)
         new_state = {"C": C_new, "n": n_new, "m": m_new}
     elif S >= MLSTM_CHUNK_MIN_SEQ and S % MLSTM_CHUNK == 0:
-        h, (C_new, n_new, m_new) = _mlstm_chunkwise(q, k, v, log_i, log_f)
+        # both forms are independent per row and head: on a mesh, each rank
+        # runs them on its local shards (on_local_shards)
+        h, C_new, n_new, m_new = on_local_shards(_mlstm_chunkwise_flat, [q, k, v, log_i, log_f],
+                                                 [(0, 2)] * 5, [(0, 2), (0, 1), (0, 1), (0, 1)])
         new_state = {"C": C_new, "n": n_new, "m": m_new}
     else:
-        h = _mlstm_parallel(q, k, v, log_i, log_f)
+        h = on_local_shards(_mlstm_parallel, [q, k, v, log_i, log_f], [(0, 2)] * 5, (0, 2))
         new_state = None
         if mode == "prefill":
             # fold the whole prefix into the recurrent state for decoding
@@ -281,6 +302,7 @@ def mlstm_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
 
     y = h.to(act).reshape(B, S, w) * F.silu(z)
     y = dense(params["down_proj"], y, act)
+    y = logical_constraint(y, "batch", "seq", "embed")
     if mode == "train":
         return y, None
     return y, {**new_state, "conv": new_conv}
@@ -328,7 +350,7 @@ def _slstm_step(params, carry, xt):
     pre = xt + rec.to(xt.dtype)  # (B, 4w)
     i_t, f_t, z_t, o_t = torch.chunk(pre, 4, dim=-1)
     log_i = i_t  # exp input gate (log-space value)
-    log_f = F.logsigmoid(f_t)
+    log_f = _log_sigmoid(f_t)
     m_new = torch.maximum(log_f + m, log_i)
     ig = torch.exp(log_i - m_new)
     fg = torch.exp(log_f + m - m_new)
@@ -351,11 +373,20 @@ def slstm_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
         carry = (z, z, z, torch.full((B, w), -1e30, dtype=torch.float32, device=x.device))
     if mode == "decode" and S != 1:
         raise ValueError("decode takes one token per row")
-    hs = []
-    for t in range(S):
-        carry, h = _slstm_step(params, carry, pre[:, t])
-        hs.append(h)
-    y = dense(params["out_proj"], torch.stack(hs, dim=1).to(act), act)
+
+    def scan(pre, rec_kernel, *carry):
+        hs = []
+        for t in range(S):
+            carry, h = _slstm_step({"rec_proj": {"kernel": rec_kernel}}, carry, pre[:, t])
+            hs.append(h)
+        return (torch.stack(hs, dim=1), *carry)
+
+    # the recurrence is independent per row: on a mesh, each rank scans its
+    # rows' local shards with the whole recurrent kernel (on_local_shards)
+    hs, *carry = on_local_shards(scan, [pre, params["rec_proj"]["kernel"], *carry],
+                                 [(0, None), (None, None)] + [(0, None)] * 4, [(0, None)] * 5)
+    y = dense(params["out_proj"], hs.to(act), act)
+    y = logical_constraint(y, "batch", "seq", "embed")
     if mode == "train":
         return y, None
     c, n, h, m = carry

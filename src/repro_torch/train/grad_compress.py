@@ -1,23 +1,30 @@
 """Gradient compression for the data-parallel mean: the port of the JAX
-package's ``repro/train/grad_compress.py`` over the port's batch mesh.
+package's ``repro/train/grad_compress.py``.
 
 int8 quantize -> integer sum -> dequantize, with one scale shared by every
 shard of a leaf (the largest magnitude over all shards / 127, JAX's
-``pmax``), so the sum is exact in integer space. JAX runs it inside
-``shard_map`` with ``pmax`` and ``psum`` over the DP axes; the port's
-``BatchMesh`` has no collectives (ROADMAP M2), so the leading axis is split
-over the mesh's devices, the scale is the maximum of the shards' maxima,
-and the int32 sum is taken on the mesh's first device, then divided by the
-shard count and sent back to every shard's rows. The result is gathered on
-the first device, as every mesh dispatch of the port is.
+``pmax``), so the sum is exact in integer space. Two forms, equal bit for
+bit on the same data (integer sums and maxima are exact in any order):
+
+* over a ``DeviceMesh``, JAX's form: the port's ``shard_map`` over the DP
+  axes, ``all_reduce(MAX)`` of the scale and ``all_reduce(SUM)`` of the
+  int32 codes over each DP axis's group;
+* over the port's ``BatchMesh``, which has no collectives (ROADMAP M2): the
+  leading axis is split over the mesh's devices, the scale is the maximum of
+  the shards' maxima, and the int32 sum is taken on the mesh's first
+  device, then divided by the shard count and sent back to every shard's
+  rows, gathered on the first device as every mesh dispatch of the port is.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import tree_map
+from repro_torch.sharding.compat import mesh_axis_sizes, shard_map
+from repro_torch.sharding.partitioning import PartitionSpec as P
 
 __all__ = ["compressed_mean_grads", "quantize_dequantize_roundtrip"]
 
@@ -43,13 +50,37 @@ def _psum_int8(shards: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([mean] * len(shards), dim=0)
 
 
+def _psum_int8_group(g: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """JAX's ``_psum_int8`` on this rank's local gradient: the scale's
+    maximum and the codes' sum over each of ``axes``' groups."""
+    m = torch.max(torch.abs(g))
+    for a in axes:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    scale = _scale(m)
+    total = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int32)
+    n = 1
+    for a in axes:
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+        n *= mesh_axis_sizes(mesh)[a]
+    return (total.to(torch.float32) * scale) / torch.tensor(float(n), device=g.device)
+
+
 def compressed_mean_grads(grads, mesh, dp_axes=("pod", "data")):
     """Mean-reduce per-shard grads over the DP axes with int8 compression.
 
-    ``grads``: tree of tensors whose leading axis is split over ``mesh``'s
-    devices (each device's rows are its local gradient), as JAX's
-    ``P(*axes)`` lays them out. A mesh with none of ``dp_axes`` returns
-    ``grads`` as they are."""
+    ``grads``: tree of tensors laid out so that the DP axes are pure
+    replicas, JAX's ``P(*axes)``: over a ``DeviceMesh`` DTensors (or each
+    rank's same full tensors, cut here), over a ``BatchMesh`` tensors whose
+    leading axis is split over its devices. A mesh with none of
+    ``dp_axes`` returns ``grads`` as they are."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        axes = tuple(a for a in dp_axes if a in names)
+        if not axes:
+            return grads
+        fn = shard_map(lambda g: tree_map(lambda x: _psum_int8_group(x, mesh, axes), g), mesh,
+                       in_specs=(P(*axes),), out_specs=P(*axes))
+        return fn(grads)
     axes = tuple(a for a in dp_axes if a in mesh.axis_names)
     if not axes:
         return grads

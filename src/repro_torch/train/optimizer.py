@@ -8,6 +8,15 @@ computes it (the step, ``b1 ** step``, the warm-up ratio, the cosine), and
 every quotient divides by a tensor, never by a Python number, so the card
 rounds it as the CPU does. Leaves are visited in JAX's leaf order (sorted
 dict keys, :func:`repro_torch.models.tree_leaves`).
+
+On DTensor state (parameters laid out on a ``DeviceMesh``) the moments take
+each parameter's layout and the update runs on each rank's local shards
+(elementwise, so no DTensor op is dispatched). The gradients are first laid
+out as their parameters, before the norm: a replicated parameter's gradient
+comes out of the backward pass as a ``Partial`` sum over the batch-sharded
+ranks, whose local values are addends, not the leaf. The global gradient
+norm then sums each rank's share of every leaf's squares into one
+``Partial`` value reduced once.
 """
 from __future__ import annotations
 
@@ -15,8 +24,10 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.compat import dtensor_api, is_dtensor
 
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "lr_at_step", "global_norm"]
 
@@ -62,21 +73,47 @@ def lr_at_step(cfg: OptConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, _f32(cfg.lr, step) * cos)
 
 
+def _owned_share(x):
+    """This rank's share of a DTensor leaf's float32 sum of squares: the
+    sum over its local shard where this rank is coordinate 0 of every mesh
+    dimension ``x`` is replicated over, else 0, so the shares of all ranks
+    add up to the leaf's sum once. A ``Partial`` placement is reduced to
+    ``Replicate()`` first (its local values are addends of the leaf)."""
+    Replicate, Partial = dtensor_api()[2:4]
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Partial) else p for p in x.placements])
+    local = torch.sum(x.to_local().to(torch.float32) ** 2)
+    coord = x.device_mesh.get_coordinate()
+    owner = all(c == 0 for c, p in zip(coord, x.placements) if isinstance(p, Replicate))
+    return local if owner else torch.zeros_like(local)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves (JAX's leaf order) of each leaf's
-    float32 sum of squares."""
+    float32 sum of squares. DTensor leaves add each rank's share in the
+    same order into one ``Partial`` sum, reduced once over the mesh; the
+    norm is then a plain tensor, the same on every rank."""
+    leaves = tree_leaves(tree)
+    if leaves and is_dtensor(leaves[0]):
+        total = 0
+        for x in leaves:
+            total = total + _owned_share(x)
+        mesh = leaves[0].device_mesh
+        for d in range(mesh.ndim):  # the Partial sum, reduced once over the mesh
+            dist.all_reduce(total, group=mesh.get_group(d))
+        return torch.sqrt(total)
     total = 0
-    for x in tree_leaves(tree):
+    for x in leaves:
         total = total + torch.sum(x.to(torch.float32) ** 2)
     return torch.sqrt(total)
 
 
 def adamw_init(params):
-    """Zero float32 moments shaped like ``params`` (where they live) and
-    an int32 0-d step."""
+    """Zero float32 moments shaped like ``params`` (where they live, in
+    their layout on a mesh) and an int32 0-d step."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
     return {
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),
@@ -93,8 +130,10 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig, in_place: bool = Fals
     of JAX's buffer donation: no second copy of parameters and moments
     exists at once); the arithmetic is the same, leaf by leaf. Weight decay
     applies to leaves with ``ndim >= 2`` only."""
-    step = opt_state["step"] + 1
+    step = opt_state["step"]
+    step = (step.to_local() if is_dtensor(step) else step) + 1
     lr = lr_at_step(cfg, step)
+    grads = tree_unflatten(grads, [_laid_out_as(g, p) for p, g in zip(tree_leaves(params), tree_leaves(grads))])
     gnorm = global_norm(grads)
     scale = torch.minimum(_f32(1.0, gnorm), _f32(cfg.grad_clip, gnorm) / torch.maximum(gnorm, _f32(1e-9, gnorm)))
 
@@ -119,13 +158,43 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig, in_place: bool = Fals
     if in_place:
         with torch.no_grad():
             for p, g, m, v in zip(*leaves):
-                p_new, m_new, v_new = upd(p, g, m, v)
-                p.copy_(p_new)
-                m.copy_(m_new)
-                v.copy_(v_new)
+                pl, gl, ml, vl = _locals(p, g, m, v)
+                p_new, m_new, v_new = upd(pl, gl, ml, vl)
+                pl.copy_(p_new)
+                ml.copy_(m_new)
+                vl.copy_(v_new)
                 del p_new, m_new, v_new
             opt_state["step"].copy_(step)
         return params, opt_state, metrics
-    out = [upd(p, g, m, v) for p, g, m, v in zip(*leaves)]
+    out = [_like(p, upd(*_locals(p, g, m, v))) for p, g, m, v in zip(*leaves)]
     new = [tree_unflatten(params, [o[i] for o in out]) for i in range(3)]
     return new[0], {"m": new[1], "v": new[2], "step": step}, metrics
+
+
+def _laid_out_as(g, p):
+    """A gradient leaf redistributed to its parameter's placements where
+    they differ (a ``Partial`` sum is reduced); plain tensors as they are."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _locals(p, g, m, v):
+    """The four leaves as this rank's local shards of ``p``'s layout; plain
+    tensors as they are. The gradient and the moments must already share
+    ``p``'s layout."""
+    if not is_dtensor(p):
+        return p, g, m, v
+    if any(tuple(t.placements) != tuple(p.placements) for t in (g, m, v)):
+        raise ValueError(f"gradient and moments laid out as {g.placements} / {m.placements} / {v.placements}, "
+                         f"the parameter as {p.placements}")
+    return p.to_local(), g.to_local(), m.to_local(), v.to_local()
+
+
+def _like(p, outs):
+    """Local results back as DTensors in ``p``'s layout."""
+    if not is_dtensor(p):
+        return outs
+    DTensor = dtensor_api()[0]
+    return tuple(DTensor.from_local(o, p.device_mesh, p.placements, run_check=False, shape=p.shape,
+                                    stride=p.stride()) for o in outs)

@@ -13,7 +13,11 @@ Features (as in JAX):
 The port's differences: ``device=`` (default: the CUDA card; ``"cpu"`` only
 when asked), the step runs eagerly (as ``ServeEngine``'s do), and it
 updates the parameters and optimizer state in place (``make_train_step(...,
-donate=True)``), the port's form of JAX's ``donate_argnums``.
+donate=True)``), the port's form of JAX's ``donate_argnums``. On DTensor
+state (a ``DeviceMesh``) every rank runs the loop: a resume under
+``set_mesh`` puts each restored leaf straight onto the active mesh
+(``checkpoint.elastic``'s rules), the checkpoints gather it and rank 0
+writes them and the heartbeat.
 """
 from __future__ import annotations
 
@@ -25,9 +29,12 @@ from typing import Callable, Iterator, Optional
 
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint.checkpointer import is_writer
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import init_params
+from repro_torch.sharding.compat import get_active_mesh
+from repro_torch.sharding.partitioning import current_rules
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -68,7 +75,14 @@ class Trainer:
         if latest is not None:
             like_p = init_params(seed, self.cfg, device="meta")
             like_o = init_train_state(like_p)
-            state, meta = self.ckpt.restore({"params": like_p, "opt": like_o}, device=self.device)
+            mesh, shardings = get_active_mesh(), None
+            if mesh is not None:  # elastic: each leaf straight onto whatever mesh is active now
+                from repro_torch.checkpoint.elastic import train_state_shardings
+
+                p_sh, o_sh = train_state_shardings(self.cfg, mesh, current_rules())
+                shardings = {"params": p_sh, "opt": o_sh}
+            state, meta = self.ckpt.restore({"params": like_p, "opt": like_o}, device=self.device,
+                                            shardings=shardings)
             self.params, self.opt_state = state["params"], state["opt"]
             self.step = int(meta["step"])
             return "resumed"
@@ -88,6 +102,8 @@ class Trainer:
                 pass  # non-main thread (tests)
 
     def _heartbeat(self, step: int, step_time: float):
+        if not is_writer():
+            return
         tmp = self.heartbeat_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({"step": step, "time": time.time(), "step_time": step_time}, f)

@@ -67,10 +67,14 @@ LM_SERVING = ["configs.registry", "models.model", "models.frontends", "serving.e
 LM_TRAINING = ["train", "train.optimizer", "train.train_step", "train.trainer", "train.grad_compress",
                "checkpoint", "checkpoint.checkpointer", "checkpoint.manager", "launch.train",
                "examples.train_lm"]
+# LM sharding: the DTensor shims and rules, ring attention, GPipe, the
+# elastic restore, the production mesh and the shared sharding helper
+LM_SHARDING = ["sharding.compat", "sharding.partitioning", "sharding.ring_attention",
+               "sharding.pipeline_parallel", "checkpoint.elastic", "launch.mesh", "launch.dryrun"]
 
 
 @pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET
-                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING + LM_TRAINING)
+                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING + LM_TRAINING + LM_SHARDING)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, no ``ml_dtypes``, nothing of ``repro`` and no compiled kernel (the CPU host has no

@@ -13,6 +13,7 @@ import repro.launch.serve as JS
 import repro.launch.train as JL
 import repro_torch.launch.serve as TS
 import repro_torch.launch.train as TL
+import repro_torch.models as TM
 import repro_torch.train as TT
 
 
@@ -138,11 +139,28 @@ def test_train_launcher_options_are_the_jax_ones(monkeypatch):
         assert sig[name].default == port_opts["--" + name.replace("_", "-")].default, name
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "4x2"], ["--distributed"]])
-def test_train_launcher_mesh_and_distributed_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="A11c"):
-        TL.main(["--arch", "yi-6b", "--smoke", "--ckpt-dir", str(tmp_path), "--device", "cpu", *flag])
-    assert os.listdir(tmp_path) == []
+@pytest.mark.parametrize("flag", [["--mesh", "1x1"], ["--mesh", "4x2"]])
+def test_train_launcher_mesh_and_distributed_raise(flag, tmp_path, keep_signal_handlers):
+    """``--mesh`` in a world of one (no ``--distributed``): a mesh of one
+    device trains on a world-1 group made in-process (destroyed after),
+    laid out as DTensors; a larger mesh raises naming the world size it
+    needs and writes nothing. The multi-rank launcher is in
+    ``test_torch_lm_sharding.py``, ``--distributed`` under torchrun's
+    environment in ``chip_smoke.py``'s ``lm_mesh_slice``."""
+    import torch.distributed as dist
+
+    argv = ["--arch", "yi-6b", "--smoke", "--steps", "2", "--batch", "2", "--seq", "8", "--ckpt-dir",
+            str(tmp_path), "--device", "cpu", *flag]
+    if flag[1] == "4x2":
+        with pytest.raises(ValueError, match="needs a process group of 8 ranks"):
+            TL.main(argv)
+        assert os.listdir(tmp_path) == [] and not dist.is_initialized()
+        return
+    st = TL.main(argv)
+    assert (st["mesh"], st["world_size"], st["last_step"]) == ([1, 1], 1, 2) and not dist.is_initialized()
+    assert np.isfinite(st["loss"]).all()
+    assert all(type(t).__name__ == "DTensor" for t in TM.tree_leaves(st["trainer"].params))
+    assert os.path.isdir(os.path.join(tmp_path, "step_00000002"))
 
 
 def test_train_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys, keep_signal_handlers):
