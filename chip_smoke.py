@@ -66,7 +66,12 @@ for a few timed steps beside ``train_slice``'s, one profiled; a step on the
 mesh equal to the step without one bit for bit at full width and cut
 depth; ring attention and GPipe on the card; the train launcher's ``--mesh
 1x1 --distributed``; and, as a CPU check of the running host's torch,
-every arch's smoke step on a 4-rank ``gloo`` mesh against one device).
+every arch's smoke step on a 4-rank ``gloo`` mesh against one device), and
+runs the dry-run and roofline tooling (``dryrun_slice``: the dry-run's CLI
+on production cells, each counted as rank 0 of a fake group of 256 or 512
+ranks over meta tensors on the host; the roofline of the full-width train
+and decode steps counted at the H100's peaks against their times measured
+above; the plan table rendered from ``plan_sweep``'s rows).
 Every served
 phase whose engine counts them holds retries, fallbacks and watchdog trips
 at 0. Prints one JSON object per
@@ -658,7 +663,8 @@ def plan_sweep(torch, x8, smi, dev):
     workloads, which no fit has seen (PAPER_DEFAULT at 1080x1920 for 2
     frames and at 720x1280 for 4, the serve grid for 4), are swept the same
     way and give the model's regret off its fitting data. Returns the fit
-    row."""
+    row, with each workload as a record of ``render_plan_sweep_table``'s
+    schema under ``records``."""
     import tempfile
 
     import numpy as np
@@ -676,7 +682,7 @@ def plan_sweep(torch, x8, smi, dev):
                  ("PAPER_DEFAULT", paper, 4, False, H * 2 // 3, W * 2 // 3, True)]
     in_code = {"frame_overhead_s": P.FRAME_OVERHEAD_S, "launch_overhead_s": P.LAUNCH_OVERHEAD_S,
                "stream_launch_overhead_s": P.STREAM_LAUNCH_OVERHEAD_S}
-    rows, design, target = [], [], []
+    rows, design, target, records = [], [], [], []
     with tempfile.TemporaryDirectory() as tmp:
         cache = PlanCache(os.path.join(tmp, "plan_cache.json"))
         for label, cfg, n, temporal, hh, ww, held_out in workloads:
@@ -697,11 +703,12 @@ def plan_sweep(torch, x8, smi, dev):
                 target.append(meas[p] - bd[p]["compute_s"] - bd[p]["memory_s"])
             best = min(cands, key=lambda p: meas[p])
             best32 = min((p for p in cands if p.precision == "fp32"), key=lambda p: meas[p])
-            picks = {}
+            picks, picked = {}, {}
             for mode, prec, ref in (("auto", "auto", best), ("fp32", None, best32)):
                 pick = P.plan_for(cfg, hh, ww, n_frames=n, temporal=temporal, precision=prec, cache=False,
                                   device=dev)
                 check(pick in meas, f"{label} n={n}: model pick {pick.describe()} is not a swept candidate")
+                picked[mode] = pick
                 picks[mode] = {"plan": pick.describe(), "predicted_ms": bd[pick]["total_s"] * 1e3,
                                "measured_ms": meas[pick] * 1e3, "regret": meas[pick] / meas[ref]}
             # the winner's quantized output against the fused route's
@@ -732,6 +739,12 @@ def plan_sweep(torch, x8, smi, dev):
                    "card": smi}
             emit(row)
             rows.append((row, cands, meas))
+            # the same workload as a record of render_plan_sweep_table's schema
+            records.append({"workload": f"{label} {hh}x{ww} n={n}{' temporal' if temporal else ''}",
+                            "candidates": [{"plan": p.to_json(), "model_us": bd[p]["total_s"] * 1e6,
+                                            "measured_us": meas[p] * 1e6} for p in cands],
+                            "model_pick": cands.index(picked["auto"]), "measured_best": cands.index(best),
+                            "regret": picks["auto"]["regret"]})
         x, y = np.asarray(design), np.asarray(target)
         coef = np.maximum(np.linalg.lstsq(x, y, rcond=None)[0], 0.0)  # overheads are nonnegative
         rms = float(np.sqrt(np.mean((y - x @ coef) ** 2)))
@@ -760,6 +773,7 @@ def plan_sweep(torch, x8, smi, dev):
            "fitted_regret_held_out": {name(r): refit_regret(r, c, m) for r, c, m in rows if r["held_out"]},
            "card": smi}
     emit(fit)
+    fit["records"] = records  # for dryrun_slice's plan table (not emitted twice)
     return fit
 
 
@@ -2084,7 +2098,7 @@ def lm_decode_profile(torch, cfg, params, prompts, dev) -> dict:
                              "launches_per_step": c / LM_PROFILE_STEPS} for n, t, c in top]}
 
 
-def lm_slice(torch, smi, dev) -> float:
+def lm_slice(torch, smi, dev) -> dict:
     """Phase "lm_slice": the LM serving substrate on the card. (1) Every
     arch's smoke config in fp32 on the card and on the CPU with the same
     port parameters (the CPU's, copied over) and inputs: train logits and
@@ -2106,7 +2120,8 @@ def lm_slice(torch, smi, dev) -> float:
     at 0). (4) The ``vlm_preprocess`` example on the card: B1 or B3
     denoises the images (counted) within the quantized contract of the
     reference plan on the same frames, logits finite, denoised embeddings
-    nearer the clean ones than the noisy. Returns the phase's seconds."""
+    nearer the clean ones than the noisy. Returns the phase's seconds and
+    the full-width decode step's median milliseconds."""
     import dataclasses
 
     import numpy as np
@@ -2282,7 +2297,7 @@ def lm_slice(torch, smi, dev) -> float:
           f"vlm example: finite {res['finite']}, {res['d_denoised']} vs {res['d_noisy']}")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "lm_slice", "check": "done", "seconds": seconds, "card": smi})
-    return seconds
+    return {"seconds": seconds, "decode_ms_per_step_median": decode_med}
 
 
 # phase "train_slice": LM training and checkpoints
@@ -2882,6 +2897,129 @@ def lm_mesh_slice(torch, smi, dev, trained: dict, work: str) -> float:
     return seconds
 
 
+# phase "dryrun_slice": the dry-run and roofline tooling
+# (arch, shape, multi-pod): production cells that count in seconds, a
+# multi-pod one, and a cell the registry skips
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", False), ("yi-6b", "decode_32k", False),
+                ("qwen2-moe-a2.7b", "train_4k", False), ("yi-6b", "decode_32k", True),
+                ("hubert-xlarge", "decode_32k", False))
+DRYRUN_TIMEOUT = 600  # seconds a dry-run cell's process may take
+# a counted bound above the measured step by more than 5 % means the count
+# charges work the card did not do
+SHARE_LIMIT = 1.05
+
+
+def dryrun_slice(torch, smi, served: dict, trained: dict, sweep: dict) -> float:
+    """Phase "dryrun_slice": the dry-run and roofline tooling on the card's
+    host. (a) ``python -m repro_torch.launch.dryrun`` for ``DRYRUN_CELLS``,
+    one process per cell, all started together: each rank-0 step counted on
+    a fake group of 256 or 512 ranks over meta tensors (no card); every
+    record's status, memory, roofline and seconds printed, no cell errs,
+    each skip is ``cell_skip_reason``'s, and the records rendered by the
+    port's ``roofline.py``. (b) The roofline held against steps measured
+    on the card earlier in this run: ``analyze_step``'s count (through
+    ``dry_run`` at world 1, on meta tensors) of ``train_slice``'s
+    stablelm-1.6b step (2 x 4096, ``grad_accum=2``, full remat; the mean
+    of its steps 2 to 4) and of ``lm_slice``'s yi-6b decode step (4 slots
+    of 256; its median), each with its compute and memory terms at the
+    H100's peaks, the dominant one, and the share bound / measured, which
+    must not pass ``SHARE_LIMIT``; the counted FLOPs at least the model's
+    (6N a token to train; 2N less the embedding lookup's 2Vd, which is no
+    product, to decode). (c) ``plan_sweep``'s workloads rendered by
+    ``render_plan_sweep_table``, printed line by line. No kernel runs in
+    this phase. Returns its seconds."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import cell_skip_reason, get_config
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.specs import shape_cfg
+    from repro_torch.launch.roofline import (load_cells, render_dryrun_table, render_plan_sweep_table,
+                                             render_roofline_table)
+    from repro_torch.models import model_flops_per_token
+    from repro_torch.sharding.partitioning import MeshShape
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="dryrun_slice.", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    try:
+        # ---- (a) the CLI, one process per cell, started together
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                   "--out", out, "--force"] + (["--multi-pod"] if multi_pod else [])
+            procs.append(((arch, shape, multi_pod), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+
+        # ---- (b) meanwhile: the roofline against the card's steps
+        one = MeshShape(("data", "model"), (1, 1))
+        stablelm, yi = get_config("stablelm-1.6b"), get_config("yi-6b")
+        later = trained["step_s"][1:]
+        steps = [("stablelm-1.6b train step", stablelm,
+                  ShapeSpec("train_slice", TRAIN_FULL["seq"], TRAIN_FULL["batch"], "train"),
+                  sum(later) / len(later), "mean of train_slice's steps 2 to 4",
+                  model_flops_per_token(stablelm) * TRAIN_FULL["batch"] * TRAIN_FULL["seq"]),
+                 ("yi-6b decode step", yi, ShapeSpec("lm_slice", LM_SERVE["max_len"], LM_SERVE["slots"], "decode"),
+                  served["decode_ms_per_step_median"] / 1e3, "median of lm_slice's served decode steps",
+                  (model_flops_per_token(yi, train=False) - 2.0 * yi.vocab_size * yi.d_model) * LM_SERVE["slots"])]
+        for label, cfg, shape, measured_s, measured_as, floor in steps:
+            rec = dry_run(shape_cfg(cfg, shape, 1), shape, one)
+            r = rec["roofline"]
+            bound = max(r["compute_s"], r["memory_s"])
+            row = {"phase": "dryrun_slice", "check": "roofline_vs_measured", "step": label,
+                   "batch": shape.global_batch, "seq_or_cache": shape.seq_len, "grad_accum": rec["grad_accum"],
+                   "remat": cfg.remat if shape.kind == "train" else None,
+                   "counted_flops": r["flops_per_chip"], "counted_hbm_bytes": r["hbm_bytes_per_chip"],
+                   "compute_s": r["compute_s"], "memory_s": r["memory_s"], "dominant": r["dominant"],
+                   "model_flops": rec["model_flops"], "flops_floor": floor,
+                   "counted_temp_bytes": rec["memory"]["temp_size_in_bytes"],
+                   "counted_argument_bytes": rec["memory"]["argument_size_in_bytes"],
+                   "measured_s": measured_s, "measured_as": measured_as, "share": bound / measured_s,
+                   "count_seconds": rec["compile_s"], "card": smi}
+            emit(row)
+            check(row["share"] <= SHARE_LIMIT, f"{label}: counted bound {bound} s above the measured {measured_s} s")
+            check(r["flops_per_chip"] >= floor, f"{label}: counted FLOPs {r['flops_per_chip']} below {floor}")
+
+        # ---- (c) the kernels' plan table from plan_sweep's rows
+        table = render_plan_sweep_table(sweep["records"])
+        emit({"phase": "dryrun_slice", "check": "plan_sweep_table", "workloads": len(sweep["records"]),
+              "regrets": [r["regret"] for r in sweep["records"]], "card": smi})
+        for line in table.splitlines():
+            print(line, flush=True)
+
+        # ---- (a) the CLI's records
+        for cell, proc in procs:
+            so, se = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            check(proc.returncode == 0, f"dryrun {cell}: exit {proc.returncode}: {so[-1500:]} {se[-1500:]}")
+        cells = load_cells(out)
+        check(len(cells) == len(DRYRUN_CELLS), f"dryrun: {len(cells)} records for {len(DRYRUN_CELLS)} cells")
+        for rec in cells:
+            row = {"phase": "dryrun_slice", "check": "dryrun_cell",
+                   **{k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "reason", "chips", "grad_accum",
+                                              "lower_s", "compile_s", "memory", "roofline", "useful_flops_ratio")},
+                   "torch": torch.__version__, "card": smi}
+            emit(row)
+            check(rec["status"] != "error", f"dryrun {rec['arch']} x {rec['shape']} x {rec['mesh']}: {rec}")
+            if rec["status"] == "skipped":
+                check(rec["reason"] == cell_skip_reason(rec["arch"], rec["shape"]), f"dryrun skip: {rec}")
+            else:
+                check(rec["roofline"]["flops_per_chip"] > 0 and rec["roofline"]["hbm_bytes_per_chip"] > 0,
+                      f"dryrun {rec['arch']} x {rec['shape']}: an empty roofline")
+        for line in (render_dryrun_table(cells) + "\n" + render_roofline_table(cells, "16x16") + "\n"
+                     + render_roofline_table(cells, "2x16x16")).splitlines():
+            print(line, flush=True)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dryrun_slice", "check": "done", "seconds": seconds, "card": smi})
+    return seconds
+
 
 def main() -> None:
     import torch
@@ -3042,7 +3180,7 @@ def main() -> None:
     # ---- phase 3f: plan selection: the candidates plan_for ranks, timed;
     # the measured winners through a temporary cache and back; the fit of
     # the cost model's overhead constants
-    plan_sweep(torch, x8, smi, dev)
+    sweep = plan_sweep(torch, x8, smi, dev)
 
     # ---- phase 3g: guarded dispatch: a failed primary rung, a hung
     # completion, corrupted input
@@ -3379,7 +3517,7 @@ def main() -> None:
     mesh_slice(torch, smi, dev, x8)
     # ---- phase 7: the LM serving substrate (smoke archs card vs CPU, the
     # engine, yi-6b at full width through the launcher, the vlm example)
-    lm_slice(torch, smi, dev)
+    served = lm_slice(torch, smi, dev)
     # ---- phase 8: LM training and checkpoints (smoke archs card vs CPU,
     # stablelm-1.6b at full width, remat, train -> checkpoint -> serve, the
     # train_lm example); checkpoints under the checkout's build/ (git
@@ -3398,6 +3536,10 @@ def main() -> None:
         lm_mesh_slice(torch, smi, dev, trained, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # ---- phase 10: the dry-run and roofline tooling (the CLI on production
+    # cells over fake groups, the roofline against phases 7 and 8's measured
+    # steps, the plan table from phase 3f's rows)
+    dryrun_slice(torch, smi, served, trained, sweep)
 
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -63,8 +63,17 @@ Ported (the frame- and video-serving paths at full width):
     train step with gradient accumulation, the model's remat, ``Trainer``,
     int8 gradient compression), ``checkpoint`` (the JAX package's on-disk
     layout, ``CheckpointManager``) and ``launch.train``: autograd over the
-    LM forward, no kernel.
+    LM forward, no kernel;
+  * LM sharding: ``sharding.partitioning`` (logical-axis rules resolved to
+    DTensor layouts over a ``DeviceMesh``), ``sharding.compat``
+    (``shard_map``, the active mesh), ring attention, GPipe,
+    ``checkpoint.elastic`` and ``launch.train --mesh --distributed``;
+  * the dry-run and roofline tooling: ``launch.specs`` (meta-tensor input
+    specs), ``launch.dryrun`` (each arch x shape x mesh cell's step run once
+    on meta tensors as rank 0 of a fake process group of 256 or 512 ranks,
+    touching no card), ``launch.hlo_cost`` / ``launch.hlo_analysis`` (the
+    step's FLOPs, HBM bytes and collectives counted op by op, the roofline
+    terms at the H100's peaks) and ``launch.roofline`` (the tables).
 
-Not ported yet: the LM sharding modules (with ``checkpoint/elastic.py``)
-and the dry-run / roofline tooling (``ROADMAP.md`` A11c and A11d).
+Nothing of the JAX package is left to port.
 """

@@ -24,7 +24,7 @@ from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.sharding.compat import is_dtensor
 from repro_torch.sharding.partitioning import logical_constraint, logical_constraint_padded
 
-from .layers import apply_rope, dense, dtype_of, init_dense, mesh_like, on_local_shards, rope_angles, splittable
+from .layers import apply_rope, dense, dtype_of, init_dense, merge_heads, on_local_shards, rope_angles, splittable
 
 __all__ = ["init_attention", "attention", "init_cache", "NEG_INF"]
 
@@ -203,24 +203,42 @@ def _apply_rope_qk(q, k, qpos, kpos, spec: AttnSpec, head_dim: int):
     return apply_rope(q, cq, sq, rot), apply_rope(k, ck, sk, rot)
 
 
+def _put_rows(c, new, slots):
+    """A copy of ``c`` (B, L, ...) with ``new`` (B, m, ...) in ``slots``
+    (B, m) of each row."""
+    c = c.clone()
+    c[torch.arange(c.shape[0], device=c.device)[:, None], slots.long()] = new.to(c.dtype)
+    return c
+
+
+def _head_dim_of(t, dims=(2, 3)):
+    """The dim among ``dims`` a DTensor ``t`` is sharded on (its heads, or
+    its head_dim where the heads do not divide the mesh axis), else
+    ``dims[0]``."""
+    if is_dtensor(t):
+        for p in t.placements:
+            if getattr(p, "dim", None) in dims:
+                return p.dim
+    return dims[0]
+
+
 def _write_cache(cache, k_new, v_new, pos_new, slots):
     """A copy of ``cache`` with ``(k_new, v_new, pos_new)`` (B, m, ...) in
-    ``slots`` (B, m) of each row (JAX's ``.at[bidx, slots].set``)."""
-    B = slots.shape[0]
-    bidx = mesh_like(torch.arange(B, device=slots.device)[:, None], slots)
-    slots = slots.long()
-    out = {name: t.clone() for name, t in cache.items()}
+    ``slots`` (B, m) of each row (JAX's ``.at[bidx, slots].set``). Each
+    write is independent per row and per head, so on a mesh each rank
+    writes its own shards (``on_local_shards``; DTensor cannot write the
+    indexed rows of a sharded cache in place)."""
+    news = {"pos": pos_new.to(torch.int32)}
     if "k_scale" in cache:
-        kq, ks = _quantize_kv(k_new)
-        vq, vs = _quantize_kv(v_new)
-        out["k"][bidx, slots] = kq
-        out["v"][bidx, slots] = vq
-        out["k_scale"][bidx, slots] = ks
-        out["v_scale"][bidx, slots] = vs
+        news["k"], news["k_scale"] = _quantize_kv(k_new)
+        news["v"], news["v_scale"] = _quantize_kv(v_new)
     else:
-        out["k"][bidx, slots] = k_new.to(cache["k"].dtype)
-        out["v"][bidx, slots] = v_new.to(cache["v"].dtype)
-    out["pos"][bidx, slots] = pos_new.to(torch.int32)
+        news["k"], news["v"] = k_new, v_new
+    out = dict(cache)
+    for name, new in news.items():
+        c = cache[name]
+        h = None if name == "pos" else _head_dim_of(c, (2,) if name.endswith("scale") else (2, 3))
+        out[name] = on_local_shards(_put_rows, [c, new, slots], [(0, h), (0, h), (0, None)], (0, h))
     for name in ("k", "v"):
         out[name] = logical_constraint(out[name], "batch", "kv_len", "kv_heads", "kv_dim")
     return out
@@ -249,7 +267,7 @@ def attention(
     projected from the override source; no mask beyond validity; no cache.
     """
     act = dtype_of(cfg.act_dtype)
-    B, S, _ = x.shape
+    S = x.shape[1]
     q = _split_heads(dense(params["q"], x, act), cfg.n_heads, cfg.head_dim)
     # padded constraint: queries are head-sharded even when n_heads does
     # not divide the model axis (llama4: 40/16), see logical_constraint_padded
@@ -261,7 +279,7 @@ def attention(
         v = _split_heads(dense(params["v"], src, act), cfg.n_kv_heads, cfg.head_dim)
         cross_spec = AttnSpec(kind="global", rope=False, causal=False)
         out = _sdpa(q, k, v, positions, src_pos, cross_spec, spec.softcap)
-        y = dense(params["o"], out.reshape(B, S, -1), act)
+        y = dense(params["o"], merge_heads(out), act)
         return logical_constraint(y, "batch", "seq", "embed"), None
 
     k = _split_heads(dense(params["k"], x, act), cfg.n_kv_heads, cfg.head_dim)
@@ -272,14 +290,14 @@ def attention(
 
     if mode == "train":
         out = _sdpa(q, k, v, positions, positions, spec, spec.softcap)
-        y = dense(params["o"], out.reshape(B, S, -1), act)
+        y = dense(params["o"], merge_heads(out), act)
         return logical_constraint(y, "batch", "seq", "embed"), None
 
     if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache")
     if mode == "prefill":
         out = _sdpa(q, k, v, positions, positions, spec, spec.softcap)
-        y = dense(params["o"], out.reshape(B, S, -1), act)
+        y = dense(params["o"], merge_heads(out), act)
         L = cache["k"].shape[1]
         m = min(S, L)
         tail = positions[:, S - m:]
@@ -293,7 +311,7 @@ def attention(
         new_cache = _write_cache(cache, k, v, positions, positions[:, :1] % L)
         kc, vc = _read_cache(new_cache, q.dtype)
         out = _sdpa(q, kc, vc, positions, new_cache["pos"], spec, spec.softcap)
-        y = dense(params["o"], out.reshape(B, S, -1), act)
+        y = dense(params["o"], merge_heads(out), act)
         return logical_constraint(y, "batch", "seq", "embed"), new_cache
 
     raise ValueError(f"unknown mode {mode!r}")

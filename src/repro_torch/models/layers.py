@@ -31,6 +31,7 @@ __all__ = [
     "mesh_like",
     "on_local_shards",
     "splittable",
+    "merge_heads",
 ]
 
 
@@ -112,6 +113,28 @@ def splittable(x, dim: int, n: int):
     if n % ways == 0:
         return x
     return x.redistribute(mesh, [Replicate() if hit else p for p, hit in zip(x.placements, on_dim)])
+
+
+class _MergeHeads(torch.autograd.Function):
+    """A DTensor's last two dims merged; the gradient is split back
+    through :func:`splittable`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return splittable(g, g.ndim - 1, ctx.shape[-2]).reshape(ctx.shape)
+
+
+def merge_heads(x):
+    """``(..., H, D) -> (..., H*D)``. On a DTensor the gradient's merged dim
+    may come back sharded over more ranks than ``H`` divides, which DTensor
+    cannot unflatten: the backward replicates it first (:func:`splittable`),
+    the mirror of splitting heads forward."""
+    return _MergeHeads.apply(x) if is_dtensor(x) else x.reshape(*x.shape[:-2], -1)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -223,14 +246,29 @@ def cross_entropy_loss(logits, labels, mask=None, z_loss=1e-4) -> torch.Tensor:
     the training loss (``repro_torch.train.loss_fn``), differentiated by
     autograd."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])
-    if is_dtensor(ll):
-        # the gathered logits reduce over the vocab shards into lse's layout
-        # ahead of the select: DTensor's masked partial of a gather cannot
-        # reduce once the gathered axis is gone
+    Shard = dtensor_api()[1]
+    if is_dtensor(logits) and any(isinstance(p, Shard) and p.dim % logits.ndim == logits.ndim - 1
+                                  for p in logits.placements):
+        # vocab sharded on a mesh, vocab-parallel: the log-sum-exp from
+        # each rank's vocab shard with its max and sum reduced over the
+        # shards, and the label's logit as a masked sum (each rank compares
+        # its own vocab ids) reduced into lse's layout. DTensor's logsumexp
+        # would gather the whole vocab on every rank, and its gather's
+        # backward make the zeros and the gradient whole on every rank
+        from repro_torch.sharding.partitioning import logical_constraint
+
+        m = logical_constraint(torch.amax(logits.detach(), dim=-1), "batch", "seq")
+        lse = torch.log(logical_constraint(torch.sum(torch.exp(logits - m[..., None]), dim=-1), "batch", "seq")) + m
+        vocab = logical_constraint(mesh_like(torch.arange(logits.shape[-1], device=logits.device), logits), "vocab")
+        hit = labels.long()[..., None] == vocab
+        ll = torch.where(hit, logits, torch.zeros((), dtype=logits.dtype, device=logits.device)).sum(-1)
         ll = ll.redistribute(ll.device_mesh, lse.placements)
-    ll = ll[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])
+        if is_dtensor(ll):
+            ll = ll.redistribute(ll.device_mesh, lse.placements)
+        ll = ll[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse**2

@@ -53,7 +53,7 @@ def ffn_apply(params, x, kind: str, act_dtype):
     else:
         h = gelu(dense(params["up"], x, act_dtype))
     h = logical_constraint(h, "batch", "seq", "mlp")
-    return dense(params["down"], h, act_dtype)
+    return logical_constraint(dense(params["down"], h, act_dtype), "batch", "seq", "embed")
 
 
 # ------------------------------------------------------------------ MoE
@@ -136,7 +136,11 @@ def _moe_einsum(params, x, spec: MoESpec, act):
 
     eax, fax = _expert_axes(spec)
     disp = logical_constraint(disp, "batch", None, eax, None)
-    xin = torch.einsum("gsec,gsd->egcd", disp, xg.to(act))
+    # on a mesh, on each rank's groups and experts (as the combine below):
+    # DTensor's backward of this product flattens the expert axis, which
+    # it cannot do once the axis is sharded unevenly (60 experts on 16)
+    xin = on_local_shards(functools.partial(torch.einsum, "gsec,gsd->egcd"), [disp, xg.to(act)],
+                          [(0, 2), (0, None)], (1, 0))
     xin = logical_constraint(xin, eax, "batch", None, None)
     h = F.silu(torch.einsum("egcd,edf->egcf", xin, params["w_gate"].to(act)))
     h = h * torch.einsum("egcd,edf->egcf", xin, params["w_up"].to(act))

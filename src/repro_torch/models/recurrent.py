@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding.compat import is_dtensor
 from repro_torch.sharding.partitioning import logical_constraint
 
-from .layers import dense, dtype_of, gelu, init_dense, mesh_like, normal, on_local_shards, splittable
+from .layers import dense, dtype_of, gelu, init_dense, merge_heads, mesh_like, normal, on_local_shards, splittable
 
 __all__ = [
     "init_rglru_block",
@@ -300,7 +300,7 @@ def mlstm_block(params, x, cfg: ModelConfig, mode="train", state: Optional[dict]
             new_state = {"C": torch.einsum("bsh,bshv,bshk->bhvk", wgt, v, k),
                          "n": torch.einsum("bsh,bshk->bhk", wgt, k), "m": m_new}
 
-    y = h.to(act).reshape(B, S, w) * F.silu(z)
+    y = merge_heads(h.to(act)) * F.silu(z)
     y = dense(params["down_proj"], y, act)
     y = logical_constraint(y, "batch", "seq", "embed")
     if mode == "train":

@@ -212,6 +212,28 @@ def logical_spec(
     return PartitionSpec(*resolved)
 
 
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``placements``. Its gradient comes back in
+    ``x``'s layout, as ``DTensor.redistribute``'s does, except on a mesh
+    dimension where ``x`` was ``Partial``: there the gradient keeps the
+    constraint's placement (the transpose of JAX's
+    ``with_sharding_constraint`` constrains the cotangent alike). A
+    ``Partial`` gradient left unreduced in the residual stream makes
+    DTensor gather whole weights and repeat their products on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        Partial = dtensor_api()[3]
+        ctx.grad_placements = tuple(out if isinstance(p, Partial) else p for p, out in zip(x.placements, placements))
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.grad_placements:
+            g = g.redistribute(g.device_mesh, ctx.grad_placements)
+        return g, None
+
+
 def _constrain(x, spec):
     if all(s is None for s in spec):
         return x
@@ -219,7 +241,7 @@ def _constrain(x, spec):
     placements = spec_placements(spec, mesh)
     if tuple(x.placements) == placements:
         return x
-    return x.redistribute(mesh, placements)
+    return _Constrain.apply(x, placements)
 
 
 def logical_constraint(x, *names):

@@ -1,15 +1,20 @@
-"""The port's async frame engine: the non-timing cases of the JAX package's
+"""The port's async frame engine: the cases of the JAX package's
 tests/test_async_engine.py, run on the CPU (the fused backend runs its plain
 version there), plus the guards, telemetry and the video launcher.
 
-Everything here is scheduling-order independent: futures resolve whenever
-the background threads get there.
+Everything here is scheduling-order independent (futures resolve whenever
+the background threads get there) except the two ``@pytest.mark.timing``
+cases, which assert *when* a dispatch happens: their wall-clock budgets
+relax with the host's run-queue pressure and they skip on a heavily
+oversubscribed host (:func:`_timing_relax`, the JAX tests' rule and
+budgets).
 """
 import os
 import queue
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -25,6 +30,28 @@ from repro_torch.video import MultiStreamPacker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = BGConfig(4, 4.0, 60.0)
+
+# per-CPU 1-minute load above which wall-clock assertions are meaningless
+# (every thread is time-slicing; dispatch latency measures the scheduler,
+# not the engine): skip rather than flake
+_TIMING_SKIP_LOAD = 4.0
+
+
+def _timing_relax() -> float:
+    """Budget multiplier for wall-clock assertions on a contended host:
+    ``max(1, per-cpu 1-minute load)``, sampled before the timed section;
+    skips the caller above ``_TIMING_SKIP_LOAD``."""
+    try:
+        load = os.getloadavg()[0] / max(os.cpu_count() or 1, 1)
+    except (AttributeError, OSError):  # platform without getloadavg
+        return 1.0
+    if load > _TIMING_SKIP_LOAD:
+        pytest.skip(
+            f"host oversubscribed (load/cpu = {load:.1f} > "
+            f"{_TIMING_SKIP_LOAD}): wall-clock assertions measure the "
+            f"scheduler, not the engine"
+        )
+    return max(1.0, load)
 
 
 def frames_np(n, h=32, w=48, seed=0):
@@ -263,3 +290,37 @@ def test_serve_video_launcher_cli():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "[serve] video: 6 frames (2 streams) 36x48 on cpu" in proc.stdout
     assert "failed=0" in proc.stdout
+
+
+@pytest.mark.timing
+def test_deadline_forces_early_dispatch():
+    """A lone frame with a 30 ms budget must not wait out the batch window.
+    The window scales with the load relaxation beside the budget, so a
+    broken deadline path (which waits out the whole window) always
+    overshoots it."""
+    relax = _timing_relax()  # sample load before the timed section
+    frames = frames_np(1)
+    with AsyncFrameEngine(CFG, max_batch=64, batch_window_ms=500.0 * relax, device="cpu") as eng:
+        eng.submit(frames[0]).result(timeout=60.0)  # warm-up outside the clock
+        t0 = time.monotonic()
+        # the budget scales with load too: the collect-time shedder fails a
+        # request whose deadline already passed, so a fixed 30 ms budget on a
+        # slow host would test the shed path instead of the early dispatch
+        eng.submit(frames[0], deadline_ms=30.0 * relax).result(timeout=60.0)
+        dt = time.monotonic() - t0
+    assert dt < 0.4 * relax, f"deadline ignored: {dt * 1e3:.0f}ms (relax={relax:.1f})"
+
+
+@pytest.mark.timing
+def test_batch_window_expiry_dispatches_partial_batch():
+    """Low traffic: a never-full batch still dispatches after the window."""
+    relax = _timing_relax()  # sample load before the timed section
+    frames = frames_np(2)
+    with AsyncFrameEngine(CFG, max_batch=64, batch_window_ms=40.0, device="cpu") as eng:
+        eng.submit(frames[0]).result(timeout=60.0)  # warm-up outside the clock
+        t0 = time.monotonic()
+        out = eng.submit(frames[1]).result(timeout=60.0)
+        dt = time.monotonic() - t0
+        st = eng.stats()
+    assert tuple(out.shape) == frames[1].shape
+    assert st["mean_batch"] == 1.0 and dt < 2.0 * relax

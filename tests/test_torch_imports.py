@@ -71,10 +71,12 @@ LM_TRAINING = ["train", "train.optimizer", "train.train_step", "train.trainer", 
 # elastic restore, the production mesh and the shared sharding helper
 LM_SHARDING = ["sharding.compat", "sharding.partitioning", "sharding.ring_attention",
                "sharding.pipeline_parallel", "checkpoint.elastic", "launch.mesh", "launch.dryrun"]
+# the dry-run and roofline tooling (no process group and no JAX at import)
+DRYRUN = ["launch.specs", "launch.hlo_cost", "launch.hlo_analysis", "launch.roofline"]
 
 
 @pytest.mark.parametrize("name", NEW_IN_SLICE_3 + BF16_PATH + PLAN_AND_RELIABILITY + FLEET
-                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING + LM_TRAINING + LM_SHARDING)
+                         + CORE_AND_EXAMPLES + SHARDING + LM_SERVING + LM_TRAINING + LM_SHARDING + DRYRUN)
 def test_kernel_modules_import_alone_without_jax(name):
     """Each kernel module imports in a fresh interpreter by itself, loading
     no JAX, no ``ml_dtypes``, nothing of ``repro`` and no compiled kernel (the CPU host has no
