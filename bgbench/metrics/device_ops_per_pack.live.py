@@ -1,0 +1,7 @@
+"""Device operations (kernels, copies, memsets) per pack in the traced
+window, from the profiler's trace."""
+from harness.readers import ops_per_span
+
+
+def read(run):
+    return ops_per_span(run, "pack")
