@@ -1,0 +1,8 @@
+"""Host time one frame-engine dispatch spends working: the mean, over the
+program's ``engine.step`` spans in the traced window, of each span less its
+``wait.*`` spans."""
+from harness.program import work_ms
+
+
+def read(run):
+    return work_ms(run, "engine.step")

@@ -22,6 +22,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from repro_torch import tracing
 from repro_torch.reliability.errors import KernelBuildError, KernelLaunchError
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build_all", "build_log", "check", "load"]
@@ -39,6 +40,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_compiles = 0  # sources compiled by build_all in this process
 
 
 def _nvcc() -> str:
@@ -87,6 +89,9 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     if todo:
+        global _compiles
+        _compiles += len(todo)
+        tracing.count("build", len(todo))
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
@@ -124,7 +129,10 @@ def load(name: str, signatures: Optional[Dict[str, tuple]] = None) -> ctypes.CDL
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            compiles = _compiles
             path = build_all([name])[name]
+            if _compiles == compiles:  # build_all compiled, and counted, nothing
+                tracing.count("build")  # a library built before, loaded from disk
             try:
                 lib = ctypes.CDLL(str(path))
             except OSError as exc:

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.reliability.errors import KernelLaunchError
 
 from . import _build, _wrap
@@ -144,10 +145,11 @@ def _launch(g: torch.Tensor, out: torch.Tensor, cfg: BGConfig, run=None, ytile=N
     """One kernel launch over the contiguous (b, gx, gy, gz, 2) CUDA grids
     ``g`` into ``out``; ``run`` and ``ytile`` override :func:`blur_geometry`'s
     rule (for sweeps)."""
-    _, shape = _launch_args(*g.shape[:4], g.device.index, cfg, run, ytile)
-    err = _lib().bg_blur_launch(g.data_ptr(), out.data_ptr(), shape, _wrap.stream(g.device))
-    _build.check(KERNEL, err)
-    _wrap.count(bg_blur, "launches")
+    with tracing.span("kernel.bg_blur"):
+        _, shape = _launch_args(*g.shape[:4], g.device.index, cfg, run, ytile)
+        err = _lib().bg_blur_launch(g.data_ptr(), out.data_ptr(), shape, _wrap.stream(g.device))
+        _build.check(KERNEL, err)
+        _wrap.count(bg_blur, "launches")
 
 
 def bg_blur(grid: torch.Tensor, cfg: BGConfig) -> torch.Tensor:

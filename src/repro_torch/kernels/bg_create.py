@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.bilateral_grid import _divide
 from repro_torch.reliability.errors import KernelLaunchError
 
@@ -223,12 +224,13 @@ def _launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -> Creat
     into the (b, gx, gy, gz, 2) grid ``out``; ``knobs`` (``band``,
     ``tile``, ``zgroup``) override :func:`create_geometry`'s rule (for
     sweeps); returns the geometry launched."""
-    b, h, w = x.shape
-    geo, _, shape = _launch_args(b, h, w, cfg, x.device.index, tuple(sorted(knobs.items())))
-    err = _lib().bg_create_launch(x.data_ptr(), out.data_ptr(), shape, _wrap.stream(x.device))
-    _build.check(KERNEL, err)
-    _wrap.count(bg_create, "launches")
-    return geo
+    with tracing.span("kernel.bg_create"):
+        b, h, w = x.shape
+        geo, _, shape = _launch_args(b, h, w, cfg, x.device.index, tuple(sorted(knobs.items())))
+        err = _lib().bg_create_launch(x.data_ptr(), out.data_ptr(), shape, _wrap.stream(x.device))
+        _build.check(KERNEL, err)
+        _wrap.count(bg_create, "launches")
+        return geo
 
 
 def bg_create(image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:

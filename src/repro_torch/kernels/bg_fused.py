@@ -72,6 +72,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.bilateral_grid import grid_normalize
 
 from repro_torch.reliability.errors import KernelLaunchError
@@ -484,33 +485,35 @@ def _launch(
     ``out`` are of that dtype too). ``band`` and ``knobs`` (``tile``,
     ``rows``) override :func:`launch_geometry`'s rule (for sweeps); returns
     the geometry launched."""
-    b, h, w = x.shape
-    dev = x.device
-    temporal = carry is not None
-    bf16 = x.dtype == torch.bfloat16
-    geo, _, shape = _launch_args(b, h, w, cfg, dev.index, temporal, band,
-                                 tuple(sorted(knobs.items())), x.element_size())
-    yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
-    lib = _lib()
-    if temporal:
-        fn = lib.bg_fused_temporal_bf16_launch if bf16 else lib.bg_fused_temporal_launch
-        err = fn(
-            x.data_ptr(), out.data_ptr(), carry.data_ptr(), carry_out.data_ptr(),
-            alpha.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev),
-        )
-    else:
-        fn = lib.bg_fused_bf16_launch if bf16 else lib.bg_fused_launch
-        err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev))
-    _build.check(KERNEL, err)
-    if temporal and bf16:
-        _wrap.count(bg_fused, "bf16_temporal_launches")
-    elif temporal:
-        _wrap.count(bg_fused, "temporal_launches")
-    elif bf16:
-        _wrap.count(bg_fused, "bf16_launches")
-    else:
-        _wrap.count(bg_fused, "launches")
-    return geo
+    with tracing.span("kernel.bg_fused"):
+        b, h, w = x.shape
+        dev = x.device
+        temporal = carry is not None
+        bf16 = x.dtype == torch.bfloat16
+        geo, _, shape = _launch_args(b, h, w, cfg, dev.index, temporal, band,
+                                     tuple(sorted(knobs.items())), x.element_size())
+        yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
+        lib = _lib()
+        if temporal:
+            fn = lib.bg_fused_temporal_bf16_launch if bf16 else lib.bg_fused_temporal_launch
+            err = fn(
+                x.data_ptr(), out.data_ptr(), carry.data_ptr(), carry_out.data_ptr(),
+                alpha.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev),
+            )
+        else:
+            fn = lib.bg_fused_bf16_launch if bf16 else lib.bg_fused_launch
+            err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape,
+                     _wrap.stream(dev))
+        _build.check(KERNEL, err)
+        if temporal and bf16:
+            _wrap.count(bg_fused, "bf16_temporal_launches")
+        elif temporal:
+            _wrap.count(bg_fused, "temporal_launches")
+        elif bf16:
+            _wrap.count(bg_fused, "bf16_launches")
+        else:
+            _wrap.count(bg_fused, "launches")
+        return geo
 
 
 @functools.lru_cache(maxsize=256)
@@ -533,21 +536,23 @@ def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -
     ``knobs`` (``band``, ``tile``, ``chunk``, ``zgroup``) override
     :func:`stream_geometry`'s rule (for sweeps); returns the geometry
     launched."""
-    b, h, w = x.shape
-    dev = x.device
-    bf16 = x.dtype == torch.bfloat16
-    geo, _, shape = _stream_args(b, h, w, cfg, dev.index, tuple(sorted(knobs.items())),
-                                 x.element_size())
-    yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
-    lib = _stream_lib()
-    fn = lib.bg_fused_streamed_bf16_launch if bf16 else lib.bg_fused_streamed_launch
-    err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape, _wrap.stream(dev))
-    _build.check(STREAM_KERNEL, err)
-    if bf16:
-        _wrap.count(bg_fused, "bf16_streamed_launches")
-    else:
-        _wrap.count(bg_fused, "streamed_launches")
-    return geo
+    with tracing.span("kernel.bg_fused"):
+        b, h, w = x.shape
+        dev = x.device
+        bf16 = x.dtype == torch.bfloat16
+        geo, _, shape = _stream_args(b, h, w, cfg, dev.index, tuple(sorted(knobs.items())),
+                                     x.element_size())
+        yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
+        lib = _stream_lib()
+        fn = lib.bg_fused_streamed_bf16_launch if bf16 else lib.bg_fused_streamed_launch
+        err = fn(x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape,
+                 _wrap.stream(dev))
+        _build.check(STREAM_KERNEL, err)
+        if bf16:
+            _wrap.count(bg_fused, "bf16_streamed_launches")
+        else:
+            _wrap.count(bg_fused, "streamed_launches")
+        return geo
 
 
 def bg_fused(

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.reliability.errors import KernelLaunchError
 
 from . import _build, _wrap
@@ -204,16 +205,17 @@ def _launch(g: torch.Tensor, x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, 
     the (b, h, w) frames ``x`` into ``out``; ``band`` and ``tile`` override
     :func:`slice_geometry`'s rule (for sweeps); returns the geometry
     launched."""
-    b, h, w = x.shape
-    geo, _, shape = _launch_args(b, h, w, cfg, x.device.index, band, tile)
-    yf, xf = _wrap.ti_fracs(w, cfg.r, x.device)
-    err = _lib().bg_slice_launch(
-        g.data_ptr(), x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape,
-        _wrap.stream(x.device),
-    )
-    _build.check(KERNEL, err)
-    _wrap.count(bg_slice, "launches")
-    return geo
+    with tracing.span("kernel.bg_slice"):
+        b, h, w = x.shape
+        geo, _, shape = _launch_args(b, h, w, cfg, x.device.index, band, tile)
+        yf, xf = _wrap.ti_fracs(w, cfg.r, x.device)
+        err = _lib().bg_slice_launch(
+            g.data_ptr(), x.data_ptr(), out.data_ptr(), yf.data_ptr(), xf.data_ptr(), shape,
+            _wrap.stream(x.device),
+        )
+        _build.check(KERNEL, err)
+        _wrap.count(bg_slice, "launches")
+        return geo
 
 
 def bg_slice(grid_f: torch.Tensor, image: torch.Tensor, cfg: BGConfig) -> torch.Tensor:

@@ -113,6 +113,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.core.bilateral_grid import (
     BGConfig,
@@ -887,8 +888,9 @@ def plan_for(
 # ------------------------------------------------------------ dispatch hook
 # One process-wide host-side hook run at the top of every BGPlan.__call__,
 # before any device work: the integration point for fault injection
-# (FaultInjector.plan_hook) and tracing. None (the default) costs one global
-# load per dispatch.
+# (FaultInjector.plan_hook). Tracing does not use it: ``repro_torch.tracing``
+# records its spans in the engine, the packer and the kernel wrappers. None
+# (the default) costs one global load per dispatch.
 _DISPATCH_HOOK = None
 
 
@@ -948,6 +950,7 @@ def _plan_executable(plan: BGPlan):
     Under ``precision="fp32"`` every storage cast below is the identity. A
     mesh plan runs the same route per shard (:func:`_mesh_call`) and
     quantizes the gathered output."""
+    tracing.count("build")
     cfg = plan.cfg
     quant = plan.quantize_output
     prec = plan.precision

@@ -18,6 +18,7 @@ from typing import Any, Deque, List, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.bilateral_grid import BGConfig
 
 __all__ = ["FrameRequest", "FrameDenoiseEngine"]
@@ -114,15 +115,14 @@ class FrameDenoiseEngine:
             k = min(n, self.max_batch)
         if k == 0:
             return []
-        reqs = [self._queue.popleft() for _ in range(k)]
-        dev = self.plan.input_device
-        batch = torch.stack(
-            [torch.as_tensor(r.frame, dtype=torch.float32, device=dev) for r in reqs]
-        )
-        out = self.plan(batch)
-        for i, r in enumerate(reqs):
-            r.result = out[i]
-        return reqs
+        with tracing.span("engine.step", k):
+            reqs = [self._queue.popleft() for _ in range(k)]
+            dev = self.plan.input_device
+            batch = torch.stack(tracing.as_frames([r.frame for r in reqs], dev, "engine.stack"))
+            out = self.plan(batch)
+            for i, r in enumerate(reqs):
+                r.result = out[i]
+            return reqs
 
     def flush(self) -> List[FrameRequest]:
         """Drain the queue completely (forced ragged dispatches)."""

@@ -35,7 +35,14 @@ from typing import Dict, Hashable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.bilateral_grid import BGConfig
+from repro_torch.reliability.guards import (
+    DEFAULT_CARRY_LIMIT,
+    DispatchGuard,
+    carry_ok_rows,
+    finite_rows,
+)
 
 from .temporal import carry_shape, temporal_denoise
 
@@ -221,32 +228,30 @@ class MultiStreamPacker:
         and ``guard.carry_ok`` per-stream carry health flags (finite and
         ``|carry| < carry_limit``) for ``guard.carry_sids``, the streams
         whose carry advanced. The flags are device reductions launched with
-        the dispatch; nothing here waits for the card.
+        the dispatch. The host waits for the card at two blocking copies
+        from the host, the alpha vector and the warm rows' index, each a
+        ``wait.*`` span of ``repro_torch.tracing`` (and at each host frame).
         """
-        from repro_torch.reliability.guards import (
-            DEFAULT_CARRY_LIMIT,
-            DispatchGuard,
-            carry_ok_rows,
-            finite_rows,
-        )
-
         if carry_limit is None:
             carry_limit = DEFAULT_CARRY_LIMIT
         if not frames:
             return {}, DispatchGuard()
+        with tracing.span("packer.pack", len(frames)):
+            return self._pack(frames, plan, carry_limit)
+
+    def _pack(self, frames, plan, carry_limit):
         missing = [s for s in frames if s not in self.sessions]
         if missing:
             raise KeyError(f"streams not open: {missing!r}")
         sids = sorted(frames, key=repr)
         dev = self.plan.device
         # a mesh plan takes the frames where they are: each shard moves itself
-        arrs = {s: torch.as_tensor(frames[s], dtype=torch.float32, device=self.plan.input_device)
-                for s in sids}
-        shapes = {tuple(a.shape) for a in arrs.values()}
+        arrs = tracing.as_frames([frames[s] for s in sids], self.plan.input_device, "packer.stage")
+        shapes = {tuple(a.shape) for a in arrs}
         if len(shapes) != 1 or len(next(iter(shapes))) != 2:
             raise ValueError(f"pack needs equal (h, w) frames, got {sorted(shapes)}")
         sessions = {s: self.sessions[s] for s in sids}
-        batch = torch.stack([arrs[s] for s in sids])
+        batch = torch.stack(arrs)
         warm = [s for s in sids if sessions[s].alpha > 0.0]
         # the packer asks the plan for this pack's tile
         base = self.plan if plan is None else plan
@@ -284,7 +289,10 @@ class MultiStreamPacker:
                     # cold sessions stay carry-free; warm ones advance
                     sessions[s].carry = new_carry[i]
             carry_sids = tuple(sids[i] for i in warm_rows)
-            carry_ok = carry_ok_rows(new_carry[warm_rows], carry_limit)
+            # a list index is copied from the host: a blocking copy
+            with tracing.wait("packer.carry_rows", new_carry.device):
+                rows = new_carry[warm_rows]
+            carry_ok = carry_ok_rows(rows, carry_limit)
         for s in sids:
             sessions[s].frames_seen += 1
         guard = DispatchGuard(

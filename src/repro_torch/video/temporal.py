@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.bilateral_grid import (
     BGConfig,
     _round_half_up,
@@ -162,6 +163,7 @@ def temporal_denoise(
         alpha_np = np.zeros((n,), np.float32)
     if carry.shape[0] != n:
         raise ValueError(f"carry leading axis {carry.shape[0]} != n frames {n}")
-    alpha_t = torch.as_tensor(alpha_np.copy(), device=plan.input_device)  # checked above
+    with tracing.wait("temporal.alpha", plan.input_device):  # a blocking copy
+        alpha_t = torch.as_tensor(alpha_np.copy(), device=plan.input_device)  # checked above
     out, new_carry = plan.as_temporal(True)(frames, carry=carry, alpha=alpha_t)
     return (out[0] if squeeze else out), new_carry
