@@ -68,18 +68,19 @@ def ti_fracs(w: int, r: int, device: torch.device):
     )
 
 
-def count(fn, attr: str) -> None:
+def count(fn, attr: str, tally: bool = True) -> None:
     """Add one to the launch counter ``fn.attr`` (``bg_fused.launches``, ...)
-    and to the calling thread's tally, if it has one, as one atomic step:
-    the engines of several in-process workers launch from their own
-    threads, and a read-modify-write of a counter is not atomic under the
-    interpreter lock."""
+    and, with ``tally``, to the calling thread's tally, if it has one, as
+    one atomic step: the engines of several in-process workers launch from
+    their own threads, and a read-modify-write of a counter is not atomic
+    under the interpreter lock. ``tally=False`` is for a counter of a
+    property of launches that another counter already counts."""
     with _count_lock:
         setattr(fn, attr, getattr(fn, attr) + 1)
-        tally = getattr(_local, "tally", None)
-        if tally is not None:
+        counts = getattr(_local, "tally", None) if tally else None
+        if counts is not None:
             key = f"{fn.__name__}.{attr}"
-            tally[key] = tally.get(key, 0) + 1
+            counts[key] = counts.get(key, 0) + 1
 
 
 def tally_launches(tally) -> None:

@@ -5,10 +5,12 @@ The kernel (``csrc/bg_fused.cu``) replaces the JAX package's fused Pallas
 kernel (``repro/kernels/bg_fused.py::_kernel``) in both of its launches: per
 frame (``:645``, B1) and temporal (``:569``, B2). It computes, per frame, the
 paper's grid creation, Gaussian grid filter with per-cell normalization and
-trilinear slice, unquantized, with the grid held in shared memory and never
-written to HBM. The temporal launch (``carry=`` and ``alpha=``) blends each
-blurred homogeneous plane with the frame's carry, ``B' = (1-a) B + a C``,
-before TI reads it, and returns ``B'`` as the new carry. ``stream_input=True``
+trilinear slice, with the grid held in shared memory and never written to
+HBM; with ``quantize=True`` TI's store applies the plan's output
+quantization (``quantize_intensity``) to each pixel it writes. The temporal
+launch (``carry=`` and ``alpha=``) blends each blurred homogeneous plane
+with the frame's carry, ``B' = (1-a) B + a C``, before TI reads it, and
+returns ``B'`` as the new carry. ``stream_input=True``
 runs the streamed kernel (``csrc/bg_fused_streamed.cu``, B3), which replaces
 ``_stream_kernel`` (``:620``): the same filter with each frame read from HBM
 once, streamed through a ring of rows in shared memory that TI reads too,
@@ -35,8 +37,12 @@ follow, rounding to nearest even (``tensor.to(torch.bfloat16)``,
   6. TI reads the rounded normalized planes. Its z lerp takes the two
      weights ``1 - zf`` and ``zf`` each rounded to bf16 (``bg::zlerp``; the
      TPU kernel stores its z weights in bf16); the y and x lerps stay fp32.
-  7. Output: stored as bf16; the plan upcasts it to float32 before
-     ``quantize_intensity``.
+  7. Output: stored as bf16, which the plan upcasts to float32. With
+     ``quantize=True`` the kernel rounds each pixel to bf16 first, then
+     quantizes that value (round, then quantize: what ``quantize_intensity``
+     gives on the upcast unquantized output) and stores the result, exact
+     in bf16 where ``kernels.common.stores_quantized_exactly`` holds (an
+     intensity range whose top bf16 holds, as 255).
 
 It differs from the TPU kernel's in two places, because the port's GC sums
 a cell whole: the TPU kernel rounds a partial plane at each stripe boundary
@@ -73,7 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch import tracing
-from repro_torch.core.bilateral_grid import grid_normalize
+from repro_torch.core.bilateral_grid import grid_normalize, quantize_intensity
 
 from repro_torch.reliability.errors import KernelLaunchError
 
@@ -162,6 +168,7 @@ def bg_fused_plain(
     carry: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
     precision: str = "fp32",
+    quantize: bool = False,
 ):
     """Plain PyTorch version of the fused kernels, on any device.
 
@@ -176,18 +183,19 @@ def bg_fused_plain(
     temporal version and returns ``(out, new_carry)`` (see :func:`bg_fused`).
     It is the plain version of the streamed kernel too, which equals B1.
     ``precision="bf16"`` takes and returns bf16 tensors and rounds where the
-    module docstring's contract says.
+    module docstring's contract says. ``quantize`` applies
+    ``quantize_intensity`` to the output as the kernels' store does.
     """
     _check_batch_tile(batch_tile)
     x, carry, alpha = _operands(image, cfg, carry, alpha, precision)
     b = x.shape[0]
     bt = b if batch_tile is None else min(batch_tile, b)
     if carry is None:
-        out = torch.cat([_plain_frames(x[i:i + bt], cfg, precision=precision)
+        out = torch.cat([_plain_frames(x[i:i + bt], cfg, precision=precision, quantize=quantize)
                          for i in range(0, b, bt)])
         return out[0] if image.dim() == 2 else out
     parts = [
-        _plain_frames(x[i:i + bt], cfg, carry[i:i + bt], alpha[i:i + bt], precision)
+        _plain_frames(x[i:i + bt], cfg, carry[i:i + bt], alpha[i:i + bt], precision, quantize)
         for i in range(0, b, bt)
     ]
     out = torch.cat([p[0] for p in parts])
@@ -195,7 +203,8 @@ def bg_fused_plain(
     return (out[0], new_carry[0]) if image.dim() == 2 else (out, new_carry)
 
 
-def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None, precision="fp32"):
+def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None, precision="fp32",
+                  quantize=False):
     # every step in fp32; the round_storage calls are the bf16 contract's
     # rounding points (the identity for fp32)
     sdt = storage_dtype(precision)
@@ -209,6 +218,8 @@ def _plain_frames(x: torch.Tensor, cfg: BGConfig, carry=None, alpha=None, precis
         blurred = (1.0 - a) * blurred + a * carry.to(torch.float32)
     norm = round_storage(grid_normalize(blurred), precision)
     out = bg_slice_plain(norm, x, cfg, zweight_dtype=sdt).to(sdt)
+    if quantize:  # round, then quantize (the module docstring's item 7)
+        out = quantize_intensity(out.to(torch.float32), cfg).to(sdt)
     return out if carry is None else (out, blurred.to(sdt))
 
 
@@ -410,7 +421,8 @@ class LaunchShape(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gx", "gy", "gz", "split", "band",
                                             "tile", "rows")] + \
                [(f, ctypes.c_float) for f in ("inv_rs", "rs", "rcp_rs", "t0", "t1", "t2")] + \
-               [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
+               [(f, ctypes.c_int) for f in ("smem_bytes", "device", "quantize")] + \
+               [("imax", ctypes.c_float)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -432,7 +444,8 @@ class StreamShape(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in ("b", "h", "w", "r", "gy", "gz", "split", "band", "tile",
                                             "chunk", "zgroup", "ring_rows")] + \
                [(f, ctypes.c_float) for f in ("inv_rs", "rs", "rcp_rs", "t0", "t1", "t2")] + \
-               [(f, ctypes.c_int) for f in ("smem_bytes", "device")]
+               [(f, ctypes.c_int) for f in ("smem_bytes", "device", "quantize")] + \
+               [("imax", ctypes.c_float)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -453,11 +466,11 @@ def _device_limits(index: int) -> Tuple[int, int]:
 
 @functools.lru_cache(maxsize=256)
 def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, temporal: bool, band, knobs,
-                 esize: int = 4) -> tuple:
+                 esize: int = 4, quantize: bool = False) -> tuple:
     """``(geometry, shape, address)``: the launch's :class:`Geometry`, its
     :class:`LaunchShape` (kept alive by the cache) and that struct's
-    address, cached per shape, config, knobs and element size (a launch's
-    host work is a visible share of a launch)."""
+    address, cached per shape, config, knobs, element size and
+    quantization (a launch's host work is a visible share of a launch)."""
     num_sms, smem_limit = _device_limits(index)
     geo = launch_geometry(b, h, w, cfg, num_sms, smem_limit, band, temporal, esize=esize,
                           **dict(knobs))
@@ -465,7 +478,7 @@ def _launch_args(b: int, h: int, w: int, cfg: BGConfig, index: int, temporal: bo
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     shape = LaunchShape(b, h, w, cfg.r, gx, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile,
                         geo.rows, float(np.float32(1.0 / cfg.range_scale)), *bin_divisor(cfg),
-                        t0, t1, t2, geo.smem, index)
+                        t0, t1, t2, geo.smem, index, int(quantize), cfg.intensity_max)
     return geo, shape, ctypes.addressof(shape)
 
 
@@ -477,21 +490,23 @@ def _launch(
     carry: Optional[torch.Tensor] = None,
     carry_out: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
+    quantize: bool = False,
     **knobs,
 ) -> Geometry:
     """One kernel launch over the contiguous (b, h, w) CUDA frames ``x``:
     B1, or B2 when ``carry`` is given (with ``carry_out`` and ``alpha``),
     the fp32 or the bf16 entry point by ``x``'s dtype (the carries and
-    ``out`` are of that dtype too). ``band`` and ``knobs`` (``tile``,
-    ``rows``) override :func:`launch_geometry`'s rule (for sweeps); returns
-    the geometry launched."""
+    ``out`` are of that dtype too), quantizing in TI's store with
+    ``quantize``. ``band`` and ``knobs`` (``tile``, ``rows``) override
+    :func:`launch_geometry`'s rule (for sweeps); returns the geometry
+    launched."""
     with tracing.span("kernel.bg_fused"):
         b, h, w = x.shape
         dev = x.device
         temporal = carry is not None
         bf16 = x.dtype == torch.bfloat16
         geo, _, shape = _launch_args(b, h, w, cfg, dev.index, temporal, band,
-                                     tuple(sorted(knobs.items())), x.element_size())
+                                     tuple(sorted(knobs.items())), x.element_size(), quantize)
         yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
         lib = _lib()
         if temporal:
@@ -513,35 +528,41 @@ def _launch(
             _wrap.count(bg_fused, "bf16_launches")
         else:
             _wrap.count(bg_fused, "launches")
+        if quantize:
+            _wrap.count(bg_fused, "quantized_launches", tally=False)
         return geo
 
 
 @functools.lru_cache(maxsize=256)
-def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs, esize: int = 4) -> tuple:
+def _stream_args(b: int, h: int, w: int, cfg: BGConfig, index: int, knobs, esize: int = 4,
+                 quantize: bool = False) -> tuple:
     """``(geometry, shape, address)`` of a B3 launch, cached per shape,
-    config, knobs and element size, as :func:`_launch_args` is for B1."""
+    config, knobs, element size and quantization, as :func:`_launch_args`
+    is for B1."""
     num_sms, smem_limit = _device_limits(index)
     geo = stream_geometry(b, h, w, cfg, num_sms, smem_limit, esize=esize, **dict(knobs))
     _, gy, gz = grid_shape(h, w, cfg)
     t0, t1, t2 = (float(t) for t in taps_np(cfg))
     shape = StreamShape(b, h, w, cfg.r, gy, gz, gc_row_split(cfg.r), geo.band, geo.tile, geo.chunk,
                         geo.zgroup, geo.ring_rows, float(np.float32(1.0 / cfg.range_scale)),
-                        *bin_divisor(cfg), t0, t1, t2, geo.smem, index)
+                        *bin_divisor(cfg), t0, t1, t2, geo.smem, index, int(quantize),
+                        cfg.intensity_max)
     return geo, shape, ctypes.addressof(shape)
 
 
-def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -> StreamGeometry:
+def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, quantize: bool = False,
+                   **knobs) -> StreamGeometry:
     """One streamed kernel launch (B3) over the contiguous (b, h, w) CUDA
-    frames ``x``, the fp32 or the bf16 entry point by ``x``'s dtype;
-    ``knobs`` (``band``, ``tile``, ``chunk``, ``zgroup``) override
-    :func:`stream_geometry`'s rule (for sweeps); returns the geometry
-    launched."""
+    frames ``x``, the fp32 or the bf16 entry point by ``x``'s dtype,
+    quantizing in TI's store with ``quantize``; ``knobs`` (``band``,
+    ``tile``, ``chunk``, ``zgroup``) override :func:`stream_geometry`'s rule
+    (for sweeps); returns the geometry launched."""
     with tracing.span("kernel.bg_fused"):
         b, h, w = x.shape
         dev = x.device
         bf16 = x.dtype == torch.bfloat16
         geo, _, shape = _stream_args(b, h, w, cfg, dev.index, tuple(sorted(knobs.items())),
-                                     x.element_size())
+                                     x.element_size(), quantize)
         yf, xf = _wrap.ti_fracs(w, cfg.r, dev)
         lib = _stream_lib()
         fn = lib.bg_fused_streamed_bf16_launch if bf16 else lib.bg_fused_streamed_launch
@@ -552,6 +573,8 @@ def _stream_launch(x: torch.Tensor, out: torch.Tensor, cfg: BGConfig, **knobs) -
             _wrap.count(bg_fused, "bf16_streamed_launches")
         else:
             _wrap.count(bg_fused, "streamed_launches")
+        if quantize:
+            _wrap.count(bg_fused, "quantized_launches", tally=False)
         return geo
 
 
@@ -563,9 +586,20 @@ def bg_fused(
     alpha: Optional[torch.Tensor] = None,
     stream_input: bool = False,
     precision: str = "fp32",
+    quantize: bool = False,
 ):
     """Fused BG filter, (h, w) -> (h, w) or (b, h, w) -> (b, h, w), in the
-    storage type, unquantized, paper normalization.
+    storage type, paper normalization; unquantized by default.
+
+    ``quantize=True`` applies the paper's output quantization
+    (``quantize_intensity``: round half up, clamp to ``[0,
+    cfg.intensity_max]``, NaN kept) in the kernel's store, so that no pass
+    over the output follows: in fp32 the output equals
+    ``quantize_intensity`` of the unquantized output bit for bit; in bf16
+    the kernel quantizes each pixel's bf16 value (round, then quantize) and
+    stores the result in bf16, equal to ``quantize_intensity`` of the
+    upcast unquantized output where ``kernels.common.stores_quantized_exactly``
+    holds. The temporal carry is never quantized.
 
     ``carry`` + ``alpha`` select the temporal path (the JAX package's
     ``bg_fused_impl(carry=, alpha=)``): ``carry`` is the ``(b, gx, gy, gz,
@@ -590,7 +624,10 @@ def bg_fused(
     launches, ``bg_fused.temporal_launches`` temporal ones and
     ``bg_fused.streamed_launches`` streamed ones; ``bf16_launches``,
     ``bf16_temporal_launches`` and ``bf16_streamed_launches`` count the
-    bf16 entry points.
+    bf16 entry points. ``bg_fused.quantized_launches`` counts the launches
+    of any of the six that quantized in their store; a launch counted there
+    is counted by its entry point too, so it is not among
+    ``repro_torch.kernels.COUNTERS`` nor in a thread's tally.
     """
     _check_batch_tile(batch_tile)
     if cfg.normalize_mode != "paper":
@@ -602,7 +639,7 @@ def bg_fused(
         raise ValueError("stream_input does not compose with a temporal carry")
     x, carry_b, alpha_b = _operands(image, cfg, carry, alpha, precision)
     if not _wrap.on_card(x, KERNEL):
-        return bg_fused_plain(image, cfg, batch_tile, carry, alpha, precision)
+        return bg_fused_plain(image, cfg, batch_tile, carry, alpha, precision, quantize)
     _wrap.contiguous(x, "frames", KERNEL)
     b, h, w = x.shape
     if b > 65535 or h * w >= 2**31:
@@ -612,7 +649,7 @@ def bg_fused(
     if carry_b is None:
         launch = _stream_launch if stream_input else _launch
         for i in range(0, b, bt):
-            launch(x[i:i + bt], out[i:i + bt], cfg)
+            launch(x[i:i + bt], out[i:i + bt], cfg, quantize=quantize)
         return out[0] if image.dim() == 2 else out
     for t, name in ((carry_b, "carry"), (alpha_b, "alpha")):
         if t.device != x.device:
@@ -621,7 +658,8 @@ def bg_fused(
     new_carry = torch.empty_like(carry_b)  # never aliased to the carry read
     for i in range(0, b, bt):
         s = slice(i, i + bt)
-        _launch(x[s], out[s], cfg, carry=carry_b[s], carry_out=new_carry[s], alpha=alpha_b[s])
+        _launch(x[s], out[s], cfg, carry=carry_b[s], carry_out=new_carry[s], alpha=alpha_b[s],
+                quantize=quantize)
     return (out[0], new_carry[0]) if image.dim() == 2 else (out, new_carry)
 
 
@@ -631,6 +669,7 @@ bg_fused.streamed_launches = 0
 bg_fused.bf16_launches = 0
 bg_fused.bf16_temporal_launches = 0
 bg_fused.bf16_streamed_launches = 0
+bg_fused.quantized_launches = 0
 
 
 def _operands(image, cfg: BGConfig, carry, alpha, precision: str = "fp32"):

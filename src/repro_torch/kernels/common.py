@@ -28,6 +28,7 @@ __all__ = [
     "precision_bytes",
     "storage_dtype",
     "round_storage",
+    "stores_quantized_exactly",
 ]
 
 PRECISIONS = ("fp32", "bf16")
@@ -99,3 +100,17 @@ def gc_row_split(r: int) -> int:
     """Rows [0, c) of a stripe land on plane s; rows [c, r) on plane s+1,
     where c = number of i in [0,r) with round(i/r) == 0."""
     return int(np.sum(gc_cells(r, r) == 0))
+
+
+def stores_quantized_exactly(cfg: BGConfig, precision: str) -> bool:
+    """Whether the storage type of ``precision`` holds every value that
+    ``quantize_intensity`` gives on the kernels' output in that type,
+    upcast. Always in fp32. In bf16 when ``cfg.intensity_max`` (as float32,
+    the clamp's bound) is a bf16 value, as 255 is: a bf16 value of
+    magnitude 256 or more is an integer already and quantizes to itself, one
+    below quantizes to an integer of magnitude at most 256, and both are
+    bf16 values, so only the clamp to the top can leave bf16. Where it
+    holds, the fused kernels' quantizing store (``bg_fused(quantize=True)``)
+    gives the plan's output bit for bit."""
+    top = torch.tensor(cfg.intensity_max, dtype=torch.float32)
+    return bool(round_storage(top, precision) == top)

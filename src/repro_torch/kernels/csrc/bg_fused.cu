@@ -7,7 +7,9 @@
 // (pallas_call at bg_fused.py:645, temporal=False) and temporal (pallas_call
 // at bg_fused.py:569, temporal=True). It computes what that kernel computes,
 // per frame: the paper's grid creation, 3x3x3 Gaussian filter with per-cell
-// normalization (eq. 4), and trilinear slice, unquantized. The temporal
+// normalization (eq. 4), and trilinear slice, unquantized unless the shape
+// asks for the plan's output quantization, which TI's store then applies
+// (bg::st_out). The temporal
 // launch blends each blurred homogeneous plane with the frame's carry,
 // B' = (1-a) B + a C, before normalizing it for TI, and writes B' as the
 // new carry.
@@ -78,7 +80,8 @@
 // and rounded as GF reads it (bg::xmix<T>); GF, the blend and the
 // normalization compute in fp32; the carry is read and written as bf16; a
 // normalized value is rounded as it is stored; TI's z weights are rounded
-// (bg::zlerp<T>); the output is stored as bf16.
+// (bg::zlerp<T>); the output is stored as bf16, quantized (when asked)
+// from its bf16 value.
 //
 // TI. A thread takes one column of a stripe (neighbouring threads on
 // neighbouring columns, so loads and stores are coalesced), y-lerps the
@@ -118,6 +121,8 @@ struct Args {
   int band, tile, rows, n_stripes, n_cells;
   unsigned r_magic;  // ceil(2^32 / r): j / r == umulhi(j, r_magic) for r > 1
   float inv_rs, rs, rcp_rs, t0, t1, t2;
+  int quantize;  // TI stores bg::quantize of each pixel, clamped to imax
+  float imax;
 };
 
 // x-mixed values of three raw planes held as [z][cell] with `stride` cells,
@@ -395,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) bg_fused_kernel(const Args<T> a) {
             // the value first, then its address (as `dst[i] = value`
             // sequences them): fewer registers live across TI
             const float v = bg::ti_pixel_y<T>(table, px[u], a.inv_rs, gz, __ldg(a.xf + m0 + u));
-            bg::st(dst + static_cast<size_t>(m0 + u) * w + j, v);
+            bg::st_out(dst + static_cast<size_t>(m0 + u) * w + j, v, a.quantize, a.imax);
           }
         }
       }
@@ -438,6 +443,8 @@ struct LaunchShape {
   int b, h, w, r, gx, gy, gz, split, band, tile, rows;
   float inv_rs, rs, rcp_rs, t0, t1, t2;
   int smem_bytes, device;
+  int quantize;  // 1: the plan's output quantization in TI's store
+  float imax;    // its clamp, the config's intensity_max
 };
 
 template <class T>
@@ -448,7 +455,7 @@ static Args<T> make_args(const T* img, T* out, const float* yf, const float* xf,
   return Args<T>{img, out, yf, xf, carry_in, carry_out, alpha, s.h, s.w, r, s.gx, s.gy, s.gz,
               s.split, s.band, s.tile, s.rows, (s.h + r - 1) / r, (s.w + r - 1) / r,
               r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s.inv_rs,
-              s.rs, s.rcp_rs, s.t0, s.t1, s.t2};
+              s.rs, s.rcp_rs, s.t0, s.t1, s.t2, s.quantize, s.imax};
 }
 
 extern "C" {

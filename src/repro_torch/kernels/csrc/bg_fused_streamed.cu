@@ -7,7 +7,8 @@
 // copies stripe s+1 into VMEM while stripe s computes; the validity mask is
 // made from counters. Its contract is the TPU kernel's: bit for bit the
 // output of the fused kernel (B1), in both storage types (fp32 and bf16,
-// the template parameter T, with B1's rounding points; bg_common.cuh).
+// the template parameter T, with B1's rounding points; bg_common.cuh),
+// quantized in TI's store when the shape asks for it, as B1 is.
 //
 // What bounds it on this card: HBM bytes, as for B1. A frame is read once
 // and written once, 8 B per pixel: 16.6 MB for a 1080x1920 frame, 4.95 us at
@@ -106,6 +107,8 @@ struct Args {
   int band, tile, chunk, ring_rows, n_stripes, n_cells;
   unsigned r_magic;  // ceil(2^32 / r): j / r == umulhi(j, r_magic) for r > 1
   float inv_rs, rs, rcp_rs, t0, t1, t2;
+  int quantize;  // TI stores bg::quantize of each pixel, clamped to imax
+  float imax;
 };
 
 // grid: (bands, tiles, frames). Shared memory, with NR = tile + 3 raw cells,
@@ -351,30 +354,41 @@ __global__ void __launch_bounds__(kThreads) bg_fused_streamed_kernel(const Args<
       const int s0 = (k * r - row0) % RR;
       T* dst = o + static_cast<size_t>(k) * r * w;
       const T* col0 = ring + lead - jw;  // column j of the row in slot s: col0[s * RW + j]
-      for (int j = col_lo + threadIdx.x; j < col_hi; j += kThreads) {
-        const int y0 = r > 1 ? static_cast<int>(__umulhi(j, a.r_magic)) : j;
-        const bg::YLerp<bg::SmemPlanes> yl{planes, y0 - c0, min(y0 + 1, gy - 1) - c0,
-                                           __ldg(a.yf + j)};
+      // the quantizing store or the plain one, chosen once a stripe and not
+      // a pixel: TI's loop is B3's hottest (a select a pixel cost up to 2.3
+      // us a full-HD frame at r=4 on an H100)
+      const auto columns = [&](auto quant) {
+        for (int j = col_lo + threadIdx.x; j < col_hi; j += kThreads) {
+          const int y0 = r > 1 ? static_cast<int>(__umulhi(j, a.r_magic)) : j;
+          const bg::YLerp<bg::SmemPlanes> yl{planes, y0 - c0, min(y0 + 1, gy - 1) - c0,
+                                             __ldg(a.yf + j)};
 #pragma unroll 4
-        for (int z = 0; z < gz; ++z) tab[z * kThreads] = make_float2(yl(0, z), yl(1, z));
-        for (int m0 = 0; m0 < m_hi; m0 += kRows) {
-          float px[kRows];
+          for (int z = 0; z < gz; ++z) tab[z * kThreads] = make_float2(yl(0, z), yl(1, z));
+          for (int m0 = 0; m0 < m_hi; m0 += kRows) {
+            float px[kRows];
 #pragma unroll
-          for (int u = 0; u < kRows; ++u) {
-            int slot = s0 + m0 + u;
-            if (slot >= RR) slot -= RR;
-            px[u] = m0 + u < m_hi ? bg::ld(col0 + slot * RW + j) : 0.f;
-          }
+            for (int u = 0; u < kRows; ++u) {
+              int slot = s0 + m0 + u;
+              if (slot >= RR) slot -= RR;
+              px[u] = m0 + u < m_hi ? bg::ld(col0 + slot * RW + j) : 0.f;
+            }
 #pragma unroll
-          for (int u = 0; u < kRows; ++u) {
-            if (m0 + u < m_hi) {
-              // the value first, then its address (as `dst[i] = value`
-              // sequences them): fewer registers live across TI
-              const float v = bg::ti_pixel_pairs<T>(pair, px[u], a.inv_rs, gz, xfs[m0 + u]);
-              bg::st(dst + static_cast<size_t>(m0 + u) * w + j, v);
+            for (int u = 0; u < kRows; ++u) {
+              if (m0 + u < m_hi) {
+                // the value first, then its address (as `dst[i] = value`
+                // sequences them): fewer registers live across TI
+                const float v = bg::ti_pixel_pairs<T>(pair, px[u], a.inv_rs, gz, xfs[m0 + u]);
+                bg::st_out(dst + static_cast<size_t>(m0 + u) * w + j, v, decltype(quant)::value,
+                           a.imax);
+              }
             }
           }
         }
+      };
+      if (a.quantize) {
+        columns(std::true_type{});
+      } else {
+        columns(std::false_type{});
       }
     }
     // raw plane p-2 is dead (planes p-3 and p-1 are normalized): its slot
@@ -418,6 +432,8 @@ struct StreamShape {
   int b, h, w, r, gy, gz, split, band, tile, chunk, zgroup, ring_rows;
   float inv_rs, rs, rcp_rs, t0, t1, t2;
   int smem_bytes, device;
+  int quantize;  // 1: the plan's output quantization in TI's store
+  float imax;    // its clamp, the config's intensity_max
 };
 
 template <class T>
@@ -427,7 +443,7 @@ static int launch_shape(const T* img, T* out, const float* yf, const float* xf,
   const Args<T> a{img, out, yf, xf, s->h, s->w, r, s->gy, s->gz, s->split, s->band, s->tile,
                   s->chunk, s->ring_rows, (s->h + r - 1) / r, (s->w + r - 1) / r,
                   r > 1 ? static_cast<unsigned>(((1ull << 32) + r - 1) / r) : 0u, s->inv_rs,
-                  s->rs, s->rcp_rs, s->t0, s->t1, s->t2};
+                  s->rs, s->rcp_rs, s->t0, s->t1, s->t2, s->quantize, s->imax};
   switch (s->zgroup) {
     case 1:
       return launch<1>(a, s->b, s->smem_bytes, s->device, stream);

@@ -35,10 +35,10 @@ temporal and per-frame variants of one base plan per pack
 ``"reference"``, ``"fused"`` and ``"fused_streamed"`` routes, per frame and
 temporal (``"staged"`` has none there either): the kernel routes cast the
 frames to bf16 on the plan's device, run the bf16 entry points of B1, B2 and
-B3 (the contract is in ``kernels/bg_fused.py``), upcast the output to
-float32 before quantizing and keep the carry in bf16; the reference routes
-round the frames (and store the temporal carry) in bf16 and compute in
-fp32, with or without a mesh. A plan the JAX package rejects is rejected
+B3 (the contract is in ``kernels/bg_fused.py``; they quantize the bf16
+output in their store), upcast the output to float32 and keep the carry in
+bf16; the reference routes round the frames (and store the temporal carry)
+in bf16 and compute in fp32, with or without a mesh. A plan the JAX package rejects is rejected
 here with the same ``ValueError``.
 
 The device is part of the plan: ``device=None`` means the CUDA card and
@@ -82,8 +82,9 @@ frames of ``h x w``, on one H100 SXM (``HBM_BYTES_PER_S``,
               plus the frame's second read in B1 and B2 (GC and TI each read
               it; B3 reads it once), plus under bf16 the plan's two casts
               (frames to bf16 before the kernel, the output back to float32).
-  overhead_s  ``FRAME_OVERHEAD_S`` per frame (the quantization pass, and
-              what a kernel spends per frame above its bytes),
+  overhead_s  ``FRAME_OVERHEAD_S`` per frame (what a kernel spends per
+              frame above its bytes; fitted while the output quantization
+              was a pass of its own after the kernel),
               ``LAUNCH_OVERHEAD_S`` per kernel launch (host work per wrapper
               call, and a small launch filling the card poorly),
               ``STREAM_LAUNCH_OVERHEAD_S`` more per B3 launch. There is no
@@ -121,7 +122,13 @@ from repro_torch.core.bilateral_grid import (
     grid_shape,
     quantize_intensity,
 )
-from repro_torch.kernels.common import PRECISIONS, precision_bytes, round_storage, storage_dtype
+from repro_torch.kernels.common import (
+    PRECISIONS,
+    precision_bytes,
+    round_storage,
+    storage_dtype,
+    stores_quantized_exactly,
+)
 from repro_torch.sharding.bg_shard import BatchMesh
 
 __all__ = [
@@ -947,19 +954,29 @@ def _mesh_call(inner, mesh: BatchMesh, n_in: int, n_out: int):
 @functools.lru_cache(maxsize=256)
 def _plan_executable(plan: BGPlan):
     """ONE callable per plan: the compute route plus output quantization.
-    Under ``precision="fp32"`` every storage cast below is the identity. A
-    mesh plan runs the same route per shard (:func:`_mesh_call`) and
-    quantizes the gathered output."""
+    The fused routes (B1, B2, B3) quantize in the kernels' store, so no pass
+    over the output follows them; the others quantize after. Under
+    ``precision="fp32"`` every storage cast below is the identity. A mesh
+    plan runs the same route per shard (:func:`_mesh_call`): the fused
+    routes quantize in each shard's kernel (the quantization is per pixel,
+    so the gathered output is the same), the others the gathered output."""
     tracing.count("build")
     cfg = plan.cfg
     quant = plan.quantize_output
     prec = plan.precision
     sdt = plan.storage_dtype
     mesh = plan.mesh
+    # the kernels quantize in their store where their storage type holds
+    # every quantized value (in bf16: a range whose top bf16 holds, as
+    # 255); otherwise the plan quantizes after the upcast
+    in_store = quant and stores_quantized_exactly(cfg, prec)
 
     def _maybe_quantize(out):
-        out = out.to(torch.float32)  # the kernels' bf16 output, upcast
         return quantize_intensity(out, cfg) if quant else out
+
+    def _fused_exit(out):
+        out = out.to(torch.float32)  # the kernels' bf16 output, upcast
+        return out if in_store else _maybe_quantize(out)
 
     if plan.temporal and plan.backend == "reference":
         # the staged oracle: the grid is visible between GF and TI; under
@@ -983,14 +1000,14 @@ def _plan_executable(plan: BGPlan):
 
         def inner_temporal(frames, carry, alpha):
             return bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, carry=carry,
-                            alpha=alpha, precision=prec)
+                            alpha=alpha, precision=prec, quantize=in_store)
 
         if mesh is not None:
             inner_temporal = _mesh_call(inner_temporal, mesh, n_in=3, n_out=2)
 
         def fn(frames, carry, alpha):
             out, new_carry = inner_temporal(frames, carry, alpha)
-            return _maybe_quantize(out), new_carry
+            return _fused_exit(out), new_carry
 
         return fn
 
@@ -1037,12 +1054,12 @@ def _plan_executable(plan: BGPlan):
 
     def inner(frames):
         return bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, stream_input=stream_input,
-                        precision=prec)
+                        precision=prec, quantize=in_store)
 
     if mesh is None:
 
         def fn(frames):
-            return _maybe_quantize(inner(frames))
+            return _fused_exit(inner(frames))
 
         return fn
 
@@ -1050,7 +1067,7 @@ def _plan_executable(plan: BGPlan):
 
     def fn(frames):
         squeeze = frames.dim() == 2
-        out = _maybe_quantize(meshed(frames[None] if squeeze else frames))
+        out = _fused_exit(meshed(frames[None] if squeeze else frames))
         return out[0] if squeeze else out
 
     return fn

@@ -17,8 +17,8 @@ and no data crosses between shards. A mesh dispatch
      there: on a card the same kernel wrappers, each launch on that
      device's current stream;
   3. gathers the shards' real rows onto the mesh's first device, in order;
-  4. so the padding is dropped, and quantization (elementwise) runs once on
-     the gathered output.
+  4. so the padding is dropped. Each shard's route quantizes its own rows
+     (the fused kernels in their store): the quantization is per pixel.
 
 There are no collectives, and no new kernel: each shard is the kernel the
 single-device plan launches. A shard's frames are independent of the other

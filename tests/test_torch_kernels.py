@@ -27,7 +27,9 @@ from repro_torch.kernels.bg_fused import (
     stream_geometry,
     stream_smem_bytes,
 )
+from repro_torch.kernels.common import storage_dtype
 from repro_torch.kernels.ref import ref_fused
+from repro_torch.reliability import finite_rows
 
 # the module (the package attribute of the same name is the wrapper)
 K = importlib.import_module("repro_torch.kernels.bg_fused")
@@ -121,6 +123,79 @@ def test_output_independent_of_batch_tile(batch_tile):
     assert torch.equal(bg_fused_plain(imgs, cfg, batch_tile=batch_tile), base)
     for i in range(5):
         assert torch.equal(bg_fused(imgs[i].clone(), cfg), base[i])
+
+
+def same_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit where not NaN, and NaN at the same places."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a.masked_fill(nan, 0.0),
+                                                       b.masked_fill(b.isnan(), 0.0))
+
+
+def _below(v: float) -> float:
+    return float(np.nextafter(np.float32(v), np.float32(-np.inf)))
+
+
+def _above(v: float) -> float:
+    return float(np.nextafter(np.float32(v), np.float32(np.inf)))
+
+
+# (v, quantize_intensity(v) at intensity_max 255): torch.clamp(torch.floor(v
+# + 0.5), 0, 255) in fp32. Ties k + 0.5 round up and an ulp below one rounds
+# down, except under 1, where v + 0.5 itself rounds up to the tie's integer
+# (0.49999997 + 0.5 is 1.0 in fp32); the clamp keeps NaN and sends -inf
+# and +inf to the range's ends. The fused kernels' store (bg::quantize) must
+# give these bits.
+QUANT_EDGES = [(2.5, 3.0), (_below(2.5), 2.0), (_above(2.5), 3.0), (1.5, 2.0), (3.5, 4.0),
+               (_below(3.5), 3.0), (2.0, 2.0), (_below(2.0), 2.0), (0.5, 1.0), (_below(0.5), 1.0),
+               (-0.5, 0.0), (_below(-0.5), 0.0), (254.5, 255.0), (_below(254.5), 254.0),
+               (255.5, 255.0), (_below(255.5), 255.0), (300.0, 255.0), (-7.25, 0.0),
+               (float("inf"), 255.0), (float("-inf"), 0.0), (float("nan"), float("nan"))]
+
+
+def test_quantize_edge_values_follow_torch_clamp():
+    v = torch.tensor([e[0] for e in QUANT_EDGES], dtype=torch.float32)
+    want = torch.tensor([e[1] for e in QUANT_EDGES], dtype=torch.float32)
+    cfg = BGConfig(6, 4.0, 60.0)
+    got = quantize_intensity(v, cfg)
+    assert same_or_nan(got, want)
+    assert same_or_nan(got, torch.clamp(torch.floor(v + 0.5), 0.0, 255.0))
+    # a NaN row still fails the packer's finite guard, nothing else does
+    rows = got[None].repeat(3, 1)
+    rows[1:].masked_fill_(rows[1:].isnan(), 0.0)
+    assert finite_rows(rows).tolist() == [False, True, True]
+
+
+@pytest.mark.parametrize("temporal", [False, True], ids=["frame", "temporal"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_plain_quantize_is_quantize_intensity_of_the_output(precision, temporal):
+    """``bg_fused(..., quantize=True)`` on the CPU (the plain version) equals
+    ``quantize_intensity`` of the unquantized output, upcast, bit for bit:
+    round to the storage type, then quantize. The output stays in the
+    storage type, the carry is not quantized, and a frame with a NaN pixel
+    keeps a NaN row that the finite guard flags."""
+    cfg = BGConfig(6, 4.0, 60.0)
+    sdt = storage_dtype(precision)
+    x = torch.from_numpy(noisy_np(3, 40, 55))
+    x[0, 20, 30] = float("nan")
+    x = x.to(sdt)
+    kw = dict(precision=precision)
+    if temporal:
+        _, carry, alpha = temporal_inputs(3, 40, 55, cfg, "cpu")
+        kw.update(carry=carry.to(sdt), alpha=alpha)
+    raw = bg_fused(x, cfg, **kw)
+    got = bg_fused(x, cfg, batch_tile=2, quantize=True, **kw)
+    plain = bg_fused_plain(x, cfg, quantize=True, **kw)
+    if temporal:
+        (raw, raw_carry), (got, carry_q), (plain, plain_carry) = raw, got, plain
+        assert same_or_nan(carry_q.float(), raw_carry.float())
+        assert same_or_nan(plain_carry.float(), raw_carry.float())
+    assert got.dtype == plain.dtype == sdt
+    want = quantize_intensity(raw.float(), cfg)
+    assert same_or_nan(got.float(), want) and same_or_nan(plain.float(), want)
+    if not temporal:  # a frame alone equals its row of the batch
+        assert torch.equal(bg_fused(x[1], cfg, quantize=True, precision=precision), got[1])
+    assert finite_rows(got).tolist() == [False, True, True]
 
 
 STREAMED = [((40, 55), 6, 1), ((40, 55), 6, 3), ((61, 83), 7, 3), ((33, 47), 4, 1), ((60, 96), 5, 3)]
@@ -760,3 +835,97 @@ def test_bf16_kernels_odd_element_count_on_card(cuda, layout):
     o, c = bg_fused(x, cfg, carry=zero, alpha=alpha, precision="bf16")
     assert torch.equal(o, pwant) and torch.equal(c, pcarry)
     assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(c.float()).all())
+
+
+def planted_frames(b: int, h: int, w: int, r: int) -> torch.Tensor:
+    """``b`` >= 5 float32 frames for the quantizing store: noisy scenes with
+    a dark block (intensity 10) holding a NaN (frame 0), +inf (frame 1) or
+    -inf (frame 2) pixel, which the filter spreads into NaN and +-inf
+    outputs; flat frames at x.5 intensities (frame 3: 100.5 over 255.5;
+    frame 4: -0.5 beside 37.5), which it maps onto x.5 or within a few ulps
+    of it, and past both ends of the clamp."""
+    x = torch.from_numpy(noisy_np(b, h, w, seed=11))
+    rows, cols = slice(h // 4, h // 4 + 3 * r), slice(w // 4, w // 4 + 3 * r)
+    for i, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+        x[i, rows, cols] = 10.0
+        x[i, h // 4 + 3 * r // 2, w // 4 + 3 * r // 2] = v
+    x[3, :h // 2], x[3, h // 2:] = 100.5, 255.5
+    x[4, :, :w // 2], x[4, :, w // 2:] = -0.5, 37.5
+    return x
+
+
+QUANT_CARD = [((61, 83), BGConfig(7, 4.0, 50.0)), ((1080, 1920), PAPER_DEFAULT.bg)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("entry", ["B1", "B2", "B3"])
+@pytest.mark.parametrize("shape,cfg", QUANT_CARD, ids=["61x83-r7", "1080x1920-r12"])
+def test_quantizing_store_equals_quantize_intensity_on_card(cuda, shape, cfg, entry, precision):
+    """Each of the six entry points with ``quantize=True`` equals
+    ``quantize_intensity`` of its own ``quantize=False`` output (upcast for
+    bf16), NaN positions and +-inf included, at batch tiles that do not
+    divide the batch; the carry is not quantized; ``quantized_launches``
+    counts each quantizing launch."""
+    b = 5
+    sdt = storage_dtype(precision)
+    x = planted_frames(b, *shape, cfg.r).to(cuda).to(sdt)
+    kw = dict(precision=precision, stream_input=entry == "B3")
+    if entry == "B2":
+        _, carry, _ = temporal_inputs(b, *shape, cfg, cuda)
+        kw.update(carry=carry.to(sdt), alpha=torch.tensor([0.0, 0.4, 0.6, 0.8, 0.5], device=cuda))
+    for bt in (None, 2, 3):
+        launches = bg_fused.quantized_launches
+        raw = bg_fused(x, cfg, batch_tile=bt, **kw)
+        got = bg_fused(x, cfg, batch_tile=bt, quantize=True, **kw)
+        torch.cuda.synchronize()
+        assert bg_fused.quantized_launches == launches + (1 if bt is None else -(-b // bt))
+        if entry == "B2":
+            (raw, raw_carry), (got, got_carry) = raw, got
+            assert same_or_nan(got_carry.float(), raw_carry.float())
+        assert got.dtype == sdt
+        assert same_or_nan(got.float(), quantize_intensity(raw.float(), cfg)), bt
+    f = raw.float()
+    assert bool(f.isnan().any()) and bool((f == float("inf")).any()) and bool((f == float("-inf")).any())
+    assert bool(((f - f.floor() - 0.5).abs() <= 1e-4).any())
+    q = got.float()
+    assert bool((q == 255.0).any()) and bool((q == 0.0).any())
+    assert finite_rows(got).tolist() == [False, False, False, True, True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,kernels", [("fp32", 1), ("bf16", 3)])
+@pytest.mark.parametrize("backend,temporal", [("fused", False), ("fused_streamed", False), ("fused", True)],
+                         ids=["B1", "B3", "B2"])
+def test_fused_plan_dispatch_has_no_quantization_pass_on_card(cuda, backend, temporal, precision, kernels):
+    """A fused plan's dispatch of card frames runs its kernel alone (fp32),
+    or the kernel between the frames' cast to bf16 and the output's upcast
+    (bf16), whether it quantizes or not: the quantization is in the
+    kernel's store, not three elementwise passes after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.plan import BGPlan
+
+    cfg = BGConfig(7, 4.0, 50.0)
+    x = torch.from_numpy(noisy_np(4, 61, 83)).to(cuda)
+    kw = {}
+    if temporal:
+        _, carry, alpha = temporal_inputs(4, 61, 83, cfg, cuda)
+        kw = dict(carry=carry.to(storage_dtype(precision)), alpha=alpha)
+    outs = {}
+    for quantize in (False, True):
+        plan = BGPlan(cfg, backend=backend, temporal=temporal, precision=precision,
+                      quantize_output=quantize, device=cuda)
+        plan(x, **kw)  # builds and caches outside the profiled call
+        torch.cuda.synchronize()
+        launches = bg_fused.quantized_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = plan(x, **kw)
+            torch.cuda.synchronize()
+        ops = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+        assert len(ops) == kernels, ops
+        assert bg_fused.quantized_launches == launches + quantize
+        outs[quantize] = out[0] if temporal else out
+    assert torch.equal(outs[True], quantize_intensity(outs[False], cfg))

@@ -355,6 +355,53 @@ def test_fp32_plans_unchanged_byte_for_byte(shape, args):
     assert got == {k: v for k, v in FP32_DIGESTS.items() if k.startswith(f"{h}x{w}-")}
 
 
+# every route of the plan layer: (backend, temporal, precision, mesh size;
+# 0: no mesh)
+EXIT_ROUTES = [
+    ("fused", False, "fp32", 0), ("fused_streamed", False, "fp32", 0), ("reference", False, "fp32", 0),
+    ("staged", False, "fp32", 0), ("streaming", False, "fp32", 0), ("fused", False, "bf16", 0),
+    ("fused_streamed", False, "bf16", 0), ("reference", False, "bf16", 0), ("fused", True, "fp32", 0),
+    ("reference", True, "fp32", 0), ("fused", True, "bf16", 0), ("reference", True, "bf16", 0),
+    ("fused", False, "fp32", 3), ("fused_streamed", False, "bf16", 3), ("streaming", False, "fp32", 3),
+    ("fused", True, "fp32", 3), ("fused", True, "bf16", 3),
+]
+
+
+@pytest.mark.parametrize("intensity_max", [255.0, 1023.0])
+@pytest.mark.parametrize("backend,temporal,precision,mesh", EXIT_ROUTES,
+                         ids=["-".join(map(str, r)) for r in EXIT_ROUTES])
+def test_quantized_plans_keep_the_exit_formula(backend, temporal, precision, mesh, intensity_max):
+    """Every route's quantized output is ``quantize_intensity`` of its
+    unquantized output upcast to float32, bit for bit, as the plan computed
+    it when the quantization was a pass after every route: the fused
+    routes quantize in the kernels' store (each shard's kernel under a
+    mesh), the others after. A bf16 plan whose range top bf16 does not hold
+    (1023) quantizes after the upcast; the carry is never quantized."""
+    from repro_torch.kernels.common import stores_quantized_exactly
+    from repro_torch.sharding import BatchMesh
+
+    cfg = BGConfig(4, 3.0, 50.0, intensity_max=intensity_max)
+    assert stores_quantized_exactly(cfg, precision) == (precision == "fp32" or intensity_max == 255.0)
+    x = _frames(5, 37, 53, seed=3) * np.float32(intensity_max / 255.0)
+    kw = dict(backend=backend, temporal=temporal, precision=precision, device="cpu")
+    if mesh:
+        del kw["device"]
+        kw["mesh"] = BatchMesh(("cpu",) * mesh)
+    args = {}
+    if temporal:
+        rng = np.random.default_rng(5)
+        args = dict(carry=rng.uniform(0.0, 4.0, (5, *grid_shape(37, 53, cfg), 2)).astype(np.float32),
+                    alpha=np.asarray([0.0, 0.6, 0.8, 0.4, 0.5], np.float32))
+    raw = BGPlan(cfg, quantize_output=False, **kw)(x, **args)
+    got = BGPlan(cfg, quantize_output=True, **kw)(x, **args)
+    if temporal:
+        (raw, raw_carry), (got, carry) = raw, got
+        assert torch.equal(carry, raw_carry)
+    assert raw.dtype == got.dtype == torch.float32
+    assert torch.equal(got, quantize_intensity(raw, cfg))
+    assert (float(got.max()) > 255.0) == (intensity_max > 255.0)  # the range is used
+
+
 # ------------------------------------------------------------- snapshots
 def _warm_packer(precision, shape=(36, 48), steps=3):
     cfg = BGConfig(6, 4.0, 60.0)

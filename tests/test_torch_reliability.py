@@ -470,21 +470,37 @@ def test_nan_frame_poisons_carry_without_guards():
 
 
 def test_pack_guarded_flags():
+    _check_pack_guarded_flags("cpu")
+
+
+@pytest.mark.gpu
+def test_pack_guarded_flags_on_card(cuda):
+    """On the card B2 quantizes in its store: a NaN that reaches the output
+    stays NaN there (no clamp to 255), so the poisoned row is still
+    flagged."""
+    from repro_torch.kernels import bg_fused
+
+    quantized = bg_fused.quantized_launches
+    _check_pack_guarded_flags(cuda)
+    assert bg_fused.quantized_launches > quantized
+
+
+def _check_pack_guarded_flags(device):
     frames = _frames(1)
     nan_frame = frames[0].copy()
     nan_frame[0, 0] = np.nan
-    packer = MultiStreamPacker(CFG, device="cpu")
+    packer = MultiStreamPacker(CFG, device=device)
     packer.open("bad", alpha=0.6)
     packer.open("good", alpha=0.6)
     packer.open("cold", alpha=0.0)
     _, guard = packer.pack_guarded({"bad": nan_frame, "good": frames[0], "cold": frames[0]})
     order = list(guard.order)
     assert sorted(order) == order
-    out_ok = guard.out_ok.numpy()
+    out_ok = guard.out_ok.cpu().numpy()
     assert not out_ok[order.index("bad")]
     assert out_ok[order.index("good")] and out_ok[order.index("cold")]
     assert set(guard.carry_sids) == {"bad", "good"}
-    flags = dict(zip(guard.carry_sids, guard.carry_ok.numpy()))
+    flags = dict(zip(guard.carry_sids, guard.carry_ok.cpu().numpy()))
     assert not flags["bad"] and flags["good"]
     results, guard = packer.pack_guarded({})
     assert results == {} and guard.out_ok is None and guard.carry_sids == ()
