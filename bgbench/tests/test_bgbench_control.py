@@ -18,7 +18,7 @@ if str(BENCH) not in sys.path:
 from harness.result import run_cell  # noqa: E402
 from harness.spec import Spec  # noqa: E402
 
-BATCH = ["fullhd-r12.batch16", "fullhd-r4.batch16"]
+BATCH = ["fullhd-r12.batch16", "fullhd-r4.batch16", "fullhd-r16.batch16", "fullhd-r8.batch16"]
 LIVE = ["fullhd-r12.live60", "fullhd-r4.live60"]
 
 

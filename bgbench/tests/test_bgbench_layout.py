@@ -120,8 +120,8 @@ def test_a_later_cell_config_mix_and_metric_are_new_files_only(tmp_path):
     before = _digest(tmp_path / "bgbench")
     new = tmp_path / "bgbench"
     cfg = json.loads((new / "configs" / "bg-fullhd-r12.json").read_text())
-    cfg.update(name="bg-fullhd-r8", r=8, height=48, width=64)
-    (new / "configs" / "bg-fullhd-r8.json").write_text(json.dumps(cfg))
+    cfg.update(name="bg-later-r6", r=6, height=48, width=64)
+    (new / "configs" / "bg-later-r6.json").write_text(json.dumps(cfg))
     mix = json.loads((new / "traffic" / "batch16.json").read_text())
     mix.update(frames_per_dispatch=4, pool_frames=8)
     (new / "traffic" / "batch4.json").write_text(json.dumps(mix))
@@ -131,27 +131,27 @@ def test_a_later_cell_config_mix_and_metric_are_new_files_only(tmp_path):
         "def read(run):\n    spans = run.spans.get('engine')\n"
         "    return len(spans) / run.window_s if spans else None\n")
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "bg-fullhd-r8", "source": cfg["source"],
-                             "file": "bgbench/configs/bg-fullhd-r8.json", "reduced": [],
-                             "why": "Table I's middle window"})
-    bench["workloads"].append({"name": "fullhd-r8.batch4", "config": "bg-fullhd-r8",
+    bench["configs"].append({"name": "bg-later-r6", "source": cfg["source"],
+                             "file": "bgbench/configs/bg-later-r6.json", "reduced": [],
+                             "why": "a later window radius"})
+    bench["workloads"].append({"name": "later-r6.batch4", "config": "bg-later-r6",
                                "traffic": "batch4", "chips": 1, "why": "a later cell"})
     bench["per_layer"].append({"name": "dispatch_rate.batch", "unit": "1/s", "better": "higher",
                                "source": "program_span", "layer": "frame engine (serving/frames.py)",
-                               "moves": "frames_per_s", "workloads": ["fullhd-r8.batch4"]})
+                               "moves": "frames_per_s", "workloads": ["later-r6.batch4"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    bench["workloads"].append({"name": "fullhd-r8.single", "config": "bg-fullhd-r8",
+    bench["workloads"].append({"name": "later-r6.single", "config": "bg-later-r6",
                                "traffic": "single", "chips": 1, "why": "a later entry point"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    spec = Spec(bench, "fullhd-r8.batch4", tmp_path, new)
-    assert spec.config["r"] == 8 and spec.traffic["frames_per_dispatch"] == 4
+    spec = Spec(bench, "later-r6.batch4", tmp_path, new)
+    assert spec.config["r"] == 6 and spec.traffic["frames_per_dispatch"] == 4
 
     from harness.result import run_cell
 
     result, _ = run_cell(spec, 77, 0.3, True, "cpu", time.perf_counter())
     assert result["correct"]
     assert result["metrics"]["dispatch_rate.batch"]["value"] > 0
-    result, _ = run_cell(Spec(bench, "fullhd-r8.single", tmp_path, new), 78, 0.2, False, "cpu",
+    result, _ = run_cell(Spec(bench, "later-r6.single", tmp_path, new), 78, 0.2, False, "cpu",
                          time.perf_counter())
     assert result["correct"] and result["checks"]["frames_checked"] == 2
     assert result["metrics"]["frames_per_s"]["value"] > 0

@@ -42,6 +42,20 @@ def test_reference_equals_the_programs_plain_filter(path, hw):
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
+def test_every_configuration_states_the_grid_of_its_frame(path):
+    from repro_torch.core.bilateral_grid import BGConfig, grid_shape
+
+    from harness import counts
+
+    cfg = json.loads(path.read_text())
+    h, w = cfg["height"], cfg["width"]
+    prog_cfg = BGConfig(r=cfg["r"], sigma_s=cfg["sigma_s"], sigma_r=cfg["sigma_r"],
+                        intensity_max=cfg["intensity_max"])
+    assert tuple(cfg["grid"]) == counts.grid_shape(h, w, cfg) == grid_shape(h, w, prog_cfg)
+    assert tuple(cfg["grid"]) == ref.grid_shape(h, w, ref.BG(cfg))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
 def test_temporal_replay_equals_the_programs_staged_oracle(path):
     from repro_torch.core.bilateral_grid import BGConfig
     from repro_torch.plan import BGPlan
