@@ -951,6 +951,18 @@ def _mesh_call(inner, mesh: BatchMesh, n_in: int, n_out: int):
     return call
 
 
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``. Where that converts, as the fused routes' two storage
+    casts do under ``precision="bf16"`` (the frames to bf16 before the
+    kernel, its output back to float32), a ``plan.cast`` span with one
+    ``cast`` count; under fp32 both are the identity and record nothing."""
+    if t.dtype == dtype:
+        return t
+    with tracing.span("plan.cast"):
+        tracing.count("cast")
+        return t.to(dtype)
+
+
 @functools.lru_cache(maxsize=256)
 def _plan_executable(plan: BGPlan):
     """ONE callable per plan: the compute route plus output quantization.
@@ -975,7 +987,7 @@ def _plan_executable(plan: BGPlan):
         return quantize_intensity(out, cfg) if quant else out
 
     def _fused_exit(out):
-        out = out.to(torch.float32)  # the kernels' bf16 output, upcast
+        out = _cast(out, torch.float32)  # the kernels' bf16 output, upcast
         return out if in_store else _maybe_quantize(out)
 
     if plan.temporal and plan.backend == "reference":
@@ -999,7 +1011,7 @@ def _plan_executable(plan: BGPlan):
         from repro_torch.kernels.bg_fused import bg_fused
 
         def inner_temporal(frames, carry, alpha):
-            return bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, carry=carry,
+            return bg_fused(_cast(frames, sdt), cfg, batch_tile=plan.batch_tile, carry=carry,
                             alpha=alpha, precision=prec, quantize=in_store)
 
         if mesh is not None:
@@ -1053,8 +1065,8 @@ def _plan_executable(plan: BGPlan):
     stream_input = plan.backend == "fused_streamed"
 
     def inner(frames):
-        return bg_fused(frames.to(sdt), cfg, batch_tile=plan.batch_tile, stream_input=stream_input,
-                        precision=prec, quantize=in_store)
+        return bg_fused(_cast(frames, sdt), cfg, batch_tile=plan.batch_tile,
+                        stream_input=stream_input, precision=prec, quantize=in_store)
 
     if mesh is None:
 

@@ -32,6 +32,8 @@ The names the port records (each is read by a benchmark metric):
                         :func:`as_frames`), with one ``sync`` count inside
   ``build`` (counter)   a kernel library compiled or loaded, a plan
                         executable or plan variant built (a cache miss)
+  ``plan.cast``         one storage cast of a fused route under bf16
+                        (``plan.py::_cast``), with one ``cast`` count inside
 """
 from __future__ import annotations
 

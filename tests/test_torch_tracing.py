@@ -201,6 +201,28 @@ def test_a_cache_miss_counts_a_build(cpu_plan):
     assert warm == 0 and cold == 1 and tile == 2
 
 
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_the_bf16_route_records_its_two_casts_and_fp32_none(precision):
+    """A bf16 dispatch's frames cast to bf16 and its output cast back are two
+    ``plan.cast`` spans under the root, each with one ``cast`` count; the
+    fp32 route records neither. The same for a pack on the temporal route."""
+    plan = BGPlan(CFG, precision=precision, device="cpu")
+    eng = warm_engine(plan)
+    packer = warm_packer(plan)
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(eng, frames(4, 4))
+        packer.pack(frames(4, 3))
+    recs = tracing.records()
+    roots = [i for i, r in enumerate(recs) if r.parent < 0]
+    assert [recs[i].name for i in roots] == ["engine.step", "packer.pack"]
+    n = 2 if precision == "bf16" else 0
+    for root in roots:
+        spans = [i for i in descendants(recs, root) if recs[i].name == "plan.cast"]
+        counts = [recs[i] for i in descendants(recs, root) if recs[i].name == "cast"]
+        assert len(spans) == n and sum(c.value for c in counts) == n
+        assert [c.parent for c in counts] == spans
+
+
 def test_a_kernel_library_counts_one_build_a_compile_or_load(monkeypatch, tmp_path):
     """A compile counts 1, a load of a library built before counts 1, a
     library already loaded counts nothing (a stand-in compiler and loader:
